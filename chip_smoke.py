@@ -26,8 +26,21 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      namespace selectors are live
   5. the sweep's [C, 1+K] reduction against the same state evaluated and
      reduced through the plain versions on the card
-  6. parity at a small size: audit and review results on the card against
-     the port's own InterpDriver oracle
+  6. the incremental audit, the second path, at the same size: churn
+     sweeps that change d stored pods before each (adds, modifications and
+     deletions) for d in 1, 16 and 256, each through the delta path (K5
+     gathers the before-columns, K1-K3 evaluate the dirty rows); after each
+     d a forced full sweep whose totals, results and counts must equal the
+     delta path's; one sweep at d = 257, which must take the full path, and
+     one full sweep after 256 changes with the delta path off (K6 patches
+     the resident inputs); every kernel's launch count over that run must
+     be > 0 for K5 and K6 and for K1-K3.  Every K5 and K6 call of that run
+     is recorded and held against its plain version, and each is timed at
+     its largest call; then one recorded delta sweep for each d holds
+     K1-K3 at the delta path's widths
+  7. parity at a small size: audit and review results on the card against
+     the port's own InterpDriver oracle, and the uncapped audit after 16
+     changed pods, through the delta path
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -68,8 +81,24 @@ SEED = 0
 WARM = 5
 REVIEWS = 256
 REPS = 20
+# the incremental audit's churn: pods changed before each sweep, sweeps
+# for each, and the first count the delta path refuses (DELTA_MAX_ROWS + 1)
+CHURN_D = (1, 16, 256)
+CHURN_SWEEPS = 5
+CHURN_FULL_D = 257
+# device memory the caching allocator takes before the counted churn run
+# and keeps: the recorder's copies (about 2.7 GB: the 134 MB mask for each
+# delta sweep, the 65 MB resident tree twice for each row scatter, each
+# copy one buffer) are cut from it, so no cudaMalloc runs inside a timed
+# sweep
+RECORD_RESERVE = 4 << 30
+# the spin that puts a timed call's launches in the queue ahead of the card:
+# about 1 ms at the H100's 1.98 GHz boost clock
+QUEUE_CYCLES = 2_000_000
 # the admission and sweep limits PERF.md holds the run against
 SWEEP_LIMIT_S = 1.0
+# the kernels of the first path (full sweeps and reviews)
+PATH1_KERNELS = ("match", "strpred", "setcount", "reduction")
 
 
 def log(phase: str, **fields):
@@ -114,7 +143,10 @@ def nvidia_smi_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median device time of fn() over CUDA events, one event pair per
-    call, after warm-up calls."""
+    call, after warm-up calls.  The stream first spins for QUEUE_CYCLES,
+    so the host has enqueued the start event, fn's launches and the end
+    event before the card reaches them, and the time between the events is
+    the card's alone, not the host's launch pace."""
     import torch
 
     for _ in range(warmup):
@@ -123,6 +155,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -131,19 +164,78 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-class Capture:
-    """Record the arguments and result of every call of the four kernel
-    wrappers that the driver and the evaluator call, for one run."""
+def _clone(x):
+    """A copy of every tensor and array in a dict / list / tuple tree.  The
+    tensors of one device are copied into one buffer, so a tree of many
+    leaves costs one allocation and no cudaMalloc per leaf."""
+    import numpy as np
+    import torch
 
-    def __init__(self):
+    tensors = _tensors(x)
+    copies = {}
+    for dev in {t.device for t in tensors}:
+        mine = [t for t in tensors if t.device == dev]
+        offs, n = [], 0
+        for t in mine:
+            offs.append(n)
+            n += -(-t.numel() * t.element_size() // 16) * 16
+        buf = torch.empty(n, dtype=torch.uint8, device=dev)
+        for t, off in zip(mine, offs):
+            c = buf[off:off + t.numel() * t.element_size()].view(
+                t.dtype).view(t.shape)
+            c.copy_(t)
+            copies[id(t)] = c
+
+    def rebuild(v):
+        if isinstance(v, torch.Tensor):
+            return copies[id(v)]
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if isinstance(v, dict):
+            return {k: rebuild(u) for k, u in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(rebuild(u) for u in v)
+        return v
+
+    return rebuild(x)
+
+
+def _tensors(x):
+    """The tensors of a dict / list / tuple tree, in order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+class Capture:
+    """Record the arguments and result of every call of the kernel
+    wrappers that the driver and the evaluator call, for one run: of all
+    six, or of the kernels in ``names``.  The arguments are copied before
+    the call and the result after it: the row scatter (K6) updates the
+    resident inputs in place, which a later sweep would otherwise change
+    under a recorded call."""
+
+    SITES = (
+        ("driver", "match_kernel", "match"),
+        ("driver", "packed_reduction", "reduction"),
+        ("vexpr", "strpred", "strpred"),
+        ("vexpr", "setcount", "setcount"),
+        ("driver", "delta_columns", "delta"),
+        ("driver", "scatter_rows", "scatter"),
+    )
+
+    def __init__(self, names=None):
         from gatekeeper_tpu_torch.ops import driver, vexpr
 
-        self.sites = [
-            (driver, "match_kernel", "match"),
-            (driver, "packed_reduction", "reduction"),
-            (vexpr, "strpred", "strpred"),
-            (vexpr, "setcount", "setcount"),
-        ]
+        mods = {"driver": driver, "vexpr": vexpr}
+        self.sites = [(mods[m], f, name) for m, f, name in self.SITES
+                      if names is None or name in names]
         self.calls = {name: [] for _m, _f, name in self.sites}
         self._orig = {}
 
@@ -153,11 +245,10 @@ class Capture:
             self._orig[(mod, fname)] = orig
 
             def wrapped(*a, _orig=orig, _name=name, **kw):
+                args = _clone(a)
                 out = _orig(*a, **kw)
                 # a copy: the driver ANDs into the match mask in place
-                kept = tuple(o.clone() for o in out) \
-                    if isinstance(out, tuple) else out.clone()
-                self.calls[_name].append((a, kw, kept))
+                self.calls[_name].append((args, kw, _clone(out)))
                 return out
 
             setattr(mod, fname, wrapped)
@@ -218,110 +309,233 @@ def bound(nbytes: int, ops: int) -> dict:
             "ops_ms": t_ops}
 
 
-def check_kernels(cap: Capture, reps: int):
-    """Phase 4: every captured call of every kernel against its plain
-    version on the same inputs; time and bound the first call of each."""
+class Kernel:
+    """One kernel's entry in check_kernels: where it lives, what it
+    replaces, and four functions of a recorded call.  ``prep(a, kw)`` puts
+    the call's arguments on the card once; ``kernel(p)`` and ``plain(p)``
+    run the kernel and its plain version on them (checked and timed
+    alike); ``work(p)`` -> (bytes, operations, shapes, the library call or
+    None); ``size(a)`` ranks the calls, and the largest (the first of
+    equals) is timed."""
+
+    def __init__(self, source, replaces, kernel, plain, work,
+                 prep=lambda a, kw: (a, kw), size=lambda a: 0):
+        self.source, self.replaces = source, replaces
+        self.kernel, self.plain, self.work = kernel, plain, work
+        self.prep, self.size = prep, size
+
+
+def _strpred_work(p):
     import torch
 
-    from gatekeeper_tpu_torch.ops import matchkernel, reduction, setcount
-    from gatekeeper_tpu_torch.ops import strpred
+    (tableT, idx, _tcode, sid, *_rest), _kw = p
+    C, N = idx.shape[0], sid.numel()
+    U = tableT.shape[1]
+    distinct = int(torch.unique(sid).numel())
+    flat = sid.reshape(-1).clamp(0, tableT.shape[0] - 1).long()
+    col = idx.long()[:, None]
+    return (C * N + N * 5 + C * 4 + distinct * U, 3 * C * N,
+            {"C": C, "N": N, "U": U, "vocab": tableT.shape[0],
+             "distinct_ids": distinct},
+            lambda: tableT[flat[None, :], col])
 
-    rows = []
-    # name -> (source, the JAX function it replaces, kernel, plain version)
-    specs = {
-        "match": (
+
+def _setcount_work(p):
+    (cids, _cmask, kids, orient, *_rest), _kw = p
+    C, P = cids.shape
+    R, K = kids.shape
+    return (C * R + C * P * 5 + R * K * 4, 2 * C * R * P * K,
+            {"C": C, "R": R, "P": P, "K": K, "orient": orient}, None)
+
+
+def _reduction_work(p):
+    (mask, K), _kw = p
+    C, R = mask.shape
+    k = min(K, R)
+    return C * R + C * (1 + k) * 4, C * R, {"C": C, "R": R, "K": k}, None
+
+
+def _match_work(p):
+    from gatekeeper_tpu_torch.ops import matchkernel
+
+    a, _kw = p
+    rv, cs = a[0], a[1]
+    records = a[2] if len(a) > 2 and a[2] is not None else \
+        matchkernel.constraint_records(cs)
+    return (*match_work(rv, cs, records[0]), None)
+
+
+def _delta_prep(a, kw):
+    """(mask, the indices on the mask's card, new)."""
+    import numpy as np
+    import torch
+
+    return a[0], torch.from_numpy(np.asarray(a[1], np.int32)).to(
+        a[0].device), a[2]
+
+
+def _delta_work(p):
+    import torch
+
+    mask, idx, new = p
+    C, w = new.shape
+    idx_l = idx.long()
+    # w gathered mask bytes and w fresh bytes a row read, 2w written, the
+    # indices; one select a cell
+    return (4 * C * w + 4 * w, 2 * C * w,
+            {"C": C, "R": mask.shape[1], "w": w},
+            lambda: torch.cat([mask.index_select(1, idx_l).to(torch.int8),
+                               new.to(torch.int8)], dim=1))
+
+
+def _scatter_prep(a, kw):
+    """Two copies of the recorded resident tree, one staged for K6 and one
+    with the rows and indices on the card for the plain version: both
+    write the same rows every time, so repeated calls are idempotent."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ops import scatter
+
+    k_tree, p_tree, idx, host_rows = _clone(a[0]), _clone(a[0]), a[1], a[2]
+    pairs = list(scatter.leaf_pairs(p_tree, host_rows))
+    dev = pairs[0][1].device
+    return {
+        "k_tree": k_tree, "p_tree": p_tree,
+        "staged": scatter.stage_rows(k_tree, idx, host_rows),
+        "plain": [(d, torch.as_tensor(r, device=dev)) for _p, d, r in pairs],
+        "idx": torch.as_tensor(np.asarray(idx, np.int64), device=dev),
+    }
+
+
+def _scatter_kernel(p):
+    from gatekeeper_tpu_torch.ops import scatter
+
+    scatter.scatter_staged_cuda(p["staged"])
+    return _tensors(p["k_tree"])
+
+
+def _scatter_plain(p):
+    for d, rows in p["plain"]:
+        d.index_copy_(0, p["idx"], rows)
+    return _tensors(p["p_tree"])
+
+
+def _scatter_work(p):
+    st = p["staged"]
+    n, row_bytes = st.n_rows, sum(st.row_bytes)
+    # each staged row read once and written once, the leaf table and the
+    # indices
+    return (2 * n * row_bytes + 24 * st.n_leaves + 8 * n, 0,
+            {"rows": n, "leaves": st.n_leaves, "row_bytes": row_bytes},
+            None)
+
+
+def kernel_specs() -> dict:
+    from gatekeeper_tpu_torch.ops import delta, matchkernel, reduction
+    from gatekeeper_tpu_torch.ops import setcount, strpred
+
+    def rows_of(a):
+        return len(a[1])
+
+    return {
+        "match": Kernel(
             "gatekeeper_tpu_torch/kernels/match.cu",
             "gatekeeper_tpu/ops/matchkernel.py:115",
-            lambda a, kw: matchkernel.match_kernel_cuda(*a, **kw),
-            lambda a, kw: matchkernel.match_kernel_plain(a[0], a[1]),
-        ),
-        "strpred": (
+            lambda p: matchkernel.match_kernel_cuda(*p[0], **p[1]),
+            lambda p: matchkernel.match_kernel_plain(p[0][0], p[0][1]),
+            _match_work),
+        "strpred": Kernel(
             "gatekeeper_tpu_torch/kernels/strpred.cu",
             "gatekeeper_tpu/ops/vexpr.py:418",
-            lambda a, kw: strpred.strpred_cuda(*a, **kw),
-            lambda a, kw: strpred.strpred_plain(*a, **kw),
-        ),
-        "setcount": (
+            lambda p: strpred.strpred_cuda(*p[0], **p[1]),
+            lambda p: strpred.strpred_plain(*p[0], **p[1]),
+            _strpred_work),
+        "setcount": Kernel(
             "gatekeeper_tpu_torch/kernels/setcount.cu",
             "gatekeeper_tpu/ops/vexpr.py:470",
-            lambda a, kw: setcount.setcount_cuda(*a, **kw),
-            lambda a, kw: setcount.setcount_plain(*a, **kw),
-        ),
-        "reduction": (
+            lambda p: setcount.setcount_cuda(*p[0], **p[1]),
+            lambda p: setcount.setcount_plain(*p[0], **p[1]),
+            _setcount_work),
+        "reduction": Kernel(
             "gatekeeper_tpu_torch/kernels/reduction.cu",
             "gatekeeper_tpu/ops/driver.py:88",
-            lambda a, kw: reduction.packed_reduction_cuda(*a, **kw),
-            lambda a, kw: reduction.packed_reduction_plain(*a, **kw),
-        ),
+            lambda p: reduction.packed_reduction_cuda(*p[0], **p[1]),
+            lambda p: reduction.packed_reduction_plain(*p[0], **p[1]),
+            _reduction_work),
+        "delta": Kernel(
+            "gatekeeper_tpu_torch/kernels/delta.cu",
+            "gatekeeper_tpu/ops/driver.py:3709",
+            lambda p: delta.delta_columns_cuda(*p),
+            lambda p: delta.delta_columns_plain(*p),
+            _delta_work, prep=_delta_prep, size=rows_of),
+        "scatter": Kernel(
+            "gatekeeper_tpu_torch/kernels/scatter.cu",
+            "gatekeeper_tpu/ops/driver.py:152",
+            _scatter_kernel, _scatter_plain, _scatter_work,
+            prep=_scatter_prep, size=rows_of),
     }
-    for name, (source, replaces, kfn, pfn) in specs.items():
-        calls = cap.calls[name]
+
+
+def check_kernels(cap: Capture, reps: int, timed):
+    """Every recorded call of every kernel against its plain version on
+    the same inputs, exactly, and against the main path's own output ->
+    name -> row; the kernels in ``timed`` are also timed and bounded at
+    their largest call."""
+    import torch
+
+    rows = {}
+    for name, spec in kernel_specs().items():
+        calls = cap.calls.get(name, [])
         if not calls:
-            raise AssertionError(f"the main path never called {name}")
+            if name in timed:
+                raise AssertionError(f"the main path never called {name}")
+            continue
         max_err = 0
         for a, kw, main_out in calls:
-            got, want = kfn(a, kw), pfn(a, kw)
+            p = spec.prep(a, kw)
+            got, want = _tensors(spec.kernel(p)), _tensors(spec.plain(p))
             torch.cuda.synchronize()
-            pairs = list(zip(got, want)) if isinstance(got, tuple) else \
-                [(got, want)]
-            mains = main_out if isinstance(main_out, tuple) else (main_out,)
-            for (g, w), m in zip(pairs, mains):
+            mains = _tensors(main_out)
+            if not (len(got) == len(want) == len(mains)):
+                raise AssertionError(f"{name}: output counts differ")
+            for g, w, m in zip(got, want, mains):
                 if g.shape != w.shape or g.dtype != w.dtype:
                     raise AssertionError(
                         f"{name}: kernel {tuple(g.shape)} {g.dtype} vs "
                         f"plain {tuple(w.shape)} {w.dtype}"
                     )
-                err = (g.long() - w.long()).abs().max().item() \
+                err = (g.double() - w.double()).abs().max().item() \
                     if g.numel() else 0
                 max_err = max(max_err, err)
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name}: kernel != plain ({err})")
                 if not torch.equal(m, g):
                     raise AssertionError(f"{name}: main path output differs")
-            if max_err != 0:
-                raise AssertionError(f"{name}: kernel != plain ({max_err})")
-        a, kw, _out = calls[0]
-        ms = cuda_ms(lambda: kfn(a, kw), reps)
-        plain_ms = cuda_ms(lambda: pfn(a, kw), max(3, reps // 4), warmup=1)
-        library_ms = None
-        shapes = {}
-        if name == "match":
-            rv, cs = a[0], a[1]
-            records = a[2] if len(a) > 2 and a[2] is not None else \
-                matchkernel.constraint_records(cs)
-            nbytes, ops, shapes = match_work(rv, cs, records[0])
-        elif name == "strpred":
-            tableT, idx, tcode, sid = a[:4]
-            C, N = idx.shape[0], sid.numel()
-            U = tableT.shape[1]
-            distinct = int(torch.unique(sid).numel())
-            nbytes = C * N + N * 5 + C * 4 + distinct * U
-            ops = 3 * C * N
-            flat = sid.reshape(-1).clamp(0, tableT.shape[0] - 1).long()
-            col = idx.long()[:, None]
-            library_ms = cuda_ms(lambda: tableT[flat[None, :], col], reps)
-            shapes = {"C": C, "N": N, "U": U, "vocab": tableT.shape[0],
-                      "distinct_ids": distinct}
-        elif name == "setcount":
-            cids, cmask, kids = a[:3]
-            C, P = cids.shape
-            R, K = kids.shape
-            nbytes = C * R + C * P * 5 + R * K * 4
-            ops = 2 * C * R * P * K
-            shapes = {"C": C, "R": R, "P": P, "K": K, "orient": a[3]}
-        else:
-            mask, K = a[0], a[1]
-            C, R = mask.shape
-            k = min(K, R)
-            nbytes = C * R + C * (1 + k) * 4
-            ops = C * R
-            shapes = {"C": C, "R": R, "K": k}
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, **bound(nbytes, ops),
-            "library_ms": library_ms, "calls_checked": len(calls),
+            del p, got, want
+        row = {"name": name, "route": "cuda", "source": spec.source,
+               "replaces": spec.replaces, "max_abs_err": max_err,
+               "calls_checked": len(calls)}
+        rows[name] = row
+        if name not in timed:
+            log("kernel_checked", **row)
+            continue
+        a, kw, _out = max(calls, key=lambda c: spec.size(c[0]))
+        p = spec.prep(a, kw)
+        nbytes, ops, shapes, library = spec.work(p)
+        sizes = sorted({spec.size(c[0]) for c in calls})
+        if len(sizes) > 1:
+            shapes["sizes_by_call"] = sizes
+        row.update({
+            "ms": cuda_ms(lambda: spec.kernel(p), reps),
+            "plain_ms": cuda_ms(lambda: spec.plain(p), max(3, reps // 4),
+                                warmup=1),
+            **bound(nbytes, ops),
+            "library_ms": None if library is None else cuda_ms(library, reps),
             "shapes": shapes,
         })
-        log("kernel", **rows[-1])
+        log("kernel", **row)
+        del p
     return rows
 
 
@@ -398,19 +612,23 @@ def check_edges():
     the main path does not reach: live label and namespace selectors of
     every kind (K1), ragged and unaligned rows and K past the count (K4),
     negative ids and both polarities (K2), every comparison in both
-    orientations (K3).  Exact."""
+    orientations (K3), each of K1-K3 at the delta path's 8 rows, duplicate
+    and last-row indices and all-true and all-false fresh columns with C off
+    the block size (K5), and duplicate and last-row indices, 1 and 256
+    rows, every leaf dtype and rank (K6).  Exact."""
     import numpy as np
     import torch
 
-    from gatekeeper_tpu_torch.convert import state_from_numpy
-    from gatekeeper_tpu_torch.ops import matchkernel, reduction, setcount
-    from gatekeeper_tpu_torch.ops import strpred
+    from gatekeeper_tpu_torch.convert import state_from_numpy, take_rows
+    from gatekeeper_tpu_torch.ops import delta, matchkernel, reduction
+    from gatekeeper_tpu_torch.ops import scatter, setcount, strpred
     from gatekeeper_tpu_torch.ops.interning import Interner
     from gatekeeper_tpu_torch.ops.pack import pack_constraints, pack_reviews
     from gatekeeper_tpu_torch.util import matchcorpus
 
     dev = torch.device(DEVICE)
-    checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0}
+    checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
+               "delta": 0, "scatter": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -421,7 +639,7 @@ def check_edges():
         checked[name] += 1
 
     for s in range(4):
-        for n_c, n_r in ((24, 40), (61, 3001)):
+        for n_c, n_r in ((24, 40), (61, 3001), (24, 8)):
             constraints, reviews = matchcorpus.make_corpus(SEED + s, n_c, n_r)
             interner = Interner()
             rv = pack_reviews(reviews, interner,
@@ -443,7 +661,8 @@ def check_edges():
         off = sub[3:].view(C, R)
         same("reduction", reduction.packed_reduction_cuda(off, K),
              reduction.packed_reduction_plain(off, K))
-    for C, shape, V, U in ((6, (1, 300), 40, 8), (3, (1, 77, 3), 9, 2)):
+    for C, shape, V, U in ((6, (1, 300), 40, 8), (3, (1, 77, 3), 9, 2),
+                           (128, (1, 8), 50, 8), (5, (1, 8, 4), 30, 4)):
         tableT = torch.from_numpy(
             (rng.random((V, U)) < 0.5).astype(np.uint8)).to(dev)
         idx = torch.from_numpy(rng.integers(0, U, C).astype(np.int32)).to(dev)
@@ -458,19 +677,202 @@ def check_edges():
                  strpred.strpred_plain(tableT, idx, tcode, sid, negate))
     cids = torch.from_numpy(rng.integers(0, 6, (9, 5)).astype(np.int32)).to(dev)
     cmask = torch.from_numpy(rng.random((9, 5)) < 0.7).to(dev)
-    kids = rng.integers(0, 6, (700, 4)).astype(np.int32)
-    kids[rng.random((700, 4)) < 0.4] = Interner.PAD
-    kids = torch.from_numpy(kids).to(dev)
-    for orient in (0, 1):
-        for op in range(6):
-            for n in (0, 1, 2):
-                same("setcount",
-                     setcount.setcount_cuda(cids, cmask, kids, orient, op, n,
-                                            Interner.PAD),
-                     setcount.setcount_plain(cids, cmask, kids, orient, op,
-                                             n, Interner.PAD))
+    for R in (700, 8):
+        kids = rng.integers(0, 6, (R, 4)).astype(np.int32)
+        kids[rng.random((R, 4)) < 0.4] = Interner.PAD
+        kids = torch.from_numpy(kids).to(dev)
+        for orient in (0, 1):
+            for op in range(6):
+                for n in (0, 1, 2):
+                    same("setcount",
+                         setcount.setcount_cuda(cids, cmask, kids, orient, op,
+                                                n, Interner.PAD),
+                         setcount.setcount_plain(cids, cmask, kids, orient,
+                                                 op, n, Interner.PAD))
+    # K5: C off the 256-thread block, duplicate and last-column indices,
+    # an all-true and an all-false fresh mask
+    for C, R, w, p_new in ((37, 1000, 8, 0.5), (1024, 4099, 256, 1.0),
+                           (3, 17, 16, 0.0), (129, 64, 8, 0.3)):
+        mask = torch.from_numpy(rng.random((C, R)) < 0.3).to(dev)
+        idx = rng.integers(0, R, w).astype(np.int32)
+        idx[:3] = R - 1
+        idx[3:5] = idx[5]
+        new = torch.from_numpy(rng.random((C, w)) < p_new).to(dev)
+        idx_t = torch.from_numpy(idx).to(dev)
+        same("delta", delta.delta_columns_cuda(mask, idx_t, new),
+             delta.delta_columns_plain(mask, idx_t, new))
+    # K6: every leaf dtype the pack holds at ranks 1-3, unaligned row
+    # lengths, 1 and 256 rows, duplicate and last-row indices
+    cap_rows = 1000
+
+    def leaves(n):
+        def ints(dtype, shape):
+            return rng.integers(-99, 99, (n,) + shape).astype(dtype)
+        return (
+            {"valid": rng.random(n) < 0.5, "mode": ints(np.int8, ()),
+             "odd": ints(np.int8, (3,)), "kind": ints(np.int32, ()),
+             "labels": ints(np.int32, (5, 2)), "wide": ints(np.int64, (3,))},
+            {("a", "b"): {"tcode": ints(np.int8, (7,)),
+                          "sid": ints(np.int32, (7,)),
+                          "num": rng.random((n, 7)),
+                          "mask": rng.random((n, 7)) < 0.5},
+             ("c",): {"cube": ints(np.int32, (2, 3, 2))}},
+        )
+
+    base = leaves(cap_rows)
+    for idx in (np.array([cap_rows - 1]), np.array([4]),
+                rng.permutation(cap_rows)[:256],
+                np.array([cap_rows - 1, 7, 7, cap_rows - 1, 0])):
+        fresh = leaves(len(idx))
+        # a duplicate index carries the same row, as the driver's do
+        first = {}
+        src = [first.setdefault(int(r), j) for j, r in enumerate(idx)]
+        fresh = take_rows(fresh, np.asarray(src))
+        a = state_from_numpy(base, dev)
+        b = state_from_numpy(base, dev)
+        scatter.scatter_staged_cuda(scatter.stage_rows(a, idx, fresh))
+        scatter.scatter_rows_plain(b, idx, fresh)
+        same("scatter", tuple(_tensors(a)), tuple(_tensors(b)))
     torch.cuda.synchronize()
     return checked
+
+
+
+class Churn:
+    """Seeded store churn for the incremental audit: ``step(d)`` changes d
+    stored pods on every client, a rotating mix of adds, modifications
+    (labels dropped or changed, as tests/test_delta_sweep.py does) and
+    deletions, each on its own pod, so d rows are dirtied.  Added pods
+    draw from the corpus's generator at a 50% violation rate."""
+
+    def __init__(self, clients, pods, seed: int):
+        import random
+
+        self.clients = clients
+        self.live = {p["metadata"]["name"]: p for p in pods}
+        self.pool = list(self.live)  # names a step may modify or delete
+        self.rng = random.Random(seed)
+        self.seed = seed
+        self.n = 0
+
+    def step(self, d: int) -> dict:
+        import copy
+
+        from gatekeeper_tpu_torch.util import synthetic as syn
+
+        ops = [("add", "modify", "delete")[(self.n + j) % 3]
+               for j in range(d)]
+        n_add, n_mod = ops.count("add"), ops.count("modify")
+        n_del = d - n_add - n_mod
+        picks = self.rng.sample(range(len(self.pool)), n_mod + n_del)
+        mods = [self.pool[i] for i in picks[:n_mod]]
+        dels = [self.pool[i] for i in picks[n_mod:]]
+        for j, pod in enumerate(syn.make_pods(n_add, seed=self.seed + self.n,
+                                              violation_rate=0.5)):
+            pod["metadata"]["name"] = f"churn-{self.n}-{j}"
+            self.live[pod["metadata"]["name"]] = pod
+            for c in self.clients:
+                c.add_data(copy.deepcopy(pod))
+        for name in mods:
+            pod = copy.deepcopy(self.live[name])
+            # always a change (an unchanged object dirties no row), and no
+            # string the store has not seen
+            pod["metadata"]["labels"] = next(
+                lb for lb in ({}, {"owner": "core"}, {"owner": "plat"})
+                if lb != pod["metadata"].get("labels"))
+            self.live[name] = pod
+            for c in self.clients:
+                c.add_data(copy.deepcopy(pod))
+        for name in dels:
+            pod = self.live.pop(name)
+            for c in self.clients:
+                c.remove_data(pod)
+        gone = set(dels)
+        self.pool = [n for n in self.pool if n not in gone]
+        self.pool.extend(f"churn-{self.n}-{j}" for j in range(n_add))
+        self.n += d
+        return {"add": n_add, "modify": n_mod, "delete": n_del}
+
+
+def churn_sweep(client, driver, pauses, d: int, ops: dict):
+    """One capped sweep after a churn step -> (its record, results,
+    totals): wall, stages, path, rows, constraint-side re-packs and the
+    garbage collector's pauses."""
+    side0 = dict(driver.side_stats)
+    pauses.reset()
+    t0 = time.perf_counter()
+    resp, totals = client.audit_capped(CAP)
+    wall_s = time.perf_counter() - t0
+    st = driver.last_sweep_stats
+    side = driver.side_stats
+    rec = {
+        "d": d, **ops, "s": wall_s,
+        "path": "delta" if "delta_rows" in st else "full",
+        **{k: st.get(k) for k in (
+            "pack_ms", "device_ms", "render_ms", "delta_rows",
+            "rendered_cells", "scatter_rows", "upload_bytes", "scatter_ms",
+        )},
+        "side_repacks": side["repacks"] - side0["repacks"],
+        "side_ms": side["pack_ms"] + side["upload_ms"]
+        - side0["pack_ms"] - side0["upload_ms"],
+        "gc_ms": pauses.ms, "gc_gen2": pauses.gen2,
+    }
+    return rec, resp, totals
+
+
+def churn_path(client, driver, churn: Churn, pauses):
+    """Phase 6's counted run: CHURN_SWEEPS delta sweeps for each d in
+    CHURN_D, each d closed by a forced full sweep that must agree with
+    it; a sweep at CHURN_FULL_D (the full path); a full sweep after 256
+    changes with the delta path off (the row scatter)."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.convert import tree_nbytes
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    stages = ("pack_ms", "device_ms", "render_ms")
+    for d in CHURN_D:
+        sweeps = []
+        for _ in range(CHURN_SWEEPS):
+            rec, resp, totals = churn_sweep(client, driver, pauses, d,
+                                            churn.step(d))
+            sweeps.append(rec)
+            if rec["path"] != "delta" or rec["delta_rows"] != d:
+                raise AssertionError(f"churn d={d}: {rec}")
+        counts = driver._delta_state.counts.copy()
+        sig = syn.audit_result_sig(resp.results())
+        driver._delta_state = None
+        driver._audit_cache = None
+        full, f_resp, f_totals = churn_sweep(client, driver, pauses, d, {})
+        equal = {
+            "totals": f_totals == totals,
+            "results": syn.audit_result_sig(f_resp.results()) == sig,
+            "counts": bool(np.array_equal(driver._delta_state.counts, counts)),
+        }
+        if full["path"] != "full" or not all(equal.values()):
+            raise AssertionError(f"churn d={d}: delta != full {equal}")
+        walls = [r["s"] for r in sweeps]
+        log("churn_sweeps", d=d, n=len(sweeps),
+            median_s=statistics.median(walls), worst_s=max(walls),
+            median_stage_ms={k: statistics.median(r[k] for r in sweeps)
+                             for k in stages},
+            equal_to_full=equal, results=len(sig), sweeps=sweeps,
+            full_sweep=full)
+    rec, _resp, _totals = churn_sweep(client, driver, pauses, CHURN_FULL_D,
+                                      churn.step(CHURN_FULL_D))
+    if rec["path"] != "full":
+        raise AssertionError(f"d={CHURN_FULL_D} took the delta path")
+    log("churn_full_path", **rec)
+    driver.delta_enabled = False
+    rec, _resp, _totals = churn_sweep(client, driver, pauses, 256,
+                                      churn.step(256))
+    driver.delta_enabled = True
+    ap = driver._audit_pack
+    full_bytes = tree_nbytes((ap.rp, ap.cols))
+    if rec["scatter_rows"] != 256:
+        raise AssertionError(f"full sweep after 256 changes: {rec}")
+    log("full_after_churn", full_upload_bytes=full_bytes,
+        upload_share=rec["upload_bytes"] / full_bytes, **rec)
 
 
 def main(argv=None) -> int:
@@ -549,10 +951,13 @@ def main(argv=None) -> int:
     stages = ("pack_ms", "device_ms", "render_ms")
 
     def warm_sweeps(phase):
-        """WARM warm sweeps; each one's wall time, stages, and the
-        garbage collector's pauses inside it."""
+        """WARM warm full sweeps of the unchanged store; each one's wall
+        time, stages, and the garbage collector's pauses inside it."""
         sweeps = []
         for _ in range(WARM):
+            # an unchanged store is otherwise served from the sweep cache
+            driver._delta_state = None
+            driver._audit_cache = None
             pauses.reset()
             t0 = time.perf_counter()
             resp2, totals2 = client.audit_capped(CAP)
@@ -617,7 +1022,7 @@ def main(argv=None) -> int:
         without_side_p99_ms=percentile(rest, 99),
         gc_pause_ms_total=sum(gc_ms), gc_pause_ms_max=max(gc_ms),
         launches=review_launches)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PATH1_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -649,9 +1054,7 @@ def main(argv=None) -> int:
             os.path.join(ROOT, "chiprun_out", "sweep_trace.json"))
 
     # 4. each kernel against its plain version, on the main path's inputs
-    kernel_rows = check_kernels(cap, REPS)
-    for row in kernel_rows:
-        row["launches"] = launches[row["name"]]
+    kernel_rows = check_kernels(cap, REPS, timed=PATH1_KERNELS)
 
     log("edges", checked=check_edges())
     log("match_live_selectors",
@@ -675,6 +1078,51 @@ def main(argv=None) -> int:
         raise AssertionError("sweep reduction differs from the plain path")
     log("plain_path", equal=True, shape=list(packed.shape),
         candidates=int(packed[:, 0].sum().item()))
+    del cap, plain_mask, plain_packed, packed, mask
+
+    # 6. the incremental audit
+    base_pods = syn.make_pods(args.pods, SEED + 1)
+    churn = Churn([client], base_pods, SEED + 5)
+    del base_pods
+    gc.callbacks.append(pauses)
+    gdev.reset_launches()
+    # K5's and K6's every call on this counted run is recorded: a copy of
+    # the arguments before the call and of the result after it, inside the
+    # sweep that makes it, from memory reserved here; K1-K3 are recorded on
+    # the pass after it
+    torch.empty(RECORD_RESERVE, dtype=torch.uint8, device=DEVICE)  # freed, kept
+    with Capture(names=("delta", "scatter")) as churn_cap:
+        churn_path(client, driver, churn, pauses)
+    churn_launches = dict(gdev.launches)
+    missing = [k for k in ("delta", "scatter", "match", "strpred",
+                           "setcount") if churn_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the incremental "
+                             f"path: {missing}")
+    log("churn_launches", main_path=churn_launches)
+    # K1-K3 at the delta path's widths: one delta sweep for each d, whose
+    # dirty rows pad to the same w = 8, 16 and 256 as the counted run's
+    with Capture(names=("match", "strpred", "setcount")) as cap2:
+        for d in CHURN_D:
+            churn.step(d)
+            client.audit_capped(CAP)
+            assert driver.last_sweep_stats.get("delta_rows") == d
+    gc.callbacks.remove(pauses)
+    churn_rows = check_kernels(churn_cap, REPS, timed=("delta", "scatter"))
+    del churn_cap
+    churn_rows.update(check_kernels(cap2, REPS, timed=()))
+    del cap2
+    for name, row in churn_rows.items():
+        if name in kernel_rows:
+            kernel_rows[name]["calls_checked"] += row["calls_checked"]
+            kernel_rows[name]["max_abs_err"] = max(
+                kernel_rows[name]["max_abs_err"], row["max_abs_err"])
+        else:
+            kernel_rows[name] = row
+    for name, row in kernel_rows.items():
+        row["launches"] = launches[name] + churn_launches[name]
+    log("checked", calls={k: r["calls_checked"]
+                          for k, r in kernel_rows.items()})
 
     # 6. parity at a small size against the interpreter oracle
     t0 = time.perf_counter()
@@ -699,16 +1147,25 @@ def main(argv=None) -> int:
                 for x in resps]
 
     assert sig(small.review_batch(rpods)) == sig(oracle.review_batch(rpods))
+    # the uncapped audit after churn, through the delta path
+    small_churn = Churn([small, oracle],
+                        syn.make_pods(args.parity_pods, SEED + 1), SEED + 9)
+    small_churn.step(16)
+    u_sig = syn.audit_result_sig(small.audit().results())
+    u_stats = dict(small.driver.last_sweep_stats)
+    assert u_stats.get("delta_rows") == 16, u_stats
+    assert u_sig == syn.audit_result_sig(oracle.audit().results())
     log("parity", seconds=time.perf_counter() - t0,
         templates=args.parity_templates, pods=args.parity_pods,
         results=len(s_sig), oracle_results=len(o_all),
-        exact_totals=len(exact))
+        exact_totals=len(exact), uncapped_after_churn=len(u_sig),
+        uncapped_stats=u_stats)
 
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",
                              "launches", "max_abs_err", "ms", "plain_ms",
                              "bound_ms", "bound_by", "library_ms")}
-        for row in kernel_rows
+        for row in kernel_rows.values()
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

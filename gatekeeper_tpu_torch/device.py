@@ -4,7 +4,7 @@ Every entry point of the port runs on the CUDA card unless the caller asks
 for the CPU (``device="cpu"``, as the tests do).  There is no silent CPU
 fallback: asking for the card without one raises.
 
-The four CUDA kernels (``kernels/*.cu``) are plain C-interface shared
+The CUDA kernels (``kernels/*.cu``) are plain C-interface shared
 libraries loaded with ``ctypes``: each source is compiled by its own
 ``nvcc`` process, all started together, into ``build/torch_kernels/`` at
 the repository root on first use.  Each library file name carries a hash
@@ -28,7 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
-KERNEL_NAMES = ("match", "strpred", "setcount", "reduction")
+KERNEL_NAMES = ("match", "strpred", "setcount", "reduction", "delta",
+                "scatter")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "kernels")
@@ -138,6 +139,8 @@ _SIGNATURES = {
     "strpred": ("gk_strpred_launch", "piipipplipp"),
     "setcount": ("gk_setcount_launch", "ppiipiiiiiipp"),
     "reduction": ("gk_packed_reduction_launch", "piiiipp"),
+    "delta": ("gk_delta_launch", "piipippp"),
+    "scatter": ("gk_scatter_launch", "pppiip"),
 }
 
 
