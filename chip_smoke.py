@@ -5,7 +5,8 @@ hand-written kernels against their plain PyTorch versions.
     python3 chip_smoke.py                 # 500 templates x 100k pods, cap 20
     python3 chip_smoke.py --profile       # plus a torch.profiler sweep
     python3 chip_smoke.py --templates 12 --pods 2000 \
-        --parity-templates 6 --parity-pods 300    # a quick check
+        --parity-templates 6 --parity-pods 300 \
+        --ref-templates 6 --ref-objects 3000      # a quick check
 
 Phases (one line each; any failure exits non-zero, nothing is caught):
   1. the card: nvidia-smi's name and power limit, torch's device name
@@ -41,6 +42,24 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   7. parity at a small size: audit and review results on the card against
      the port's own InterpDriver oracle, and the uncapped audit after 16
      changed pods, through the delta path
+  8. the referential audit, the third path: 24 referential templates
+     (unique ingress hosts, required storage classes, per-team pod
+     quotas) x 100,000 objects.  A cold sweep (K7 builds each join plan's
+     key table, K8 looks each cell's count up), checked on the spot: each
+     device table against the host join index of the same sweep, and the
+     [C, 1+K] reduction against the all-plain path; warm forced full
+     sweeps before and after gc.freeze(); churn sweeps through the join
+     delta path, key-neutral and key-moving, for d in 1 and 16, each d
+     closed by a forced full sweep that must equal it; one churn of a Pod
+     of the crowded team, whose readers exceed DELTA_MAX_ROWS at this size,
+     which must take the full path.  Each sweep logs its stages, rendered cells,
+     results, join-affected rows and the join index's host time.  K7, K8,
+     K1, K4, K5 and K6 must have launched on that run.  Every K7 and K8
+     call of the cold sweep and K8's of one key-moving delta sweep for each
+     d are held against the plain versions, K7 and K8 timed at their
+     largest call; seeded edge cases are in phase 4.  Then parity against
+     the oracle at 6 x 240 under GK_JOIN_ASSERT=1, capped, uncapped, and
+     uncapped after churn through the join delta path
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -99,6 +118,12 @@ QUEUE_CYCLES = 2_000_000
 SWEEP_LIMIT_S = 1.0
 # the kernels of the first path (full sweeps and reviews)
 PATH1_KERNELS = ("match", "strpred", "setcount", "reduction")
+# the referential audit's churn: objects changed before each delta sweep,
+# sweeps of each churn kind for each, and the oracle parity's size
+# (templates, objects)
+REF_CHURN_D = (1, 16)
+REF_CHURN_SWEEPS = 5
+REF_PARITY = (6, 240)
 
 
 def log(phase: str, **fields):
@@ -216,7 +241,7 @@ def _tensors(x):
 class Capture:
     """Record the arguments and result of every call of the kernel
     wrappers that the driver and the evaluator call, for one run: of all
-    six, or of the kernels in ``names``.  The arguments are copied before
+    eight, or of the kernels in ``names``.  The arguments are copied before
     the call and the result after it: the row scatter (K6) updates the
     resident inputs in place, which a later sweep would otherwise change
     under a recorded call."""
@@ -228,12 +253,14 @@ class Capture:
         ("vexpr", "setcount", "setcount"),
         ("driver", "delta_columns", "delta"),
         ("driver", "scatter_rows", "scatter"),
+        ("joinkeys", "join_keys", "joinkeys"),
+        ("vexpr", "join_lookup", "joinlookup"),
     )
 
     def __init__(self, names=None):
-        from gatekeeper_tpu_torch.ops import driver, vexpr
+        from gatekeeper_tpu_torch.ops import driver, joinkeys, vexpr
 
-        mods = {"driver": driver, "vexpr": vexpr}
+        mods = {"driver": driver, "vexpr": vexpr, "joinkeys": joinkeys}
         self.sites = [(mods[m], f, name) for m, f, name in self.SITES
                       if names is None or name in names]
         self.calls = {name: [] for _m, _f, name in self.sites}
@@ -265,7 +292,8 @@ class PlainVersions:
 
     def __enter__(self):
         from gatekeeper_tpu_torch.ops import (
-            driver, matchkernel, reduction, setcount, strpred, vexpr,
+            driver, joinkeys, joinlookup, matchkernel, reduction, setcount,
+            strpred, vexpr,
         )
 
         def match_plain(rv, cs, records=None):
@@ -276,6 +304,8 @@ class PlainVersions:
             (driver, "packed_reduction", reduction.packed_reduction_plain),
             (vexpr, "strpred", strpred.strpred_plain),
             (vexpr, "setcount", setcount.setcount_plain),
+            (joinkeys, "join_keys", joinkeys.join_keys_plain),
+            (vexpr, "join_lookup", joinlookup.join_lookup_plain),
         ]
         self.saved = [(m, f, getattr(m, f)) for m, f, _ in self.patches]
         for m, f, fn in self.patches:
@@ -431,9 +461,57 @@ def _scatter_work(p):
             None)
 
 
+def _joinkeys_work(p):
+    import torch
+
+    from gatekeeper_tpu_torch.ops import joinkernel
+
+    (valid, kind, ns_empty, sid, mask, kind_id, namespaced, vocab), _kw = p
+    R = valid.shape[0]
+    S = 1 if mask is None else sid.shape[1]
+    N = R * S
+    part = joinkernel.participation(valid, kind, ns_empty, kind_id,
+                                    namespaced)
+    rows = int(part.sum().item())
+    # the row-deduplicated provider keys, for the library call
+    if mask is None:
+        flat = sid[part & (sid >= 0)]
+    else:
+        flat = joinkernel.row_distinct_slot_keys(
+            sid, mask & (sid >= 0) & part[:, None], torch)
+        flat = flat[flat != int(joinkernel.KEY_INVALID)]
+    # bytes: three review fields a row, each key id and mask byte, the two
+    # [N] outputs; operations: the participation test of a row, three
+    # tests of a slot, an earlier-slot compare for each pair of slots of a
+    # participating row, one atomic a distinct key, one test a vocabulary id
+    nbytes = 6 * R + 4 * N + (0 if mask is None else N) + 8 * N
+    ops = 3 * R + 3 * N + rows * S * (S - 1) // 2 + int(flat.numel()) + vocab
+    return (nbytes, ops,
+            {"R": R, "S": S, "N": N, "vocab": vocab, "rows_taking_part": rows,
+             "provider_keys": int(flat.numel())},
+            lambda: torch.unique(flat, return_counts=True))
+
+
+def _joinlookup_work(p):
+    import torch
+
+    (uk, uc, q, scope), _kw = p
+    N, T, R = q.numel(), uk.numel(), q.shape[0]
+    # bytes: each query read and its count written, the table read once,
+    # three review fields a row when the self-exclusion runs; operations:
+    # the compares of one binary search a query, and the self test
+    steps = max(1, math.ceil(math.log2(T + 1)))
+    nbytes = 8 * N + 8 * T + (0 if scope is None else 6 * R)
+    ops = N * (steps + 2) + (0 if scope is None else 4 * N)
+    return (nbytes, ops,
+            {"N": N, "R": R, "T": T, "self_exclusion": scope is not None},
+            lambda: uc[torch.searchsorted(uk, q).clamp_(max=T - 1)])
+
+
 def kernel_specs() -> dict:
-    from gatekeeper_tpu_torch.ops import delta, matchkernel, reduction
-    from gatekeeper_tpu_torch.ops import setcount, strpred
+    from gatekeeper_tpu_torch.ops import delta, joinkeys, joinlookup
+    from gatekeeper_tpu_torch.ops import matchkernel, reduction, setcount
+    from gatekeeper_tpu_torch.ops import strpred
 
     def rows_of(a):
         return len(a[1])
@@ -474,6 +552,18 @@ def kernel_specs() -> dict:
             "gatekeeper_tpu/ops/driver.py:152",
             _scatter_kernel, _scatter_plain, _scatter_work,
             prep=_scatter_prep, size=rows_of),
+        "joinkeys": Kernel(
+            "gatekeeper_tpu_torch/kernels/joinkeys.cu",
+            "gatekeeper_tpu/ops/joinkernel.py:236",
+            lambda p: joinkeys.join_keys_cuda(*p[0], **p[1]),
+            lambda p: joinkeys.join_keys_plain(*p[0], **p[1]),
+            _joinkeys_work, size=lambda a: a[3].numel()),
+        "joinlookup": Kernel(
+            "gatekeeper_tpu_torch/kernels/joinlookup.cu",
+            "gatekeeper_tpu/ops/joinkernel.py:271",
+            lambda p: joinlookup.join_lookup_cuda(*p[0], **p[1]),
+            lambda p: joinlookup.join_lookup_plain(*p[0], **p[1]),
+            _joinlookup_work, size=lambda a: a[2].numel()),
     }
 
 
@@ -614,8 +704,13 @@ def check_edges():
     negative ids and both polarities (K2), every comparison in both
     orientations (K3), each of K1-K3 at the delta path's 8 rows, duplicate
     and last-row indices and all-true and all-false fresh columns with C off
-    the block size (K5), and duplicate and last-row indices, 1 and 256
-    rows, every leaf dtype and rank (K6).  Exact."""
+    the block size (K5), duplicate and last-row indices, 1 and 256
+    rows, every leaf dtype and rank (K6), and for the join kernels
+    (check_join_edges) no provider rows, every row on one key, duplicate
+    keys within a row, S = 1 and S > 32, R off the block size, int/str
+    twin keys (K7), queries at UNKNOWN_KEY, -1, the largest id and past
+    it, host tables of width TABLE_MIN and the self-exclusion on rows of
+    the wrong kind and scope (K8).  Exact."""
     import numpy as np
     import torch
 
@@ -628,7 +723,7 @@ def check_edges():
 
     dev = torch.device(DEVICE)
     checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
-               "delta": 0, "scatter": 0}
+               "delta": 0, "scatter": 0, "joinkeys": 0, "joinlookup": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -733,8 +828,84 @@ def check_edges():
         scatter.scatter_staged_cuda(scatter.stage_rows(a, idx, fresh))
         scatter.scatter_rows_plain(b, idx, fresh)
         same("scatter", tuple(_tensors(a)), tuple(_tensors(b)))
+    check_join_edges(rng, dev, same)
     torch.cuda.synchronize()
     return checked
+
+
+def check_join_edges(rng, dev, same):
+    """K7 and K8 against their plain versions on seeded edge cases (see
+    check_edges)."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ops import joinkernel, joinkeys, joinlookup
+    from gatekeeper_tpu_torch.ops.interning import Interner
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    it = Interner()
+    for i in range(50):
+        it.intern(f"k{i}")
+    twins = [joinkernel.intern_join_key(v, it) for v in (5, "5", 5.0)]
+    assert twins[0] == twins[2] != twins[1]
+    V = len(it)
+    cases = []  # (name, R, S or None for a scalar column, sid)
+    for R, S in ((1000, 3), (257, 1), (300, 40), (8, 2)):
+        shape = (R,) if S is None else (R, S)
+        sid = rng.integers(-6, V, shape).astype(np.int32)
+        cases.append(("random", R, S, sid))
+    cases.append(("scalar", 777, None,
+                  rng.integers(-2, V, 777).astype(np.int32)))
+    cases.append(("one_key", 513, 2, np.full((513, 2), 7, np.int32)))
+    dup = rng.integers(0, 4, (200, 6)).astype(np.int32)  # repeats in rows
+    cases.append(("dup_in_row", 200, 6, dup))
+    twin = rng.choice(np.array(twins[:2] + [V - 1], np.int32), (99, 3))
+    cases.append(("twins_and_largest_id", 99, 3, twin))
+    for name, R, S, sid in cases:
+        shape = sid.shape
+        mask = None if S is None else t(rng.random(shape) < 0.8)
+        for scope in ("none", "mixed"):
+            valid = rng.random(R) < (0.0 if scope == "none" else 0.9)
+            kind = rng.integers(0, 3, R).astype(np.int32)
+            ns_empty = rng.random(R) < 0.4
+            rv = (t(valid), t(kind), t(ns_empty))
+            for namespaced in (True, False):
+                args = (*rv, t(sid), mask, 1, namespaced, V)
+                uk, uc = joinkeys.join_keys_cuda(*args)
+                same("joinkeys", (uk, uc), joinkeys.join_keys_plain(*args))
+                if scope == "none":
+                    assert not bool((uk != int(joinkernel.KEY_INVALID)).any())
+                q_np = rng.integers(-6, V + 3, shape).astype(np.int32)
+                q_np.reshape(-1)[:4] = (joinkernel.UNKNOWN_KEY, -1, V - 1,
+                                        twins[1])
+                q = t(q_np)
+                for sc in (None, (*rv, 1, namespaced), (*rv, 2, namespaced)):
+                    same("joinlookup",
+                         joinlookup.join_lookup_cuda(uk, uc, q, sc),
+                         joinlookup.join_lookup_plain(uk, uc, q, sc))
+    # the host index's power-of-two tables, TABLE_MIN wide and wider
+    for n_keys in (0, 3, joinkernel.TABLE_MIN, 40):
+        keys = np.sort(rng.choice(V, n_keys, replace=False)).astype(np.int32)
+        width = max(joinkernel.TABLE_MIN, 1 << max(0, n_keys - 1).bit_length())
+        uk = np.full(width, joinkernel.KEY_INVALID, np.int32)
+        uc = np.zeros(width, np.int32)
+        uk[:n_keys] = keys
+        uc[:n_keys] = rng.integers(1, 9, n_keys)
+        for R, S in ((37, None), (300, 2), (8, 33)):
+            shape = (R,) if S is None else (R, S)
+            q_np = rng.integers(-6, V + 3, shape).astype(np.int32)
+            if n_keys:
+                q_np.reshape(-1)[::3] = keys[0]
+            q = t(q_np)
+            rv = (t(rng.random(R) < 0.9),
+                  t(rng.integers(0, 3, R).astype(np.int32)),
+                  t(rng.random(R) < 0.5))
+            for sc in (None, (*rv, 1, True), (*rv, 1, False)):
+                same("joinlookup",
+                     joinlookup.join_lookup_cuda(t(uk), t(uc), q, sc),
+                     joinlookup.join_lookup_plain(t(uk), t(uc), q, sc))
 
 
 
@@ -875,12 +1046,388 @@ def churn_path(client, driver, churn: Churn, pauses):
         upload_share=rec["upload_bytes"] / full_bytes, **rec)
 
 
+class JoinIndexTimer:
+    """Host time of the join-group index, per sweep, each method wrapped
+    for the run: ``ms`` the driver's _ensure_join_state on full sweeps,
+    JoinState.affected and commit on delta sweeps; ``tables_ms``
+    JoinState.delta_tables, which a delta sweep calls inside its device
+    stage for the tables it uploads."""
+
+    def __init__(self, driver):
+        from gatekeeper_tpu_torch.ops import joinkernel
+
+        self.driver, self.cls = driver, joinkernel.JoinState
+        self.ms = self.tables_ms = 0.0
+
+    def _timed(self, fn, attr="ms"):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                setattr(self, attr, getattr(self, attr)
+                        + (time.perf_counter() - t0) * 1e3)
+        return wrapped
+
+    def __enter__(self):
+        self.saved = [(self.cls, n, getattr(self.cls, n))
+                      for n in ("affected", "commit", "delta_tables")]
+        for cls, n, fn in self.saved:
+            setattr(cls, n, self._timed(
+                fn, "tables_ms" if n == "delta_tables" else "ms"))
+        self.driver._ensure_join_state = self._timed(
+            self.driver._ensure_join_state)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, n, fn in self.saved:
+            setattr(cls, n, fn)
+        del self.driver._ensure_join_state
+
+
+class RefChurn:
+    """Seeded churn of the referential corpus.  ``neutral(d)``: d Pods of
+    one-pod teams each take another one-pod team (their key groups keep
+    one reader); ``moving(d)``: Ingresses with a unique host take a fresh
+    host and PVCs flip their class between present and dangling, half
+    each; ``crowded()``: one Pod of the crowded team leaves it, so the
+    crowded group's readers (past DELTA_MAX_ROWS) must re-evaluate."""
+
+    def __init__(self, client, objs, seed: int):
+        import random
+
+        self.client = client
+        self.rng = random.Random(seed)
+        self.live = {o["metadata"]["name"]: o for o in objs}
+        hosts = {}
+        for o in objs:
+            if o["kind"] == "Ingress":
+                for r in o["spec"]["rules"]:
+                    hosts[r["host"]] = hosts.get(r["host"], 0) + 1
+        self.ingresses = [
+            o["metadata"]["name"] for o in objs if o["kind"] == "Ingress"
+            and all(hosts[r["host"]] == 1 for r in o["spec"]["rules"])]
+        self.pvcs = [o["metadata"]["name"] for o in objs
+                     if o["kind"] == "PersistentVolumeClaim"]
+        teams = {}
+        for o in objs:
+            if o["kind"] == "Pod":
+                t = o["metadata"]["labels"]["team"]
+                teams[repr(t)] = teams.get(repr(t), 0) + 1
+        self.solo_pods = [
+            o["metadata"]["name"] for o in objs if o["kind"] == "Pod"
+            and teams[repr(o["metadata"]["labels"]["team"])] == 1]
+        self.crowd = [o["metadata"]["name"] for o in objs if o["kind"] == "Pod"
+                      and o["metadata"]["labels"]["team"] == "crowded"]
+        self.n = 0
+
+    def _put(self, obj):
+        import copy
+
+        self.live[obj["metadata"]["name"]] = obj
+        self.client.add_data(copy.deepcopy(obj))
+
+    def neutral(self, d: int) -> dict:
+        import copy
+
+        for name in self.rng.sample(self.solo_pods, d):
+            pod = copy.deepcopy(self.live[name])
+            team = pod["metadata"]["labels"]["team"]
+            pod["metadata"]["labels"]["team"] = (
+                team[:-2] if team.endswith("-b") else team + "-b")
+            self._put(pod)
+        self.n += 1
+        return {"kind": "neutral", "pods": d}
+
+    def moving(self, d: int) -> dict:
+        import copy
+
+        n_ing = (d + self.n % 2) // 2
+        for name in self.rng.sample(self.ingresses, n_ing):
+            ing = copy.deepcopy(self.live[name])
+            ing["spec"]["rules"][0]["host"] = f"fresh-{self.n}-{name}.corp.io"
+            self._put(ing)
+        for name in self.rng.sample(self.pvcs, d - n_ing):
+            pvc = copy.deepcopy(self.live[name])
+            cls = pvc["spec"]["storageClassName"]
+            pvc["spec"]["storageClassName"] = (
+                "standard" if cls.startswith("missing") else "missing-0")
+            self._put(pvc)
+        self.n += 1
+        return {"kind": "moving", "ingresses": n_ing, "pvcs": d - n_ing}
+
+    def crowded(self) -> dict:
+        import copy
+
+        name = self.crowd.pop(self.rng.randrange(len(self.crowd)))
+        pod = copy.deepcopy(self.live[name])
+        pod["metadata"]["labels"]["team"] = f"left-crowd-{self.n}"
+        self._put(pod)
+        self.n += 1
+        return {"kind": "crowded", "pods": 1, "crowd_left": len(self.crowd)}
+
+
+def ref_sweep(client, driver, pauses, timer, label: str, ops=None):
+    """One capped sweep of the referential corpus -> (its record, results,
+    totals): wall, path, stages, rendered cells, results, join-affected
+    rows, the join index's host time, the collector's pauses."""
+    pauses.reset()
+    timer.ms = timer.tables_ms = 0.0
+    t0 = time.perf_counter()
+    resp, totals = client.audit_capped(CAP)
+    wall_s = time.perf_counter() - t0
+    st = driver.last_sweep_stats
+    rec = {
+        "sweep": label, **(ops or {}), "s": wall_s,
+        "path": "delta" if "delta_rows" in st else
+        "cached" if st.get("cached") else "full",
+        **{k: st.get(k) for k in (
+            "pack_ms", "device_ms", "render_ms", "rendered_cells", "results",
+            "delta_rows", "join_affected_rows", "scatter_rows", "join_plans",
+        )},
+        "join_index_ms": timer.ms, "join_tables_ms": timer.tables_ms,
+        "gc_ms": pauses.ms, "gc_gen2": pauses.gen2,
+    }
+    return rec, resp, totals
+
+
+def force_full(driver):
+    """Drop the sweep cache and the incremental state: the next capped
+    sweep is a full one."""
+    driver._delta_state = None
+    driver._audit_cache = None
+
+
+def check_ref_tables(driver, cap: Capture) -> list:
+    """Each plan's device key table (K7's output in the captured sweep)
+    against the host join index's delta_tables() from the same sweep,
+    over the index's valid prefix; beyond it the device table must hold
+    no key."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import joinkernel
+
+    invalid = int(joinkernel.KEY_INVALID)
+    dev_tables = {}
+    for a, _kw, out in cap.calls["joinkeys"]:
+        key = (a[5], a[6])  # kind id, namespaced
+        if key in dev_tables:
+            raise AssertionError(f"two K7 calls for one plan {key}")
+        dev_tables[key] = out
+    js = driver._join_state
+    plans = driver._active_join_plans()
+    if len(dev_tables) != len(plans):
+        raise AssertionError(f"{len(dev_tables)} K7 calls, {len(plans)} plans")
+    rows = []
+    for plan, host in zip(plans, js.delta_tables()):
+        uk, uc = dev_tables[(driver.interner.intern(plan.remote_kind),
+                             plan.remote_scope == "namespace")]
+        n = int((host["uk"] != invalid).sum())
+        equal = (
+            torch.equal(uk[:n].cpu(), torch.from_numpy(host["uk"][:n]))
+            and torch.equal(uc[:n].cpu(), torch.from_numpy(host["uc"][:n]))
+            and (uk.numel() == n or int(uk[n].item()) == invalid)
+        )
+        if not equal:
+            raise AssertionError(f"{plan.agg} plan: device table != host index")
+        rows.append({"agg": plan.agg, "kind": plan.remote_kind, "groups": n,
+                     "provider_rows": int(uc[:n].sum().item()),
+                     "table_entries": uk.numel()})
+    return rows
+
+
+def ref_plain_path(driver, cap: Capture) -> dict:
+    """The captured sweep's [C, 1+K] reduction against the same resident
+    state evaluated in join mode and reduced through the plain versions on
+    the card (PlainVersions: no kernel launches)."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import driver as driver_mod
+
+    (mask, K), _kw, packed = cap.calls["reduction"][0]
+    with PlainVersions():
+        side = driver._constraint_side()
+        rv_d, cols_d = driver._audit_dev[1]
+        plain_mask, _rej = driver._eval(
+            side, rv_d, cols_d, driver._constraint_device(side),
+            join_mode="trace", joins=driver._join_trace_args())
+        plain_packed = driver_mod.packed_reduction(plain_mask, K)
+    torch.cuda.synchronize()
+    if not torch.equal(plain_packed, packed):
+        raise AssertionError("referential sweep differs from the plain path")
+    return {"equal": True, "shape": list(packed.shape),
+            "candidates": int(packed[:, 0].sum().item())}
+
+
+def referential_path(client, driver, churn: RefChurn, pauses, timer):
+    """Phase 8's counted run: a cold sweep (K7, K8 and K4 recorded), WARM
+    forced full sweeps before and after gc.freeze(), REF_CHURN_SWEEPS
+    neutral and as many key-moving churn sweeps for each d in REF_CHURN_D
+    (the first key-moving one's K8 calls recorded), each d closed by a
+    forced full sweep that must equal it, and one crowded churn, which
+    must take the full path where the crowd's readers exceed
+    DELTA_MAX_ROWS (at full size).  -> (the two captures, the records)."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    records = []
+    with Capture(names=("joinkeys", "joinlookup", "reduction")) as cold_cap:
+        rec, resp, totals = ref_sweep(client, driver, pauses, timer, "cold")
+    records.append(rec)
+    results = resp.results()
+    if rec["path"] != "full" or not results or rec["join_plans"] != 3:
+        raise AssertionError(f"cold referential sweep: {rec}")
+    log("ref_cold_sweep", **rec,
+        flagged_constraints=sum(1 for n, _h in totals.values() if n))
+    # while the join index is the cold sweep's: the device tables against
+    # it, and the sweep against the all-plain path (no kernel launches)
+    log("ref_tables", equal=True, plans=check_ref_tables(driver, cold_cap))
+    log("ref_plain_path", **ref_plain_path(driver, cold_cap))
+    for phase in ("ref_warm_sweeps", "ref_warm_sweeps_gc_frozen"):
+        if phase.endswith("frozen"):
+            gc.collect()
+            gc.freeze()
+        sweeps = []
+        for i in range(WARM):
+            force_full(driver)
+            rec, resp2, totals2 = ref_sweep(client, driver, pauses, timer,
+                                            f"warm{i}")
+            if totals2 != totals or len(resp2.results()) != len(results):
+                raise AssertionError(f"{phase}: a warm sweep differs")
+            sweeps.append(rec)
+        gc.unfreeze()
+        records.extend(sweeps)
+        log(phase, n=WARM,
+            median_s=statistics.median(r["s"] for r in sweeps),
+            worst_s=max(r["s"] for r in sweeps),
+            median_join_index_ms=statistics.median(
+                r["join_index_ms"] for r in sweeps),
+            sweeps=sweeps)
+    delta_cap = Capture(names=("joinlookup",))
+    for d in REF_CHURN_D:
+        sweeps = []
+        for kind in ("neutral", "moving"):
+            for i in range(REF_CHURN_SWEEPS):
+                ops = getattr(churn, kind)(d)
+                if kind == "moving" and i == 0:
+                    with delta_cap:
+                        rec, resp, totals = ref_sweep(
+                            client, driver, pauses, timer, f"{kind}{i}", ops)
+                else:
+                    rec, resp, totals = ref_sweep(client, driver, pauses,
+                                                  timer, f"{kind}{i}", ops)
+                if rec["path"] != "delta" or rec["delta_rows"] < d:
+                    raise AssertionError(f"ref churn d={d}: {rec}")
+                sweeps.append(rec)
+        counts = driver._delta_state.counts.copy()
+        sig = syn.audit_result_sig(resp.results())
+        force_full(driver)
+        full, f_resp, f_totals = ref_sweep(client, driver, pauses, timer,
+                                           "forced_full")
+        equal = {
+            "totals": f_totals == totals,
+            "results": syn.audit_result_sig(f_resp.results()) == sig,
+            "counts": bool(np.array_equal(driver._delta_state.counts, counts)),
+        }
+        if full["path"] != "full" or not all(equal.values()):
+            raise AssertionError(f"ref churn d={d}: delta != full {equal}")
+        records.extend(sweeps + [full])
+        log("ref_churn_sweeps", d=d, n=len(sweeps),
+            median_s=statistics.median(r["s"] for r in sweeps),
+            worst_s=max(r["s"] for r in sweeps),
+            median_stage_ms={k: statistics.median(r[k] for r in sweeps)
+                             for k in ("pack_ms", "device_ms", "render_ms",
+                                       "join_index_ms", "join_tables_ms")},
+            equal_to_full=equal, results=len(sig), sweeps=sweeps,
+            full_sweep=full)
+    # the churned row plus the rest of its group's readers: past the
+    # budget at full size (about 500 crowded Pods in 100,000 objects)
+    group = len(churn.crowd)
+    want = "full" if group > driver.DELTA_MAX_ROWS else "delta"
+    rec, _resp, _totals = ref_sweep(client, driver, pauses, timer, "crowded",
+                                    churn.crowded())
+    if rec["path"] != want:
+        raise AssertionError(f"the crowded churn ({group} readers) took the "
+                             f"{rec['path']} path: {rec}")
+    records.append(rec)
+    log("ref_crowded_churn", readers=group,
+        delta_max_rows=driver.DELTA_MAX_ROWS, **rec)
+    return cold_cap, delta_cap, records
+
+
+def ref_parity(n_templates: int, n_objects: int):
+    """The referential audit on the card against the interpreter oracle at
+    a small size, with GK_JOIN_ASSERT=1 (a flagged cell the oracle renders
+    empty raises): audit_capped, the uncapped audit, and the uncapped
+    audit after churn through the delta path (an Ingress joins another's
+    host, a PVC's class dangles, a Pod changes team)."""
+    import copy
+
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    os.environ["GK_JOIN_ASSERT"] = "1"
+    try:
+        small = syn.build_referential_driver(n_templates, n_objects, SEED)
+        oracle = syn.build_referential_oracle(n_templates, n_objects, SEED)
+        s_resp, s_tot = small.audit_capped(CAP)
+        o_resp, o_tot = oracle.audit_capped(CAP)
+        s_sig = syn.audit_result_sig(s_resp.results())
+        o_all = syn.audit_result_sig(oracle.audit().results())
+        assert s_sig and set(s_sig) <= set(o_all), "capped results not exact"
+        exact = [k for k, (_n, how) in s_tot.items() if how == "exact"]
+        assert exact and all(s_tot[k][0] == o_tot[k][0] for k in exact)
+        assert syn.audit_result_sig(small.audit().results()) == o_all
+        objs = syn.make_referential_objects(n_objects, SEED + 1)
+        ings = [o for o in objs if o["kind"] == "Ingress"
+                and o["spec"]["rules"][0]["host"].startswith("svc-")]
+        a = copy.deepcopy(ings[0])
+        a["spec"]["rules"] = [dict(ings[1]["spec"]["rules"][0])]
+        pvc = copy.deepcopy(
+            [o for o in objs if o["kind"] == "PersistentVolumeClaim"][0])
+        pvc["spec"]["storageClassName"] = "missing-0"
+        pod = copy.deepcopy([o for o in objs if o["kind"] == "Pod"][0])
+        pod["metadata"]["labels"]["team"] = "crowded"
+        for c in (small, oracle):
+            for o in (a, pvc, pod):
+                c.add_data(copy.deepcopy(o))
+        u_sig = syn.audit_result_sig(small.audit().results())
+        u_stats = dict(small.driver.last_sweep_stats)
+        assert u_stats.get("delta_rows", 0) >= 3, u_stats
+        assert u_stats.get("join_affected_rows", 0) >= 1, u_stats
+        assert u_sig == syn.audit_result_sig(oracle.audit().results())
+    finally:
+        del os.environ["GK_JOIN_ASSERT"]
+    return {"templates": n_templates, "objects": n_objects,
+            "results": len(s_sig), "oracle_results": len(o_all),
+            "exact_totals": len(exact), "uncapped_after_churn": len(u_sig),
+            "uncapped_stats": u_stats}
+
+
+def merge_rows(into: dict, rows: dict):
+    """Fold check_kernels rows of another run into ``into``: calls checked
+    add up, the largest error stays, a timed row replaces an untimed."""
+    for name, row in rows.items():
+        old = into.get(name)
+        if old is None:
+            into[name] = row
+            continue
+        row_calls = row["calls_checked"] + old["calls_checked"]
+        err = max(row["max_abs_err"], old["max_abs_err"])
+        if "ms" in row and "ms" not in old:
+            into[name] = row
+        into[name]["calls_checked"] = row_calls
+        into[name]["max_abs_err"] = err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--templates", type=int, default=500)
     ap.add_argument("--pods", type=int, default=100_000)
     ap.add_argument("--parity-templates", type=int, default=24)
     ap.add_argument("--parity-pods", type=int, default=2000)
+    ap.add_argument("--ref-templates", type=int, default=24)
+    ap.add_argument("--ref-objects", type=int, default=100_000)
     ap.add_argument("--profile", action="store_true",
                     help="profile one warm sweep with torch.profiler")
     args = ap.parse_args(argv)
@@ -1112,19 +1659,9 @@ def main(argv=None) -> int:
     del churn_cap
     churn_rows.update(check_kernels(cap2, REPS, timed=()))
     del cap2
-    for name, row in churn_rows.items():
-        if name in kernel_rows:
-            kernel_rows[name]["calls_checked"] += row["calls_checked"]
-            kernel_rows[name]["max_abs_err"] = max(
-                kernel_rows[name]["max_abs_err"], row["max_abs_err"])
-        else:
-            kernel_rows[name] = row
-    for name, row in kernel_rows.items():
-        row["launches"] = launches[name] + churn_launches[name]
-    log("checked", calls={k: r["calls_checked"]
-                          for k, r in kernel_rows.items()})
+    merge_rows(kernel_rows, churn_rows)
 
-    # 6. parity at a small size against the interpreter oracle
+    # 7. parity at a small size against the interpreter oracle
     t0 = time.perf_counter()
     small = syn.build_driver(args.parity_templates, args.parity_pods,
                              SEED)
@@ -1160,6 +1697,48 @@ def main(argv=None) -> int:
         results=len(s_sig), oracle_results=len(o_all),
         exact_totals=len(exact), uncapped_after_churn=len(u_sig),
         uncapped_stats=u_stats)
+    del small, oracle, small_churn
+
+    # 8. the referential audit
+    t0 = time.perf_counter()
+    rclient = syn.build_referential_driver(args.ref_templates,
+                                           args.ref_objects, SEED)
+    rdriver = rclient.driver
+    assert rdriver.device.type == DEVICE
+    ref_objs = syn.make_referential_objects(args.ref_objects, SEED + 1)
+    log("build_referential", seconds=time.perf_counter() - t0,
+        templates=args.ref_templates, objects=args.ref_objects,
+        kinds={k: sum(1 for o in ref_objs if o["kind"] == k)
+               for k in ("StorageClass", "Ingress", "PersistentVolumeClaim",
+                         "Pod")})
+    ref_churn = RefChurn(rclient, ref_objs, SEED + 11)
+    del ref_objs
+    gc.callbacks.append(pauses)
+    gdev.reset_launches()
+    with JoinIndexTimer(rdriver) as timer:
+        cold_cap, delta_cap, _records = referential_path(
+            rclient, rdriver, ref_churn, pauses, timer)
+    ref_launches = dict(gdev.launches)
+    gc.callbacks.remove(pauses)
+    missing = [k for k in ("joinkeys", "joinlookup", "match", "reduction",
+                           "delta", "scatter") if ref_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the referential "
+                             f"path: {missing}")
+    log("ref_launches", main_path=ref_launches,
+        plans=rdriver.join_plan_shapes())
+    ref_rows = check_kernels(cold_cap, REPS, timed=("joinkeys", "joinlookup"))
+    merge_rows(ref_rows, check_kernels(delta_cap, REPS, timed=()))
+    merge_rows(kernel_rows, ref_rows)
+    del cold_cap, delta_cap
+    t0 = time.perf_counter()
+    parity = ref_parity(*REF_PARITY)
+    log("ref_parity", seconds=time.perf_counter() - t0, **parity)
+    for name, row in kernel_rows.items():
+        row["launches"] = (launches[name] + churn_launches[name]
+                           + ref_launches[name])
+    log("checked", calls={k: r["calls_checked"]
+                          for k, r in kernel_rows.items()})
 
     print(json.dumps({"kernels": [
         {k: row[k] for k in ("name", "route", "source", "replaces",

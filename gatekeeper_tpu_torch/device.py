@@ -29,7 +29,7 @@ from typing import Dict, Optional
 import torch
 
 KERNEL_NAMES = ("match", "strpred", "setcount", "reduction", "delta",
-                "scatter")
+                "scatter", "joinkeys", "joinlookup")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "kernels")
@@ -141,6 +141,8 @@ _SIGNATURES = {
     "reduction": ("gk_packed_reduction_launch", "piiiipp"),
     "delta": ("gk_delta_launch", "piipippp"),
     "scatter": ("gk_scatter_launch", "pppiip"),
+    "joinkeys": ("gk_joinkeys_launch", "pppiippiiipppp"),
+    "joinlookup": ("gk_joinlookup_launch", "ppipiipppiipp"),
 }
 
 

@@ -29,8 +29,16 @@ later sweeps evaluate only the dirty rows and fold the [C, 2w] before |
 after columns of the delta gather (K5) into it, and the next full sweep
 patches the dirty rows into the resident inputs with the row scatter (K6).
 Left out: the background warm-up of the base mask (nothing here compiles
-per shape) and the delta path of join-bearing programs, which always take
-a full sweep.
+per shape).
+
+Referential templates (ops/joinkernel.py) are exact on the audit path: a
+full sweep evaluates in 'trace' join mode, each plan's key table built on
+the card by K7 from the resident columns, and rebuilds the host join-group
+index (JoinState); a delta sweep also re-evaluates the readers of every key
+group its churn touched, against the index's tables ('tables' mode); every
+JoinCmp lookup is K8.  Flagged cells of a join-safe template render against
+a pruned inventory holding only their key groups' provider rows.  Left out:
+the join metrics and route ledger, and the index in snapshots.
 """
 
 from __future__ import annotations
@@ -136,6 +144,13 @@ class TorchDriver(InterpDriver):
         # the full path
         self.delta_enabled = os.environ.get("GK_DELTA", "1") != "0"
         self._delta_state = None
+        # referential-policy state (ops/joinkernel.py): the host-side
+        # join-group index (key -> provider/reader rows) that gives the
+        # delta sweep O(churn) key-group invalidation, and the per-epoch
+        # unique-plan and join-safe caches
+        self._join_state = None
+        self._join_plans_cache: Optional[tuple] = None
+        self._join_safe_cache: Optional[tuple] = None
         # audit render memo: (kind, name, row) -> (row_gen, violations),
         # valid for one constraint-side epoch
         self._render_memo: Dict[Tuple, Tuple[int, list]] = {}
@@ -189,6 +204,7 @@ class TorchDriver(InterpDriver):
             self._audit_dev = None  # layout gens restart with the new pack
             self._audit_cache = None
             self._delta_state = None
+            self._join_state = None
             self._render_memo.clear()
             self._bound_plans.clear()
             self._bound_plans_epoch = -1
@@ -289,13 +305,27 @@ class TorchDriver(InterpDriver):
 
     # ---- device evaluation ------------------------------------------------
 
-    def _eval(self, side, rv, cols, placed):
+    def _eval(self, side, rv, cols, placed, join_mode: Optional[str] = None,
+              joins=None):
         """The match kernel plus every violation-program group ->
-        (candidate mask bool[C, R], autoreject bool[C, R]) on the device."""
+        (candidate mask bool[C, R], autoreject bool[C, R]) on the device.
+
+        ``join_mode`` (ops/joinkernel.py): None on the review path (every
+        JoinCmp resolves to its polarity default); 'trace' for full audit
+        sweeps, ``joins`` then holding each active plan's kind id and
+        vocabulary size (_join_trace_args), the tables built on the card;
+        'tables' for delta sweeps, ``joins`` holding the host join index's
+        tables on the device (_join_delta_tables)."""
         _ordered, _cp, groups, _specs, _crow = side
         cs, records, gp = placed
         mask, autoreject = match_kernel(rv, cs, records)
         R = mask.shape[1]
+        pidx = {}
+        if joins is not None:
+            pidx = {p: i for i, p in enumerate(self._active_join_plans())}
+        # join tables shared ACROSS groups: N template clones of one
+        # referential family cost one table build per sweep
+        shared_tables: dict = {}
         for (prog, start, B, _packed), (params, elems, tables) in zip(
             groups, gp
         ):
@@ -312,6 +342,14 @@ class TorchDriver(InterpDriver):
             env = EvalEnv(
                 prog_cols, params, elems, tables, keysets, B, R, self.device
             )
+            if pidx and prog.join_plans:
+                from .joinkernel import JoinBinding
+
+                env.joins = JoinBinding(
+                    join_mode, prog.join_plans,
+                    [joins[pidx[p]] for p in prog.join_plans],
+                    rv=rv, cache=shared_tables,
+                )
             # static slice of the fresh match mask: pad rows are
             # match-False and AND their program rows away
             mask[start:start + B] &= eval_program(prog, env)
@@ -336,6 +374,231 @@ class TorchDriver(InterpDriver):
         both = torch.cat([mask, autoreject], dim=0).cpu().numpy()
         c = mask.shape[0]
         return ordered, both[:c][crow][:, :rows], both[c:][crow][:, :rows]
+
+    # ---- referential policies (ops/joinkernel.py) -------------------------
+
+    def _active_join_plans(self) -> tuple:
+        """Ordered unique JoinPlans across every installed program,
+        cached per constraint-side epoch.  Index order is the order of
+        the ``joins`` argument of _eval."""
+        cached = self._join_plans_cache
+        if cached is not None and cached[0] == self._cs_epoch:
+            return cached[1]
+        plans: List = []
+        for kind in sorted(self.programs):
+            prog = self.programs.get(kind)
+            for p in getattr(prog, "join_plans", ()) or ():
+                if p not in plans:
+                    plans.append(p)
+        out = tuple(plans)
+        self._join_plans_cache = (self._cs_epoch, out)
+        return out
+
+    def _join_trace_args(self) -> Optional[tuple]:
+        """'trace'-mode join arguments, one per active plan: the interned
+        remote-kind id, and the vocabulary size K7 counts over (taken
+        after every intern, so every packed key id lies below it)."""
+        plans = self._active_join_plans()
+        if not plans:
+            return None
+        kind_ids = [self.interner.intern(p.remote_kind) for p in plans]
+        vocab = self.interner.snapshot_size()
+        return tuple({"kind_id": k, "vocab": vocab} for k in kind_ids)
+
+    def _join_delta_tables(self) -> Optional[tuple]:
+        """'tables'-mode join arguments from the host join index, on the
+        device: per plan its (uk, uc) tables and the kind id
+        JoinCmp.exclude_self needs."""
+        js = self._join_state
+        if js is None or not js.built:
+            return None
+        out = []
+        for p, tab in zip(self._active_join_plans(), js.delta_tables()):
+            tab = state_from_numpy(tab, self.device)
+            tab["kind_id"] = self.interner.intern(p.remote_kind)
+            out.append(tab)
+        return tuple(out)
+
+    def _ensure_join_state(self):
+        """Bring the host join-group index current with the audit pack
+        (full-sweep path).  The rebuild DIFFS against the previous index
+        and bumps the row generations of readers whose key group
+        changed, so the render caches can never replay a message whose
+        aggregate (a quota count, a duplicate set) moved underneath it."""
+        plans = self._active_join_plans()
+        ap = self._audit_pack
+        if not plans:
+            self._join_state = None
+            return None
+        from .joinkernel import JoinState
+
+        js = self._join_state
+        sig = tuple(p.sig for p in plans)
+        if js is None or js.sig != sig or js.rebuild_gen != ap.rebuild_gen:
+            # a pack rebuild reassigned row ids (and reset every row
+            # generation with it), so a fresh index starts diff-free
+            js = JoinState(plans, ap.rebuild_gen)
+            self._join_state = js
+        bump = js.rebuild(ap, self.interner)
+        if bump:
+            ap.bump_row_gen(bump)
+        return js
+
+    def _join_safe(self, kind: str) -> bool:
+        """True when a referential template's rendered results are
+        reusable across sweeps: every inventory read is a classified
+        join plan (prog.exact survived compilation), so verdict and
+        message depend only on (row content, key-group aggregate) — and
+        the join index bumps reader row generations whenever a group
+        changes."""
+        cached = self._join_safe_cache
+        if cached is None or cached[0] != self._cs_epoch:
+            cached = (self._cs_epoch, {})
+            self._join_safe_cache = cached
+        hit = cached[1].get(kind)
+        if hit is None:
+            prog = self.programs.get(kind)
+            hit = bool(
+                prog is not None
+                and getattr(prog, "join_plans", ())
+                and prog.exact
+                and kind in self.templates
+            )
+            cached[1][kind] = hit
+        return hit
+
+    def _join_strict(self, kind: str, constraint: dict) -> bool:
+        """A flagged-but-renders-empty cell for this constraint is a
+        genuine plan-vs-oracle divergence (not a legitimate match or
+        mask over-approximation): exact join program, selector-free
+        match (the packed match is exact without label selectors)."""
+        prog = self.programs.get(kind)
+        if prog is None or not getattr(prog, "join_plans", ()) \
+                or not prog.exact:
+            return False
+        match = constraint_match_spec(constraint)
+        return not match.get("labelSelector") and not match.get(
+            "namespaceSelector"
+        )
+
+    def _note_join_false_positive(self, kind: str, name: str, ri: int):
+        """A strict-eligible join cell whose interpreter render came back
+        empty: raise it as a divergence under GK_JOIN_ASSERT, UNLESS the
+        documented groupVersion-twin corner explains it (legitimate
+        filter work)."""
+        from . import joinkernel
+
+        prog = self.programs.get(kind)
+        js = self._join_state
+        if (
+            js is not None and prog is not None
+            and joinkernel.gv_twin_corner(
+                js, getattr(prog, "join_plans", ()), self._audit_pack, ri
+            )
+        ):
+            return
+        joinkernel.note_false_positive(kind, name, ri)
+
+    def _join_render_inventory(self, kind: str, rows) -> Optional[object]:
+        """ONE grouped inventory for rendering this kind's flagged join
+        cells: the interpreter re-runs the Rego body per flagged cell,
+        and its ``data.inventory`` iteration walks the FULL provider
+        collection — O(R) per cell.  For a join-safe kind the verdict and
+        message depend only on the provider rows in the flagged readers'
+        key groups, so one pass builds a pruned tree holding exactly
+        those rows and every flagged cell renders byte-identically
+        against it.
+
+        Returns the frozen pruned tree, or None when equivalence cannot
+        be proven (no current join index, unknown plan, provider row
+        outside the pack) — the caller then falls back to the full
+        inventory.  A pruning defect surfaces as a flagged-but-renders-
+        empty cell, which GK_JOIN_ASSERT=1 turns into a failure."""
+        js = self._join_state
+        prog = self.programs.get(kind)
+        if js is None or not js.built or prog is None:
+            return None
+        plans = getattr(prog, "join_plans", ()) or ()
+        if not plans:
+            return None
+        reviews = self._audit_pack.reviews
+        by_sig = {p.sig: i for i, p in enumerate(js.plans)}
+        provider_rows: set = set()
+        for plan in plans:
+            i = by_sig.get(plan.sig)
+            if i is None:
+                return None  # index predates this plan set: rebase path
+            row_rkeys = js.row_rkeys[i]
+            providers = js.providers[i]
+            keys: set = set()
+            for r in rows:
+                keys.update(row_rkeys.get(int(r), ()))
+            for k in keys:
+                provider_rows |= providers.get(k, set())
+        tree: Dict[str, dict] = {}
+        for ri in sorted(provider_rows):
+            if ri >= len(reviews):
+                return None  # index/pack drift: never render against it
+            rev = reviews[ri]
+            if rev is None:
+                continue  # tombstoned provider: contributes nothing
+            obj = rev.get("object")
+            if not isinstance(obj, dict) and not hasattr(obj, "get"):
+                return None
+            meta = obj.get("metadata") or {}
+            api = obj.get("apiVersion") or ""
+            okind = obj.get("kind") or ""
+            name = meta.get("name") or ""
+            # placement mirrors target.py inventory_segments: the
+            # OBJECT's namespace decides cluster- vs namespace-scope
+            ns = meta.get("namespace") or ""
+            if ns:
+                node = (
+                    tree.setdefault("namespace", {})
+                    .setdefault(ns, {})
+                    .setdefault(api, {})
+                    .setdefault(okind, {})
+                )
+            else:
+                node = (
+                    tree.setdefault("cluster", {})
+                    .setdefault(api, {})
+                    .setdefault(okind, {})
+                )
+            node[name] = obj
+        from ..engine.value import freeze
+
+        return freeze(tree)
+
+    def _lazy_join_inventory(self, kind: str, rows, full_inventory):
+        """Thunk form of _join_render_inventory, memoized on first call:
+        the grouped-tree build runs only when a cell actually MISSES the
+        render memo.  Falls back to the full inventory when pruning
+        cannot be proven equivalent."""
+        box: list = []
+
+        def get():
+            if not box:
+                pruned = self._join_render_inventory(kind, rows)
+                box.append(full_inventory if pruned is None else pruned)
+            return box[0]
+
+        return get
+
+    def join_plan_shapes(self) -> List[dict]:
+        """Join-plan summary: groups, provider and reader rows per plan
+        once the index is built, else the plans alone."""
+        js = self._join_state
+        if js is not None and js.built:
+            return js.shapes()
+        return [
+            {
+                "agg": p.agg, "kind": p.remote_kind,
+                "scope": p.remote_scope, "slot_key": p.local_slot,
+                "groups": None, "provider_rows": None, "reader_rows": None,
+            }
+            for p in self._active_join_plans()
+        ]
 
     # ---- render (exactness filter) ---------------------------------------
 
@@ -594,12 +857,20 @@ class TorchDriver(InterpDriver):
         if ap.n_rows == 0:
             return None
         ordered, _cp, _groups, _specs, crow = side
+        # referential policies: bring the host join-group index current
+        # (diff-bumps reader row generations for changed key groups) and
+        # take the 'trace'-mode arguments: the resident mask, which the
+        # delta fold reads its before-columns from, must hold the exact
+        # join verdicts, never the review mode's defaults
+        self._ensure_join_state()
+        jargs = self._join_trace_args()
         placed = self._constraint_device(side)
         (rv_d, cols_d), upload = self._audit_device_inputs()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
-        mask, _autoreject = self._eval(side, rv_d, cols_d, placed)
+        mask, _autoreject = self._eval(side, rv_d, cols_d, placed,
+                                       join_mode="trace", joins=jargs)
         # crow folds the group-major pad rows out: all host-side state is
         # per ordered constraint
         packed = packed_reduction(mask, K).cpu().numpy()[crow]
@@ -628,14 +899,17 @@ class TorchDriver(InterpDriver):
             "cells": float(len(ordered) * ap.n_rows),
             **upload,
         }
+        if jargs is not None:
+            self.last_sweep_stats["join_plans"] = float(len(jargs))
         return sweep
 
     def _try_delta(self, K: int):
         """Bring the incremental sweep state current with an O(dirty-rows)
         device evaluation.  Returns (reviews, ordered, state) or None when
         the delta path is ineligible (disabled, no base state, layout
-        changed, too many dirty rows, or a join plan is installed — then
-        the caller runs a full sweep)."""
+        changed, no current join index, or too many dirty rows with the
+        readers of the key groups they touch — then the caller runs a
+        full sweep)."""
         if not self.delta_enabled:
             return None
         st = self._delta_state
@@ -660,16 +934,39 @@ class TorchDriver(InterpDriver):
             return ap.reviews, ordered, st
         if len(ap.delta_dirty) > self.DELTA_MAX_ROWS:
             return None
-        # a join aggregate cannot be maintained from the churned rows alone
-        # until the join index is ported: rebase via a full sweep
-        if any(getattr(p, "join_plans", ()) for p in self.programs.values()):
-            return None
+        # referential policies: the delta dispatch must also re-evaluate
+        # the READERS of every key group the churn touched (a churn row
+        # invalidates only its key group — never the cluster).  Without a
+        # current join index the aggregate cannot be maintained
+        # incrementally, so rebase via a full sweep.
+        js = None
+        plans = self._active_join_plans()
+        if plans:
+            js = self._join_state
+            if (
+                js is None or not js.built
+                or js.sig != tuple(p.sig for p in plans)
+                or js.rebuild_gen != ap.rebuild_gen
+            ):
+                return None
+            affected = js.affected(ap, self.interner, ap.delta_dirty)
+            if len(ap.delta_dirty) + len(affected) > self.DELTA_MAX_ROWS:
+                return None
         # drained only once eligibility is certain; a failure past this
         # point drops the state and the caller runs a full sweep, which
-        # rebases it and clears both dirty channels
+        # rebases it (and the join index) and clears both dirty channels
         rows = sorted(ap.take_delta_dirty())
+        join_rows = 0
+        if js is not None:
+            # commit the churn to the join index: updates provider/reader
+            # maps, bumps affected readers' row generations (stale render
+            # reuse), and returns the key-group rows to co-dispatch
+            extra = js.commit(ap, self.interner, rows)
+            if extra:
+                join_rows = len(extra)
+                rows = sorted(set(rows) | extra)
         try:
-            return self._apply_delta(st, ap, rows, side, t0)
+            return self._apply_delta(st, ap, rows, side, t0, join_rows)
         except Exception:
             log.exception(
                 "delta sweep failed for %d rows; rebasing via a full sweep",
@@ -679,17 +976,19 @@ class TorchDriver(InterpDriver):
             return None
 
     def _delta_eval(self, side, placed, mask, rows_pad, rv_slice,
-                    cols_slice):
+                    cols_slice, joins=None):
         """The dirty rows' before-columns from the resident mask and their
         fresh evaluation -> int8 [C_total, 2w] on the device (w =
         len(rows_pad)), the match kernel and the programs run on the
-        w-row slice of the pack."""
+        w-row slice of the pack; ``joins`` the host join index's tables
+        on the device ('tables' mode), or None without join plans."""
         rv_d = state_from_numpy(rv_slice, self.device)
         cols_d = state_from_numpy(cols_slice, self.device)
-        new, _autoreject = self._eval(side, rv_d, cols_d, placed)
+        new, _autoreject = self._eval(side, rv_d, cols_d, placed,
+                                      join_mode="tables", joins=joins)
         return delta_columns(mask, rows_pad, new)
 
-    def _apply_delta(self, st, ap, rows, side, t0):
+    def _apply_delta(self, st, ap, rows, side, t0, join_rows: int = 0):
         t1 = time.perf_counter()
         # the slice is padded to a power of two >= 8 by repeating the last
         # row, as TpuDriver does: its [C, 2w] columns compare bit for bit
@@ -701,8 +1000,13 @@ class TorchDriver(InterpDriver):
         )
         rv_slice, cols_slice = take_rows((ap.rp, ap.cols), rows_pad)
         placed = self._constraint_device(side)
+        # post-commit join tables: the dispatch evaluates the churned rows
+        # AND the affected key-group readers against the UPDATED global
+        # aggregate
+        jt = self._join_delta_tables()
         both_d = self._delta_eval(
-            side, placed, st.mask_src.get(), rows_pad, rv_slice, cols_slice
+            side, placed, st.mask_src.get(), rows_pad, rv_slice, cols_slice,
+            jt,
         )
         both = both_d.cpu().numpy().astype(bool)[st.crow]
         base_old, dmask = both[:, :width], both[:, width:]
@@ -723,6 +1027,10 @@ class TorchDriver(InterpDriver):
             "rows": float(ap.n_rows),
             "cells": float(len(side[0]) * len(rows)),
         }
+        if jt is not None:
+            # key-group locality: how many of the dispatched rows were
+            # affected readers rather than content churn
+            self.last_sweep_stats["join_affected_rows"] = float(join_rows)
         return ap.reviews, side[0], st
 
     def _audit_masks(self):
@@ -780,6 +1088,29 @@ class TorchDriver(InterpDriver):
             trace: List[str] = [] if tracing else None
             from .renderplan import RowView
 
+            # grouped join renders: per join-safe kind, ONE pruned
+            # inventory over the union of its flagged rows — the
+            # interpreter's per-cell O(R) inventory walk becomes
+            # O(group); built on the kind's first cell
+            kind_cis: Dict[str, list] = {}
+            for i, (k, _n, _c) in enumerate(ordered):
+                kind_cis.setdefault(k, []).append(i)
+            join_inv: Dict[str, object] = {}
+
+            def _inv_for(kind):
+                got = join_inv.get(kind)
+                if got is None:
+                    got = inventory
+                    if self._join_safe(kind):
+                        rows = np.nonzero(
+                            mask[kind_cis[kind]].any(axis=0)
+                        )[0]
+                        pruned = self._join_render_inventory(kind, rows)
+                        if pruned is not None:
+                            got = pruned
+                    join_inv[kind] = got
+                return got
+
             # resource-major order, matching InterpDriver.audit; only
             # reviews with a positive cell pay any render cost
             for ri in np.nonzero(mask.any(axis=0))[0]:
@@ -788,11 +1119,15 @@ class TorchDriver(InterpDriver):
                     continue
                 rowview = RowView(review)
                 for i in np.nonzero(mask[:, ri])[0]:
-                    kind, _name, constraint = ordered[i]
+                    kind, name, constraint = ordered[i]
                     violations = self._eval_cell(
-                        constraint, kind, review, None, inventory,
+                        constraint, kind, review, None, _inv_for(kind),
                         rowview=rowview,
                     )
+                    if not violations and self._join_strict(
+                        kind, constraint
+                    ):
+                        self._note_join_false_positive(kind, name, int(ri))
                     self._append_violation_results(
                         results, violations, constraint, kind, review, trace,
                     )
@@ -866,12 +1201,18 @@ class TorchDriver(InterpDriver):
                    inventory, uses_inv, row_gen) -> list:
         """Violations for one cell, memoized across sweeps: an unchanged
         (constraint side, packed row) pair renders identically unless the
-        template reads data.inventory."""
+        template reads data.inventory (a join-safe template counts as not
+        reading it: the join index bumps its readers' row generations).
+        ``inventory`` may be a thunk (_lazy_join_inventory)."""
         mkey = (kind, name, ri)
         if not uses_inv:
             hit = self._render_memo.get(mkey)
             if hit is not None and hit[0] == row_gen:
                 return hit[1]
+        if callable(inventory):
+            # lazy grouped join inventory (_lazy_join_inventory):
+            # resolved only on this miss path, never on a memo hit
+            inventory = inventory()
         row = rowviews.get(ri)
         if row is None:
             from .renderplan import RowView
@@ -947,6 +1288,27 @@ class TorchDriver(InterpDriver):
             st.horizon[ci] = None
             yield from full[len(lst):]
 
+        def join_complete(ci):
+            # complete candidate knowledge: the union below must cover
+            # the constraint's readers, and candidates() never extends
+            # st.cand past this exact condition
+            return (st.horizon[ci] is None
+                    or int(st.counts[ci]) <= len(st.cand[ci]))
+
+        # ONE pruned join inventory per kind, shared by its constraints:
+        # a provider SUPERSET is equivalence-safe, so the union of the
+        # kind's candidate rows serves every constraint of it
+        join_union: Dict[str, set] = {}
+        for ci, (kind, _name, _c) in enumerate(ordered):
+            if (int(st.counts[ci]) == 0 or not self._join_safe(kind)
+                    or not join_complete(ci)):
+                continue
+            tmpl = self.templates.get(kind)
+            if tmpl is None or getattr(tmpl.policy, "uses_inventory",
+                                       True):
+                join_union.setdefault(kind, set()).update(st.cand[ci])
+        join_inv_by_kind: Dict[str, object] = {}
+
         for ci, (kind, name, constraint) in enumerate(ordered):
             ckey = (kind, name)
             n_cand = int(st.counts[ci])
@@ -958,6 +1320,27 @@ class TorchDriver(InterpDriver):
                 True if tmpl is None
                 else getattr(tmpl.policy, "uses_inventory", True)
             )
+            join_strict = False
+            cell_inv = inventory
+            if uses_inv and self._join_safe(kind):
+                # every inventory read is a classified join plan: the
+                # join index bumps reader row generations when a key
+                # group changes, so rendered results are content-keyed
+                # like inventory-free templates — O(churn) rendering
+                uses_inv = False
+                join_strict = self._join_strict(kind, constraint)
+                if join_complete(ci):
+                    # every flagged cell renders against ONE pruned
+                    # inventory holding the kind's key groups' provider
+                    # rows, built on the first render miss; the
+                    # horizon-fetch fallback keeps the full tree
+                    cell_inv = join_inv_by_kind.get(kind)
+                    if cell_inv is None:
+                        cell_inv = self._lazy_join_inventory(
+                            kind, sorted(join_union.get(kind, ())),
+                            inventory,
+                        )
+                        join_inv_by_kind[kind] = cell_inv
             lst = st.cand[ci]
             sig = None
             if trace is None and not uses_inv and len(lst) <= 512:
@@ -984,8 +1367,13 @@ class TorchDriver(InterpDriver):
                     continue  # tombstoned row (valid=False on device too)
                 violations = self._memo_cell(
                     kind, name, ri, constraint, reviews[ri], rowviews,
-                    inventory, uses_inv, ap.row_gen[ri],
+                    cell_inv, uses_inv, ap.row_gen[ri],
                 )
+                if join_strict and not violations:
+                    # an exact join plan flagged this cell but the oracle
+                    # renders nothing: raises under GK_JOIN_ASSERT=1
+                    # unless the documented gv-twin corner explains it
+                    self._note_join_false_positive(kind, name, int(ri))
                 rendered_cells += 1
                 for v in violations:
                     results.append(

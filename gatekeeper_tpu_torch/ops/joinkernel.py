@@ -20,19 +20,19 @@ This module keeps referential templates inside the vectorized sweep:
   (:func:`normalize_join_key`) interned into the global vocabulary, so
   int-vs-str label values can never coerce into one group (the engine's
   ``values_equal`` is type-strict; the packed path must be too).
-- device-side kernels build the per-key table inside the packed [C, R]
-  sweep: in-row dedup of slot keys, a sort + segment-reduce group-by over
-  the interned key column, and under a mesh a per-shard segment-reduce
-  followed by an ``all_gather`` cross-shard merge (the [C, 1+K]-style
-  reduce-then-merge idiom from parallel/mesh.py) for keys spanning shards.
-  Verdicts are then one ``searchsorted`` gather + the engine's exact
-  total-order comparison.
+- the per-key table is built on the card inside the full audit sweep by
+  kernel K7 (ops/joinkeys.py: in-row dedup of slot keys and a count per
+  interned key id, no sort), and each JoinCmp's per-cell count is one
+  binary search into it minus the row's own contribution, kernel K8
+  (ops/joinlookup.py), then the engine's exact total-order comparison.
+  The plain torch and numpy versions of both live here.  The JAX
+  package's cross-shard merge of per-shard tables is the multi-GPU
+  slice's work (ROADMAP A7).
 - :class:`JoinState` is the host-side join-group index (key -> provider
   rows, key -> reader rows) that gives the delta sweep O(churn) dispatch:
   a churned row invalidates only its key group (old keys + new keys), and
-  only those readers re-evaluate / re-render.  The index is persisted in
-  the snapshot sweep basis (gatekeeper_tpu/snapshot/) so warm restores
-  keep the delta path; plan drift drops the basis for a rebase.
+  only those readers re-evaluate / re-render; its (uk, uc) tables feed
+  the delta sweep's lookups.
 
 Soundness: a JoinCmp in the REVIEW path (admission batches — no inventory
 on the device) resolves to its polarity's ``unknown_default`` and the
@@ -56,6 +56,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .interning import Interner
 
@@ -181,20 +182,22 @@ class JoinPlan:
 
 
 # ---------------------------------------------------------------------------
-# Device kernels
+# Key tables and their lookup (the plain versions of kernels K7 and K8)
 # ---------------------------------------------------------------------------
 
 
-#: where the port's device join kernels are queued (ROADMAP.md, queue A)
-_JOIN_SLICE = "referential joins on the device are port slice A5"
+#: where the cross-shard merge of the key tables is queued (ROADMAP.md A7)
+_MESH_SLICE = "the cross-shard key-table merge is port slice A7 (multi-GPU)"
 
 
 def _scatter_add(n: int, idx, w, xp):
-    if xp is not np:
-        raise NotImplementedError(_JOIN_SLICE)
-    tot = np.zeros(n, np.int64)
-    np.add.at(tot, idx, w)
-    return tot
+    if xp is np:
+        tot = np.zeros(n, np.int64)
+        np.add.at(tot, idx, w)
+        return tot
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).index_add_(
+        0, idx.long(), w.long()
+    )
 
 
 def compact_key_table(keys, weights, xp):
@@ -202,23 +205,37 @@ def compact_key_table(keys, weights, xp):
     ``(uk [N], uc [N])`` where uk holds each distinct valid key once
     (ascending, KEY_INVALID-padded tail) and uc its summed weight.
 
-    The segment reduce is the classic sorted-run trick: sort, mark run
-    starts, scatter-add weights per run id.  Shape-stable (no nonzero/
-    compaction), so it traces once per column layout."""
+    ``xp`` is numpy or torch.  The segment reduce is the classic
+    sorted-run trick: sort, mark run starts, scatter-add weights per run
+    id.  On the card, kernel K7 (ops/joinkeys.py) computes the same
+    table without a sort."""
     n = keys.shape[0]
-    order = xp.argsort(keys)
+    if xp is np:
+        order = np.argsort(keys)
+        sk = keys[order]
+        w = weights[order]
+        first = np.concatenate([np.ones(1, bool), sk[1:] != sk[:-1]])
+        run = np.cumsum(first.astype(np.int32)) - 1
+        tot = _scatter_add(n, run, w, np)
+        valid = sk != KEY_INVALID
+        uk = np.where(first & valid, sk, KEY_INVALID)
+        uc = np.where(first & valid, tot[run], 0)
+        o2 = np.argsort(uk)
+        return uk[o2], uc[o2].astype(np.int32)
+    if n == 0:
+        return keys.clone(), torch.zeros_like(keys)
+    order = torch.argsort(keys)
     sk = keys[order]
     w = weights[order]
-    first = xp.concatenate(
-        [xp.ones(1, bool), sk[1:] != sk[:-1]]
-    )
-    run = xp.cumsum(first.astype(xp.int32)) - 1
-    tot = _scatter_add(n, run, w, xp)
-    valid = sk != KEY_INVALID
-    uk = xp.where(first & valid, sk, KEY_INVALID)
-    uc = xp.where(first & valid, tot[run], 0)
-    o2 = xp.argsort(uk)
-    return uk[o2], uc[o2].astype(xp.int32)
+    first = torch.ones(n, dtype=torch.bool, device=keys.device)
+    first[1:] = sk[1:] != sk[:-1]
+    run = torch.cumsum(first, 0) - 1
+    tot = _scatter_add(n, run, w, torch)
+    keep = first & (sk != int(KEY_INVALID))
+    uk = torch.where(keep, sk, torch.full_like(sk, int(KEY_INVALID)))
+    uc = torch.where(keep, tot[run], torch.zeros_like(tot))
+    o2 = torch.argsort(uk)
+    return uk[o2], uc[o2].to(torch.int32)
 
 
 def row_distinct_slot_keys(sid, mask, xp):
@@ -226,111 +243,139 @@ def row_distinct_slot_keys(sid, mask, xp):
     row's duplicate keys collapsed to one entry (a row providing the same
     host twice is ONE provider for that host — the reference's
     ``identical`` self-exclusion is object-level, not entry-level)."""
-    s = xp.where(mask, sid, KEY_INVALID)
-    ss = xp.sort(s, axis=1)
-    keep = xp.concatenate(
-        [xp.ones((ss.shape[0], 1), bool), ss[:, 1:] != ss[:, :-1]],
-        axis=1,
-    )
-    return xp.where(keep & (ss != KEY_INVALID), ss, KEY_INVALID).reshape(-1)
+    if xp is np:
+        s = np.where(mask, sid, KEY_INVALID)
+        ss = np.sort(s, axis=1)
+        keep = np.concatenate(
+            [np.ones((ss.shape[0], 1), bool), ss[:, 1:] != ss[:, :-1]],
+            axis=1,
+        )
+        return np.where(
+            keep & (ss != KEY_INVALID), ss, KEY_INVALID
+        ).reshape(-1)
+    invalid = torch.full_like(sid, int(KEY_INVALID))
+    ss = torch.sort(torch.where(mask, sid, invalid), dim=1).values
+    keep = torch.ones_like(mask)
+    keep[:, 1:] = ss[:, 1:] != ss[:, :-1]
+    return torch.where(keep & (ss != int(KEY_INVALID)), ss, invalid).reshape(-1)
+
+
+def participation(valid, kind, ns_empty, kind_id, namespaced: bool):
+    """[R] bool: the rows that take part in a plan's aggregate — valid, of
+    the plan's remote kind, in its scope (``namespaced``: a namespace;
+    else none).  numpy or torch arrays."""
+    return valid & (kind == kind_id) & (~ns_empty if namespaced else ns_empty)
+
+
+def key_table(part, sid, mask, xp):
+    """The distinct-provider-row table of one key column: ``sid`` [R]
+    (``mask`` None) or [R, S] slot ids, rows ``part`` [R] taking part ->
+    compact (uk, uc) of length R*S.  The plain version of kernel K7."""
+    if mask is not None:
+        flat = row_distinct_slot_keys(sid, mask & (sid >= 0) & part[:, None],
+                                      xp)
+    elif xp is np:
+        flat = np.where(part & (sid >= 0), sid, KEY_INVALID)
+    else:
+        flat = torch.where(part & (sid >= 0), sid,
+                           torch.full_like(sid, int(KEY_INVALID)))
+    valid = flat != KEY_INVALID
+    weights = valid.astype(np.int32) if xp is np else valid.to(torch.int32)
+    return compact_key_table(flat, weights, xp)
 
 
 def provider_key_table(plan: JoinPlan, kind_id, rv, cols, xp,
                        axis_name: Optional[str] = None):
-    """The per-key distinct-provider-row table, computed INSIDE the packed
-    sweep from the resident columns.  Single device: one segment-reduce
-    over the full row axis.  Mesh (``axis_name`` set): each shard
-    segment-reduces its own row slab to a compact (keys, counts) table,
-    then an ``all_gather`` + second segment-reduce merges the per-shard
-    tables — counts for keys spanning shards sum exactly, so the merged
-    table is bit-identical at every width."""
-    valid = xp.asarray(rv["valid"])
-    part = valid & (xp.asarray(rv["kind"]) == kind_id)
-    ns_empty = xp.asarray(rv["ns_empty"])
-    if plan.remote_scope == "namespace":
-        part = part & ~ns_empty
-    else:
-        part = part & ns_empty
-    rcol = cols[plan.remote_colkey]
-    sid = xp.asarray(rcol["sid"])
-    if plan.remote_slot:
-        ok = xp.asarray(rcol["mask"]) & (sid >= 0) & part[:, None]
-        flat = row_distinct_slot_keys(sid, ok, xp)
-    else:
-        flat = xp.where(part & (sid >= 0), sid, KEY_INVALID)
-    uk, uc = compact_key_table(
-        flat, (flat != KEY_INVALID).astype(xp.int32), xp
-    )
+    """The per-key distinct-provider-row table of ``plan`` from the
+    resident columns (``xp`` numpy or torch): one segment-reduce over the
+    full row axis.  Under a mesh (``axis_name``) the JAX package merges
+    per-shard tables with an ``all_gather``; that merge belongs to the
+    multi-GPU slice and raises here."""
     if axis_name is not None:
-        raise NotImplementedError(_JOIN_SLICE)
-    return uk, uc
+        raise NotImplementedError(_MESH_SLICE)
+    part = participation(
+        xp.asarray(rv["valid"]), xp.asarray(rv["kind"]),
+        xp.asarray(rv["ns_empty"]), kind_id,
+        plan.remote_scope == "namespace",
+    )
+    rcol = cols[plan.remote_colkey]
+    mask = xp.asarray(rcol["mask"]) if plan.remote_slot else None
+    return key_table(part, xp.asarray(rcol["sid"]), mask, xp)
 
 
 def lookup_counts(uk, uc, q, xp):
     """Gather per-key counts at query ids ``q`` (any shape): one
     ``searchsorted`` into the compact table; absent or invalid keys
-    answer 0."""
+    answer 0.  On the card, kernel K8 (ops/joinlookup.py) does this
+    lookup with a binary search per query."""
     n = uk.shape[0]
-    i = xp.clip(xp.searchsorted(uk, q), 0, n - 1)
+    if xp is np:
+        i = np.clip(np.searchsorted(uk, q), 0, n - 1)
+        found = (uk[i] == q) & (q >= 0)
+        return np.where(found, uc[i], 0)
+    if n == 0:
+        return torch.zeros_like(q)
+    i = torch.searchsorted(uk, q.contiguous()).clamp_(0, n - 1)
     found = (uk[i] == q) & (q >= 0)
-    return xp.where(found, uc[i], 0)
+    return torch.where(found, uc[i], torch.zeros_like(uc[i]))
 
 
 class JoinBinding:
     """Per-evaluation join context attached to an EvalEnv (vexpr).
 
-    mode 'trace':  tables are computed in-trace from the resident columns
-                   (full audit sweeps; ``plan_args[i]`` carries the
-                   runtime ``kind_id`` scalar so interner ids are never
-                   baked into a cached executable).
-    mode 'tables': tables arrive as runtime arrays (delta sweeps — the
+    mode 'trace':  tables are computed from the resident columns (full
+                   audit sweeps, kernel K7 on the card); ``plan_args[i]``
+                   carries the plan's remote ``kind_id`` and ``vocab``,
+                   the interner's size when the sweep was packed (every
+                   key id lies below it).
+    mode 'tables': tables arrive as tensors (delta sweeps — the
                    dispatched rows are a churn slice, so the global
-                   aggregate must come from the host join index).
+                   aggregate must come from the host join index);
+                   ``plan_args[i]`` holds ``uk``, ``uc`` and ``kind_id``.
     ``cache`` is shared across the sweep's program groups: 500 template
     clones of one referential family cost ONE table build."""
 
-    __slots__ = ("mode", "plans", "plan_args", "rv", "axis_name", "cache")
+    __slots__ = ("mode", "plans", "plan_args", "rv", "cache")
 
     def __init__(self, mode: str, plans, plan_args, rv=None,
-                 axis_name: Optional[str] = None, cache: Optional[dict] = None):
+                 cache: Optional[dict] = None):
         self.mode = mode
         self.plans = plans
         self.plan_args = plan_args
         self.rv = rv
-        self.axis_name = axis_name
         self.cache = cache if cache is not None else {}
 
     def table(self, plan_id: int, env):
         plan = self.plans[plan_id]
         hit = self.cache.get(plan)
         if hit is None:
-            xp = env.xp
             arg = self.plan_args[plan_id]
             if self.mode == "tables":
-                hit = (xp.asarray(arg["uk"]), xp.asarray(arg["uc"]))
+                hit = (arg["uk"], arg["uc"])
             else:
-                hit = provider_key_table(
-                    plan, xp.asarray(arg["kind_id"]), self.rv, env.cols,
-                    xp, axis_name=self.axis_name,
+                from .joinkeys import join_keys
+
+                rv = self.rv
+                rcol = env.cols[plan.remote_colkey]
+                hit = join_keys(
+                    rv["valid"], rv["kind"], rv["ns_empty"], rcol["sid"],
+                    rcol["mask"] if plan.remote_slot else None,
+                    int(arg["kind_id"]), plan.remote_scope == "namespace",
+                    int(arg["vocab"]),
                 )
             self.cache[plan] = hit
         return hit
 
-    def self_mask(self, plan_id: int, env):
-        """[R] bool: does the row itself participate in the aggregate
-        (JoinCmp.exclude_self)?  Both modes carry the review arrays —
-        delta dispatches slice them row-aligned with the columns."""
+    def self_scope(self, plan_id: int):
+        """What JoinCmp.exclude_self needs to tell whether a row takes
+        part in the aggregate: (valid, kind, ns_empty, kind_id,
+        namespaced).  Both modes carry the review arrays — delta
+        dispatches slice them row-aligned with the columns."""
         plan = self.plans[plan_id]
-        xp = env.xp
-        arg = self.plan_args[plan_id]
         rv = self.rv
-        part = xp.asarray(rv["valid"]) & (
-            xp.asarray(rv["kind"]) == xp.asarray(arg["kind_id"])
-        )
-        ns_empty = xp.asarray(rv["ns_empty"])
-        if plan.remote_scope == "namespace":
-            return part & ~ns_empty
-        return part & ns_empty
+        return (rv["valid"], rv["kind"], rv["ns_empty"],
+                int(self.plan_args[plan_id]["kind_id"]),
+                plan.remote_scope == "namespace")
 
 
 # ---------------------------------------------------------------------------
@@ -361,14 +406,12 @@ def _pairs_for_side(plan: JoinPlan, colkey: Tuple, slot: bool, ap,
 
 
 def _provider_part(plan: JoinPlan, ap, interner: Interner) -> np.ndarray:
-    kind_id = interner.intern(plan.remote_kind)
-    part = np.asarray(ap.rp["valid"]) & (
-        np.asarray(ap.rp["kind"]) == kind_id
+    rp = ap.rp
+    return participation(
+        np.asarray(rp["valid"]), np.asarray(rp["kind"]),
+        np.asarray(rp["ns_empty"]), interner.intern(plan.remote_kind),
+        plan.remote_scope == "namespace",
     )
-    ns_empty = np.asarray(ap.rp["ns_empty"])
-    if plan.remote_scope == "namespace":
-        return part & ~ns_empty
-    return part & ns_empty
 
 
 def _keys_of_row(plan, colkey, slot, ap, row, part_ok: bool) -> Tuple[int, ...]:

@@ -20,8 +20,9 @@ columns hold them (ops/columns.py) and as the interpreter compares.
 The IR dataclasses are the JAX package's (gatekeeper_tpu/ops/vexpr.py), so
 ``VProgram.structure_key()`` is byte-equal between the two.  The
 evaluators run on torch tensors on ``EvalEnv.device``; string predicates
-(StrPred) go through the CUDA kernel K2 and set counts (SetCountCmp)
-through K3 on the card, and through their plain versions on the CPU.
+(StrPred) go through the CUDA kernel K2, set counts (SetCountCmp) through
+K3 and join lookups (JoinCmp) through K8 on the card, and through their
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import torch
 
 from .columns import T_COMP, T_FALSE, T_NUM, T_STR, T_TRUE, T_UNDEF
 from .interning import Interner
+from .joinkernel import UNKNOWN_KEY
+from .joinlookup import join_lookup
 from .setcount import setcount
 from .strpred import strpred
 
@@ -253,9 +256,10 @@ class EvalEnv:
         self.C = C
         self.R = R
         self.device = torch.device(device)
-        # cross-resource join binding: always None in this port (join
-        # device work is port slice A5), so every JoinCmp resolves to its
-        # polarity's unknown_default — a sound over-approximation
+        # cross-resource join binding (ops/joinkernel.py JoinBinding), set
+        # by the driver for audit sweeps; None on the review path, where
+        # every JoinCmp resolves to its polarity's unknown_default — a
+        # sound over-approximation the render filters
         self.joins = None
         self._consts: Dict[Tuple, torch.Tensor] = {}
 
@@ -360,11 +364,7 @@ def _eval_node(node: VNode, env: EvalEnv, axes: str, pidx=None):
     if isinstance(node, SetCountCmp):
         return _eval_setcount(node, env)
     if isinstance(node, JoinCmp):
-        if env.joins is not None:
-            raise NotImplementedError(
-                "referential joins on the device are port slice A5"
-            )
-        return env.const(bool(node.unknown_default), torch.bool)
+        return _eval_joincmp(node, env, axes, pidx)
     if isinstance(node, BoolOp):
         parts = [_eval_node(c, env, axes, pidx) for c in node.children]
         if node.op == "not":
@@ -453,6 +453,37 @@ def _eval_strpred(node: StrPred, env: EvalEnv, axes: str, pidx=None):
     hit = tableT[sidc.long(), idx_b.long()] != 0
     res = (tcode == T_STR) & (sid >= 0) & hit
     return ~res if node.negate else res
+
+
+def _eval_joincmp(node: JoinCmp, env: EvalEnv, axes: str, pidx=None):
+    """Distinct-provider-rows-per-key aggregate vs ``rhs``: the table
+    lookup less the row's own contribution (kernel K8), then the exact
+    cross-type comparison.  Key-undefined cells (missing field) compare
+    as undefined, exactly like the interpreter's failed assignment;
+    UNKNOWN_KEY cells (unnormalizable values) resolve to the polarity
+    default so the render filter decides.  Counts compare in float64,
+    exact for any count."""
+    jb = env.joins
+    unk = env.const(bool(node.unknown_default), torch.bool)
+    if jb is None:
+        return unk
+    plan = jb.plans[node.plan_id]
+    uk, uc = jb.table(node.plan_id, env)
+    sid = env.cols[plan.local_colkey]["sid"]  # [R] or [R, S]
+    scope = jb.self_scope(node.plan_id) if node.exclude_self else None
+    q = sid[None]
+    counts = join_lookup(uk, uc, sid, scope)[None]
+    if not plan.local_slot and axes.endswith("S"):
+        q, counts = q[..., None], counts[..., None]
+    lhs = {
+        "tcode": torch.where(q >= 0, env.const(T_NUM, torch.int8),
+                             env.const(T_UNDEF, torch.int8)),
+        "sid": env.const(-1, torch.int32),
+        "num": counts.to(torch.float64),
+    }
+    rhs = _operand_arrays(node.rhs, env, axes, pidx)
+    res = _cmp_values(lhs, rhs, node.op, node.unknown_default, env)
+    return torch.where(q == UNKNOWN_KEY, unk, res)
 
 
 _SETCOUNT_OPS = {">": 0, ">=": 1, "<": 2, "<=": 3, "==": 4, "!=": 5}

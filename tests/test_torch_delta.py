@@ -419,9 +419,10 @@ def test_reset_drops_the_incremental_state():
 
 
 def test_join_plans_keep_every_sweep_full():
-    """While a program has a join plan the port's delta path is off (the
-    join index is not ported): a sweep after churn is a full one, and its
-    results still equal the oracle's."""
+    """With join plans installed, a churn sweep takes the delta path (the
+    churned row and the readers of its key groups), and the full sweep
+    forced after it patches the row into the resident inputs; both equal
+    the oracle's results."""
     from gatekeeper_tpu_torch.util import synthetic as tsyn
 
     client = tsyn.build_referential_driver(3, 60, device="cpu")
@@ -435,10 +436,16 @@ def test_join_plans_keep_every_sweep_full():
     for c in (client, oracle):
         c.add_data(copy.deepcopy(obj))
     client.audit_capped(5)
+    assert drv.last_sweep_stats["delta_rows"] == 1.0
+    assert drv.last_sweep_stats["join_affected_rows"] == 0.0
+    want = audit_result_sig(oracle.audit().results())
+    assert audit_result_sig(client.audit().results()) == want
+    drv._delta_state = None
+    drv._audit_cache = None
+    client.audit_capped(5)
     assert "delta_rows" not in drv.last_sweep_stats
     assert drv.last_sweep_stats["scatter_rows"] >= 1.0
-    assert audit_result_sig(client.audit().results()) == \
-        audit_result_sig(oracle.audit().results())
+    assert audit_result_sig(client.audit().results()) == want
 
 
 def test_failed_delta_sweep_rebases_through_a_full_sweep(monkeypatch):
