@@ -16,29 +16,37 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      audit_capped(20), warm sweeps (each one's stages and garbage-collector
      pauses, then as many again with the collector's old objects frozen),
      and admission reviews of unique pods (each one's constraint-side
-     re-pack split out); every kernel's launch count over that run must be
-     > 0
+     re-pack split out); K1, K9 and K4 must have launched on that run, K9
+     exactly once per evaluation (once a sweep and once a review), and
+     vexpr.eval_program never (NoIR)
   4. each kernel against its plain version on the card, on the inputs the
-     main path gave it, exactly (every output is bool or int32); its time
+     main path gave it, exactly (every output is bool or int32): K9 on
+     every group of the cold sweep and on one one-pod review, K2 and K3 on
+     the cells K9 ran their device functions in (cell_calls); its time
      over CUDA events, the plain version's, one library call's where one
      computes the same function, and the least time the card could take;
-     then again on seeded edge cases the main path does not reach, and
-     K1 once more at the main path's shape on a corpus whose label and
-     namespace selectors are live
+     then again on seeded edge cases the main path does not reach (K9:
+     every node kind, groups with pad rows and rows of no group, S = 0,
+     P = 0, unbound joins, a deep stack), and K1 once more at the main
+     path's shape on a corpus whose label and namespace selectors are live
   5. the sweep's [C, 1+K] reduction against the same state evaluated and
      reduced through the plain versions on the card
   6. the incremental audit, the second path, at the same size: churn
      sweeps that change d stored pods before each (adds, modifications and
      deletions) for d in 1, 16 and 256, each through the delta path (K5
-     gathers the before-columns, K1-K3 evaluate the dirty rows); after each
+     gathers the before-columns, K1 and K9 evaluate the dirty rows); after each
      d a forced full sweep whose totals, results and counts must equal the
      delta path's; one sweep at d = 257, which must take the full path, and
      one full sweep after 256 changes with the delta path off (K6 patches
      the resident inputs); every kernel's launch count over that run must
-     be > 0 for K5 and K6 and for K1-K3.  Every K5 and K6 call of that run
-     is recorded and held against its plain version, and each is timed at
-     its largest call; then one recorded delta sweep for each d holds
-     K1-K3 at the delta path's widths
+     be > 0 for K5 and K6 and for K1 and K9, K9's equal to K1's.  Every K5
+     and K6 call of that run is recorded and held against its plain
+     version, and each is timed at its largest call; then one recorded
+     delta sweep for each d holds K1, K9 (and K2, K3 on its cells) at the
+     delta path's widths.  Then the device-stage split: the same paths
+     with the op-by-op IR (OpByOp: vexpr.eval_program with K2 and K3, the
+     path before K9) and with K9, in turns, in this run: forced full
+     sweeps, churn sweeps for each d, and unique one-pod reviews
   7. parity at a small size: audit and review results on the card against
      the port's own InterpDriver oracle, and the uncapped audit after 16
      changed pods, through the delta path
@@ -54,12 +62,15 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      of the crowded team, whose readers exceed DELTA_MAX_ROWS at this size,
      which must take the full path.  Each sweep logs its stages, rendered cells,
      results, join-affected rows and the join index's host time.  K7, K8,
-     K1, K4, K5 and K6 must have launched on that run.  Every K7 and K8
-     call of the cold sweep and K8's of one key-moving delta sweep for each
+     K1, K9, K4, K5 and K6 must have launched on that run, K9 as often as
+     K1, and vexpr.eval_program never.  Every K7, K8 and K9 call of the
+     cold sweep and K8's and K9's of one key-moving delta sweep for each
      d are held against the plain versions, K7 and K8 timed at their
-     largest call; seeded edge cases are in phase 4.  Then parity against
-     the oracle at 6 x 240 under GK_JOIN_ASSERT=1, capped, uncapped, and
-     uncapped after churn through the join delta path
+     largest call; seeded edge cases are in phase 4.  The device-stage
+     split of forced full and key-moving churn sweeps, op-by-op against
+     K9.  Then parity against the oracle at 6 x 240 under
+     GK_JOIN_ASSERT=1, capped, uncapped, and uncapped after churn through
+     the join delta path
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -78,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -116,8 +128,13 @@ RECORD_RESERVE = 4 << 30
 QUEUE_CYCLES = 2_000_000
 # the admission and sweep limits PERF.md holds the run against
 SWEEP_LIMIT_S = 1.0
-# the kernels of the first path (full sweeps and reviews)
-PATH1_KERNELS = ("match", "strpred", "setcount", "reduction")
+# the kernels of the first path (full sweeps and reviews); K2's and K3's
+# cell functions run inside K9 there, and are checked standalone
+PATH1_KERNELS = ("match", "program", "reduction")
+# the device-stage split: rounds of each path with the op-by-op IR
+# (OpByOp) and with K9, in turns, and unique reviews in each
+SPLIT_ROUNDS = 4
+SPLIT_REVIEWS = 64
 # the referential audit's churn: objects changed before each delta sweep,
 # sweeps of each churn kind for each, and the oracle parity's size
 # (templates, objects)
@@ -166,20 +183,26 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, setup=None) -> float:
     """Median device time of fn() over CUDA events, one event pair per
     call, after warm-up calls.  The stream first spins for QUEUE_CYCLES,
     so the host has enqueued the start event, fn's launches and the end
     event before the card reaches them, and the time between the events is
-    the card's alone, not the host's launch pace."""
+    the card's alone, not the host's launch pace.  ``setup()``, when
+    given, runs before each call, outside the events (K9 ANDs into its
+    input: each call starts from the recorded mask)."""
     import torch
 
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if setup is not None:
+            setup()
         torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
@@ -241,7 +264,8 @@ def _tensors(x):
 class Capture:
     """Record the arguments and result of every call of the kernel
     wrappers that the driver and the evaluator call, for one run: of all
-    eight, or of the kernels in ``names``.  The arguments are copied before
+    seven the main path launches (K2 and K3 run inside K9 there), or of
+    the kernels in ``names``.  The arguments are copied before
     the call and the result after it: the row scatter (K6) updates the
     resident inputs in place, which a later sweep would otherwise change
     under a recorded call."""
@@ -249,8 +273,7 @@ class Capture:
     SITES = (
         ("driver", "match_kernel", "match"),
         ("driver", "packed_reduction", "reduction"),
-        ("vexpr", "strpred", "strpred"),
-        ("vexpr", "setcount", "setcount"),
+        ("driver", "program_eval", "program"),
         ("driver", "delta_columns", "delta"),
         ("driver", "scatter_rows", "scatter"),
         ("joinkeys", "join_keys", "joinkeys"),
@@ -274,7 +297,7 @@ class Capture:
             def wrapped(*a, _orig=orig, _name=name, **kw):
                 args = _clone(a)
                 out = _orig(*a, **kw)
-                # a copy: the driver ANDs into the match mask in place
+                # a copy: the match mask is ANDed into in place (K9)
                 self.calls[_name].append((args, kw, _clone(out)))
                 return out
 
@@ -292,8 +315,8 @@ class PlainVersions:
 
     def __enter__(self):
         from gatekeeper_tpu_torch.ops import (
-            driver, joinkeys, joinlookup, matchkernel, reduction, setcount,
-            strpred, vexpr,
+            driver, joinkeys, joinlookup, matchkernel, program, reduction,
+            setcount, strpred, vexpr,
         )
 
         def match_plain(rv, cs, records=None):
@@ -302,6 +325,7 @@ class PlainVersions:
         self.patches = [
             (driver, "match_kernel", match_plain),
             (driver, "packed_reduction", reduction.packed_reduction_plain),
+            (driver, "program_eval", program.program_eval_plain),
             (vexpr, "strpred", strpred.strpred_plain),
             (vexpr, "setcount", setcount.setcount_plain),
             (joinkeys, "join_keys", joinkeys.join_keys_plain),
@@ -315,6 +339,57 @@ class PlainVersions:
     def __exit__(self, *exc):
         for m, f, fn in self.saved:
             setattr(m, f, fn)
+
+
+class OpByOp:
+    """Route TorchDriver._eval's program groups through
+    vexpr.eval_program, the IR issued op by op with K2, K3 and K8 (the
+    path before K9), in place of the bytecode and K9: the 'before' of the
+    device-stage split.  A switch of this script only, never of the
+    driver."""
+
+    def __enter__(self):
+        from gatekeeper_tpu_torch.ops import driver, vexpr
+
+        def bind(prog, env, start):
+            return {"prog": prog, "env": env, "start": start, "B": env.C}
+
+        def run(mask, groups):
+            for g in groups:
+                mask[g["start"]:g["start"] + g["B"]] &= vexpr.eval_program(
+                    g["prog"], g["env"])
+            return mask
+
+        self.saved = [(driver, n, getattr(driver, n))
+                      for n in ("encode", "bind_group", "program_eval")]
+        driver.encode = lambda prog: prog
+        driver.bind_group = bind
+        driver.program_eval = run
+        return self
+
+    def __exit__(self, *exc):
+        for m, f, fn in self.saved:
+            setattr(m, f, fn)
+
+
+class NoIR:
+    """vexpr.eval_program raises while the counted runs drive the main
+    path: every evaluation must go through the bytecode and K9."""
+
+    def __enter__(self):
+        from gatekeeper_tpu_torch.ops import vexpr
+
+        def refuse(*_a, **_k):
+            raise AssertionError("the main path ran vexpr.eval_program")
+
+        self.saved = vexpr.eval_program
+        vexpr.eval_program = refuse
+        return self
+
+    def __exit__(self, *exc):
+        from gatekeeper_tpu_torch.ops import vexpr
+
+        vexpr.eval_program = self.saved
 
 
 def _nbytes(*tensors) -> int:
@@ -346,13 +421,15 @@ class Kernel:
     run the kernel and its plain version on them (checked and timed
     alike); ``work(p)`` -> (bytes, operations, shapes, the library call or
     None); ``size(a)`` ranks the calls, and the largest (the first of
-    equals) is timed."""
+    equals) is timed; ``reset(p, which)``, where given, restores the
+    kernel's ('kernel') or the plain version's ('plain') in-place output
+    before each timed call."""
 
     def __init__(self, source, replaces, kernel, plain, work,
-                 prep=lambda a, kw: (a, kw), size=lambda a: 0):
+                 prep=lambda a, kw: (a, kw), size=lambda a: 0, reset=None):
         self.source, self.replaces = source, replaces
         self.kernel, self.plain, self.work = kernel, plain, work
-        self.prep, self.size = prep, size
+        self.prep, self.size, self.reset = prep, size, reset
 
 
 def _strpred_work(p):
@@ -376,6 +453,82 @@ def _setcount_work(p):
     R, K = kids.shape
     return (C * R + C * P * 5 + R * K * 4, 2 * C * R * P * K,
             {"C": C, "R": R, "P": P, "K": K, "orient": orient}, None)
+
+
+def _program_prep(a, kw):
+    """The recorded mask (K1's, before K9) and two copies of it, one each
+    for K9 and the plain version to AND into."""
+    mask, groups = a
+    return {"pre": mask, "kernel": mask.clone(), "plain": mask.clone(),
+            "groups": groups}
+
+
+def _program_reset(p, which):
+    p[which].copy_(p["pre"])
+
+
+def _program_work(p):
+    """Bytes: the group rows of the mask read and written, and every
+    operand tensor read once in full.  Operations: the bytecode
+    instructions the kernel executes on this mask (a cell whose match bit
+    is False runs none; jumps and early loop exits counted as taken), each
+    one operation, a set count 1 + 2 P K."""
+    from gatekeeper_tpu_torch.ops import program, progcode
+
+    mask, groups = p["pre"], p["groups"]
+    R = mask.shape[1]
+    ops = []
+    program.program_eval_plain(mask.clone(), groups, ops)
+    seen = {}
+    for g in groups:
+        for t in _tensors(g["operands"]):
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    rows = sum(g["B"] for g in groups)
+    live = sum(int(mask[g["start"]:g["start"] + g["B"]].sum().item())
+               for g in groups)
+    return (2 * rows * R + sum(seen.values()), sum(ops),
+            {"groups": len(groups), "group_rows": rows, "R": R,
+             "live_cells": live,
+             "instructions": [len(g["code"]) // progcode.WIDTH
+                              for g in groups],
+             "operands": [len(g["operands"]) for g in groups],
+             "executed": ops}, None)
+
+
+def cell_calls(cap: Capture) -> dict:
+    """K2's and K3's calls at the main path's shapes, from the recorded K9
+    calls: each review-side string predicate and each set count of their
+    groups, as K9 runs them cell by cell (strpred.cuh, setcount.cuh);
+    a per-element predicate takes its tables' first element column.  Each
+    call's output is its plain version's, on the card."""
+    import numpy as np
+
+    from gatekeeper_tpu_torch.ops import program, progcode, setcount
+    from gatekeeper_tpu_torch.ops import strpred
+
+    out = {"strpred": [], "setcount": []}
+    for (_mask, groups), _kw, _out in cap.calls.get("program", []):
+        for g in groups:
+            ops = g["operands"]
+            for ins in np.asarray(g["code"]).reshape(-1, progcode.WIDTH):
+                if ins[0] == progcode.STRPRED:
+                    v, t = ops[ins[1]], ops[ins[2]]
+                    if v["kind"] not in (program.SCALAR, program.SLOT):
+                        continue
+                    idx = t["idx"][:, 0].contiguous() if t["width"] \
+                        else t["idx"]
+                    args = (t["table"], idx, v["tcode"][None],
+                            v["sid"][None], bool(ins[3]))
+                    out["strpred"].append(
+                        (args, {}, strpred.strpred_plain(*args)))
+                elif ins[0] == progcode.SETCOUNT:
+                    o = ops[ins[1]]
+                    args = (o["cids"], o["cmask"], o["kids"], o["orient"],
+                            o["op"], o["n"], o["pad"])
+                    out["setcount"].append(
+                        (args, {}, setcount.setcount_plain(*args)))
+
+    return types.SimpleNamespace(calls=out)
 
 
 def _reduction_work(p):
@@ -510,8 +663,8 @@ def _joinlookup_work(p):
 
 def kernel_specs() -> dict:
     from gatekeeper_tpu_torch.ops import delta, joinkeys, joinlookup
-    from gatekeeper_tpu_torch.ops import matchkernel, reduction, setcount
-    from gatekeeper_tpu_torch.ops import strpred
+    from gatekeeper_tpu_torch.ops import matchkernel, program, reduction
+    from gatekeeper_tpu_torch.ops import setcount, strpred
 
     def rows_of(a):
         return len(a[1])
@@ -528,13 +681,20 @@ def kernel_specs() -> dict:
             "gatekeeper_tpu/ops/vexpr.py:418",
             lambda p: strpred.strpred_cuda(*p[0], **p[1]),
             lambda p: strpred.strpred_plain(*p[0], **p[1]),
-            _strpred_work),
+            _strpred_work, size=lambda a: a[1].numel() * a[3].numel()),
         "setcount": Kernel(
             "gatekeeper_tpu_torch/kernels/setcount.cu",
             "gatekeeper_tpu/ops/vexpr.py:470",
             lambda p: setcount.setcount_cuda(*p[0], **p[1]),
             lambda p: setcount.setcount_plain(*p[0], **p[1]),
-            _setcount_work),
+            _setcount_work, size=lambda a: a[0].shape[0] * a[2].shape[0]),
+        "program": Kernel(
+            "gatekeeper_tpu_torch/kernels/program.cu",
+            "gatekeeper_tpu/ops/vexpr.py:565",
+            lambda p: program.program_eval_cuda(p["kernel"], p["groups"]),
+            lambda p: program.program_eval_plain(p["plain"], p["groups"]),
+            _program_work, prep=_program_prep, size=lambda a: a[0].numel(),
+            reset=_program_reset),
         "reduction": Kernel(
             "gatekeeper_tpu_torch/kernels/reduction.cu",
             "gatekeeper_tpu/ops/driver.py:88",
@@ -616,10 +776,12 @@ def check_kernels(cap: Capture, reps: int, timed):
         sizes = sorted({spec.size(c[0]) for c in calls})
         if len(sizes) > 1:
             shapes["sizes_by_call"] = sizes
+        reset = spec.reset or (lambda p, which: None)
         row.update({
-            "ms": cuda_ms(lambda: spec.kernel(p), reps),
+            "ms": cuda_ms(lambda: spec.kernel(p), reps,
+                          setup=lambda: reset(p, "kernel")),
             "plain_ms": cuda_ms(lambda: spec.plain(p), max(3, reps // 4),
-                                warmup=1),
+                                warmup=1, setup=lambda: reset(p, "plain")),
             **bound(nbytes, ops),
             "library_ms": None if library is None else cuda_ms(library, reps),
             "shapes": shapes,
@@ -723,7 +885,8 @@ def check_edges():
 
     dev = torch.device(DEVICE)
     checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
-               "delta": 0, "scatter": 0, "joinkeys": 0, "joinlookup": 0}
+               "delta": 0, "scatter": 0, "joinkeys": 0, "joinlookup": 0,
+               "program": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -829,6 +992,7 @@ def check_edges():
         scatter.scatter_rows_plain(b, idx, fresh)
         same("scatter", tuple(_tensors(a)), tuple(_tensors(b)))
     check_join_edges(rng, dev, same)
+    check_program_edges(rng, dev, same)
     torch.cuda.synchronize()
     return checked
 
@@ -907,6 +1071,208 @@ def check_join_edges(rng, dev, same):
                      joinlookup.join_lookup_cuda(t(uk), t(uc), q, sc),
                      joinlookup.join_lookup_plain(t(uk), t(uc), q, sc))
 
+
+def _edge_env(rng, dev, B, R, S, P):
+    """A seeded EvalEnv on the card for check_program_edges: a scalar
+    column, two slot columns of one iteration group and one of another,
+    a key set, two join key columns, two parameters, a parameter array of
+    width P with a sub-field, predicate tables per constraint and per
+    element, and a join binding in 'tables' mode; every type code, -0.0,
+    NaN and infinities among the numbers."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.convert import (
+        group_params_from_numpy, state_from_numpy)
+    from gatekeeper_tpu_torch.ops import joinkernel, vexpr
+
+    V, U, K = 40, 4, 4
+
+    def typed(shape):
+        t = rng.integers(0, 7, shape).astype(np.int8)
+        odd = rng.random(shape)
+        num = rng.integers(-4, 5, shape) / 2.0
+        num = np.where(odd < 0.1, -0.0, num)
+        num = np.where(odd > 0.95, np.nan, num)
+        num = np.where((odd > 0.9) & (odd <= 0.95), np.inf, num)
+        return {"tcode": t,
+                "sid": np.where(t == 5, rng.integers(-1, V, shape),
+                                -1).astype(np.int32),
+                "num": np.where(t == 4, num, 0.0)}
+
+    ks = edge_keys()
+    slot = typed((R, S))
+    slot["mask"] = rng.random((R, S)) < 0.7
+    slot2 = typed((R, S))
+    slot2["mask"] = slot["mask"]
+    other = typed((R, 2))
+    other["mask"] = rng.random((R, 2)) < 0.5
+    keys = rng.integers(0, 6, (R, K)).astype(np.int32)
+    keys[rng.random((R, K)) < 0.4] = -2
+    jk = rng.integers(-1, 8, R).astype(np.int32)
+    jk[rng.random(R) < 0.15] = joinkernel.UNKNOWN_KEY
+    js = rng.integers(-1, 8, (R, 2)).astype(np.int32)
+    js[rng.random((R, 2)) < 0.2] = joinkernel.UNKNOWN_KEY
+    cols = {ks["scalar"]: typed((R,)), ks["slot"]: slot, ks["slot2"]: slot2,
+            ks["other"]: other, ks["jkey"]: {"sid": jk},
+            ks["jslot"]: {"sid": js, "mask": rng.random((R, 2)) < 0.9}}
+    elem = typed((B, P))
+    elem["mask"] = rng.random((B, P)) < 0.7
+    elem["sid"] = np.where(elem["mask"], rng.integers(0, 6, (B, P)),
+                           -1).astype(np.int32)
+    sub = typed((B, P))
+    sub["mask"] = elem["mask"]
+    params = {("p",): typed((B,)), ("q",): typed((B,)),
+              ("__lit__", "x"): {"tcode": np.array([5], np.int8),
+                                 "sid": np.array([3], np.int32),
+                                 "num": np.zeros(1)}}
+    elems = {(("arr",), ()): elem, (("arr",), ("sub",)): sub}
+    tables = {0: ((rng.random((U, V)) < 0.5).astype(np.uint8),
+                  rng.integers(0, U, B).astype(np.int32)),
+              1: ((rng.random((U, V)) < 0.5).astype(np.uint8),
+                  rng.integers(0, U, (B, P)).astype(np.int32))}
+    gp, ge, gt = group_params_from_numpy([(params, elems, tables)], dev)[0]
+    tcols = state_from_numpy(cols, dev)
+    env = vexpr.EvalEnv(tcols, gp, ge, gt,
+                        {ks["keys"]: torch.from_numpy(keys).to(dev)}, B, R,
+                        dev)
+    uk = np.full(8, int(joinkernel.KEY_INVALID), np.int32)
+    uk[:5] = [0, 2, 3, 5, 7]
+    uc = np.zeros(8, np.int32)
+    uc[:5] = rng.integers(1, 4, 5)
+    rv = state_from_numpy({"valid": rng.random(R) < 0.9,
+                           "kind": rng.integers(0, 3, R).astype(np.int32),
+                           "ns_empty": rng.random(R) < 0.4}, dev)
+    args = {"uk": torch.from_numpy(uk).to(dev),
+            "uc": torch.from_numpy(uc).to(dev), "kind_id": 1}
+    env.joins = joinkernel.JoinBinding("tables", edge_plans(), [args, args],
+                                       rv=rv)
+    return env
+
+
+def edge_keys() -> dict:
+    it, it2 = (("spec", "c", "[]"),), (("spec", "v", "[]"),)
+    return {"scalar": ("scalar", (), ("a",), ()), "iter": it, "iter2": it2,
+            "slot": ("slot", it, ("image",), ()),
+            "slot2": ("slot", it, ("name",), ()),
+            "other": ("slot", it2, ("name",), ()),
+            "keys": ("keyset", (("metadata", "labels"),), (), ()),
+            "jkey": ("joinkey", "host"), "jslot": ("joinkey", "hosts")}
+
+
+def edge_plans() -> tuple:
+    from gatekeeper_tpu_torch.ops.joinkernel import JoinPlan
+
+    ks = edge_keys()
+    return (
+        JoinPlan(agg="dup", local_colkey=ks["jkey"], local_slot=False,
+                 remote_scope="namespace", remote_kind="Kind",
+                 remote_colkey=ks["jkey"], remote_slot=False),
+        JoinPlan(agg="count", local_colkey=ks["jslot"], local_slot=True,
+                 remote_scope="cluster", remote_kind="Kind",
+                 remote_colkey=ks["jslot"], remote_slot=True),
+    )
+
+
+def edge_programs() -> list:
+    """Programs over _edge_env covering every node kind and both
+    polarities; the last one needs a deep stack, one has no clauses."""
+    from gatekeeper_tpu_torch.ops import vexpr as v
+
+    ks = edge_keys()
+    sc, sl, sl2 = (v.ColRef(ks["scalar"], False), v.ColRef(ks["slot"], True),
+                   v.ColRef(ks["slot2"], True))
+    p, q, el = v.ParamRef(("p",)), v.ParamRef(("q",)), v.ParamElemRef(("arr",))
+    sub = v.ParamElemRef(("arr",), ("sub",))
+    ops = ["==", "!=", "<", "<=", ">", ">="]
+
+    def prog(clauses):
+        return v.VProgram(clauses, [], [], [], join_plans=edge_plans())
+
+    deep = v.Truthy(sc)
+    for _ in range(13):
+        deep = v.BoolOp("and", (v.Truthy(p), v.BoolOp("or", (
+            v.Const(False), deep))))
+    return [
+        prog([v.Clause((v.Cmp(op, sc, p, unknown_default=i % 2 == 0),))
+              for i, op in enumerate(ops)]),
+        prog([v.Clause((v.Cmp(op, sl, v.Lit(0.5), unknown_default=i % 2 == 1),
+                        v.Cmp(op, v.Lit(True), sc)), slot_iter=ks["iter"])
+              for i, op in enumerate(ops)]),
+        prog([v.Clause((v.Truthy(sc, negate=True), v.BoolOp("not", (
+            v.Truthy(q),)))), v.Clause((v.Cmp("==", v.Lit("x"), sc),
+                                        v.Truthy(p)))]),
+        prog([v.Clause((v.StrPred("startswith", sc, p, pred_id=0),)),
+              v.Clause((v.StrPred("contains", p, v.Lit("x"), pred_id=0,
+                                  negate=True), v.Truthy(sc))),
+              v.Clause((v.StrPred("startswith", sl, v.Lit("x"), pred_id=0,
+                                  negate=True),), slot_iter=ks["iter"])]),
+        prog([v.Clause((v.AnyParam(("arr",), (
+            v.StrPred("endswith", sl, el, pred_id=1),
+            v.Cmp("!=", sub, sl2))),), slot_iter=ks["iter"]),
+            v.Clause((v.AnyParam(("arr",), (v.StrPred(
+                "endswith", sub, el, pred_id=1),)), v.Truthy(sc)))]),
+        prog([v.Clause((v.SetCountCmp(("paramids", (("arr",), ())),
+                                      ("keyset", ks["keys"]), op, 1),))
+              for op in (">", "<=")] +
+             [v.Clause((v.SetCountCmp(("keyset", ks["keys"]),
+                                      ("paramids", (("arr",), ())), op, 0),
+                        v.Truthy(sc)))
+              for op in ("==", "!=")]),
+        prog([v.Clause((v.Truthy(sc), v.ReduceSlots(
+            (v.Cmp("==", sl, sl2), v.Truthy(q)), ks["iter"]))),
+            v.Clause((), slot_iter=ks["iter2"]),
+            v.Clause((v.BoolOp("not", (v.AnyParam(("arr",), (
+                v.Truthy(sub),)),)), v.Truthy(sc)))]),
+        prog([v.Clause((v.JoinCmp(0, op, v.Lit(1), exclude_self=i % 2 == 0,
+                                  unknown_default=i % 3 == 0),
+                        v.Truthy(sc)))
+              for i, op in enumerate(ops)] +
+             [v.Clause((v.JoinCmp(1, op, p, slot=True, exclude_self=True),),
+                       slot_iter=ks["iter2"]) for op in ("<", ">=")]),
+        prog([]),
+        prog([v.Clause((deep,))]),
+    ]
+
+
+def check_program_edges(rng, dev, same):
+    """K9 against the plain bytecode on seeded edge cases: every program
+    of edge_programs at once, as groups of one launch with pad rows and
+    rows of no group between them, for R of 1, off the block tile and past
+    it, S = 0 and 3, P = 0, 1 and 3, masks all False, random and all True;
+    and the join comparisons without a binding.  Exact."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import program, progcode
+
+    progs = edge_programs()
+    encs = [progcode.encode(pr) for pr in progs]
+    assert encs[-1].stack > 16, encs[-1].stack
+    for R, S, P, p_live in ((1, 3, 3, 1.0), (1000, 3, 1, 0.7),
+                            (1025, 0, 3, 0.7), (4099, 3, 0, 0.5),
+                            (300, 3, 3, 0.0)):
+        B = 4
+        groups, start = [], 0
+        for i, enc in enumerate(encs):
+            env = _edge_env(rng, dev, B, R, S, P)
+            if i == 2:
+                env.joins = None
+            groups.append(program.bind_group(enc, env, start))
+            start += B + (1 if i % 3 == 0 else 0)  # a row of no group
+        mask = torch.from_numpy(rng.random((start + 2, R)) < p_live).to(dev)
+        for g in groups[::2]:
+            mask[g["start"] + B - 1] = False  # a pad row
+        same("program",
+             program.program_eval_cuda(mask.clone(), groups),
+             program.program_eval_plain(mask.clone(), groups))
+        unbound = []
+        for g, enc in zip(groups, encs):
+            env = _edge_env(rng, dev, B, R, S, P)
+            env.joins = None
+            unbound.append(program.bind_group(enc, env, g["start"]))
+        same("program",
+             program.program_eval_cuda(mask.clone(), unbound),
+             program.program_eval_plain(mask.clone(), unbound))
 
 
 class Churn:
@@ -1272,7 +1638,8 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
     from gatekeeper_tpu_torch.util import synthetic as syn
 
     records = []
-    with Capture(names=("joinkeys", "joinlookup", "reduction")) as cold_cap:
+    with Capture(names=("joinkeys", "joinlookup", "reduction",
+                        "program")) as cold_cap:
         rec, resp, totals = ref_sweep(client, driver, pauses, timer, "cold")
     records.append(rec)
     results = resp.results()
@@ -1304,7 +1671,7 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
             median_join_index_ms=statistics.median(
                 r["join_index_ms"] for r in sweeps),
             sweeps=sweeps)
-    delta_cap = Capture(names=("joinlookup",))
+    delta_cap = Capture(names=("joinlookup", "program"))
     for d in REF_CHURN_D:
         sweeps = []
         for kind in ("neutral", "moving"):
@@ -1404,6 +1771,113 @@ def ref_parity(n_templates: int, n_objects: int):
             "uncapped_stats": u_stats}
 
 
+SPLIT_MODES = ("op_by_op", "k9")
+
+
+def _split_mode(mode: str):
+    import contextlib
+
+    return OpByOp() if mode == "op_by_op" else contextlib.nullcontext()
+
+
+def _split_order(i: int):
+    """op-by-op, K9; K9, op-by-op; ... (each mode first in half the
+    rounds)."""
+    return SPLIT_MODES if i % 2 == 0 else SPLIT_MODES[::-1]
+
+
+def _medians(rec: dict) -> dict:
+    return {m: {k: statistics.median(v) for k, v in r.items()}
+            for m, r in rec.items()}
+
+
+def device_split(client, driver, churn: Churn) -> dict:
+    """The device stage before and after K9 in one run: the op-by-op IR
+    (OpByOp, with K2, K3) against the bytecode and K9, in turns, on each
+    path of the synthetic corpus: SPLIT_ROUNDS forced full sweeps (whose
+    totals must agree between the two), churn sweeps for each d, and
+    SPLIT_REVIEWS unique one-pod reviews each (wall p50 and p99, and the
+    same less the constraint side's re-pack)."""
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    rec = {m: {} for m in SPLIT_MODES}
+
+    def put(mode, key, value):
+        rec[mode].setdefault(key, []).append(value)
+
+    for i in range(SPLIT_ROUNDS):
+        totals = {}
+        for mode in _split_order(i):
+            with _split_mode(mode):
+                force_full(driver)
+                _resp, totals[mode] = client.audit_capped(CAP)
+            put(mode, "full_device_ms", driver.last_sweep_stats["device_ms"])
+        if totals["op_by_op"] != totals["k9"]:
+            raise AssertionError("full sweeps differ between op-by-op and K9")
+        for d in CHURN_D:
+            for mode in _split_order(i):
+                churn.step(d)
+                with _split_mode(mode):
+                    client.audit_capped(CAP)
+                st = driver.last_sweep_stats
+                if st.get("delta_rows") != d:
+                    raise AssertionError(f"split churn d={d}: {st}")
+                put(mode, f"churn{d}_device_ms", st["device_ms"])
+    pods = syn.make_pods(2 * SPLIT_REVIEWS, seed=SEED + 97,
+                         violation_rate=0.5)
+    lat = {m: [] for m in SPLIT_MODES}
+    rest = {m: [] for m in SPLIT_MODES}
+    for j, pod in enumerate(pods):
+        pod["metadata"]["name"] = f"split-{j}"
+        mode = _split_order(j // 2)[j % 2]
+        side0 = dict(driver.side_stats)
+        with _split_mode(mode):
+            t0 = time.perf_counter()
+            client.review(pod)
+            ms = (time.perf_counter() - t0) * 1e3
+        side = driver.side_stats
+        lat[mode].append(ms)
+        rest[mode].append(ms - (side["pack_ms"] + side["upload_ms"]
+                                - side0["pack_ms"] - side0["upload_ms"]))
+    out = {"rounds": SPLIT_ROUNDS, "device_ms": _medians(rec), "runs": rec}
+    for mode in SPLIT_MODES:
+        out[f"{mode}_reviews"] = {
+            "n": len(lat[mode]), "p50_ms": statistics.median(lat[mode]),
+            "p99_ms": percentile(lat[mode], 99),
+            "without_side_p50_ms": statistics.median(rest[mode]),
+            "without_side_p99_ms": percentile(rest[mode], 99)}
+    return out
+
+
+def ref_device_split(client, driver, churn: RefChurn) -> dict:
+    """device_split for the referential corpus: SPLIT_ROUNDS forced full
+    sweeps ('trace' joins; totals must agree) and key-moving churn sweeps
+    for each d ('tables' joins) in each mode."""
+    rec = {m: {} for m in SPLIT_MODES}
+    for i in range(SPLIT_ROUNDS):
+        totals = {}
+        for mode in _split_order(i):
+            with _split_mode(mode):
+                force_full(driver)
+                _resp, totals[mode] = client.audit_capped(CAP)
+            rec[mode].setdefault("full_device_ms", []).append(
+                driver.last_sweep_stats["device_ms"])
+        if totals["op_by_op"] != totals["k9"]:
+            raise AssertionError("referential full sweeps differ between "
+                                 "op-by-op and K9")
+        for d in REF_CHURN_D:
+            for mode in _split_order(i):
+                churn.moving(d)
+                with _split_mode(mode):
+                    client.audit_capped(CAP)
+                st = driver.last_sweep_stats
+                if "delta_rows" not in st:
+                    raise AssertionError(f"split ref churn d={d}: {st}")
+                rec[mode].setdefault(f"churn{d}_device_ms", []).append(
+                    st["device_ms"])
+    return {"rounds": SPLIT_ROUNDS, "device_ms": _medians(rec), "runs": rec}
+
+
 def merge_rows(into: dict, rows: dict):
     """Fold check_kernels rows of another run into ``into``: calls checked
     add up, the largest error stays, a timed row replaces an untimed."""
@@ -1475,11 +1949,15 @@ def main(argv=None) -> int:
         pods=args.pods)
 
     gdev.reset_launches()
+    no_ir = NoIR().__enter__()
     with Capture() as cap:
         t0 = time.perf_counter()
         resp, totals = client.audit_capped(CAP)
         cold_s = time.perf_counter() - t0
     per_sweep = dict(gdev.launches)
+    if per_sweep["program"] != 1:
+        raise AssertionError(f"K9 launched {per_sweep['program']} times in "
+                             f"one full sweep")
     results = resp.results()
     stats = dict(driver.last_sweep_stats)
     n_constraints = sum(len(v) for v in driver.constraints.values())
@@ -1559,6 +2037,10 @@ def main(argv=None) -> int:
     gc.callbacks.remove(pauses)
     launches = dict(gdev.launches)
     review_launches = {k: launches[k] - before_reviews[k] for k in launches}
+    if review_launches["program"] != len(pods) or \
+            launches["program"] != launches["match"]:
+        raise AssertionError(f"K9 is not one launch per evaluation: "
+                             f"{review_launches}, {launches}")
     rest = [t - s for t, s in zip(lat, side_ms)]
     log("reviews", n=len(pods), p50_ms=statistics.median(lat),
         p99_ms=percentile(lat, 99), max_ms=max(lat), denied=denied,
@@ -1600,8 +2082,22 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(
             os.path.join(ROOT, "chiprun_out", "sweep_trace.json"))
 
-    # 4. each kernel against its plain version, on the main path's inputs
+    no_ir.__exit__()
+    # K9 on a one-pod review (after the counts were read)
+    pod = syn.make_pods(1, seed=SEED + 98, violation_rate=1.0)[0]
+    pod["metadata"]["name"] = "admission-recorded"
+    with Capture(names=("program",)) as review_cap:
+        client.review(pod)
+
+    # 4. each kernel against its plain version, on the main path's inputs;
+    # K2 and K3 on the cells K9 ran them in (cell_calls)
     kernel_rows = check_kernels(cap, REPS, timed=PATH1_KERNELS)
+    merge_rows(kernel_rows, check_kernels(
+        cell_calls(cap), REPS, timed=("strpred", "setcount")))
+    merge_rows(kernel_rows, check_kernels(review_cap, REPS, timed=()))
+    merge_rows(kernel_rows, check_kernels(cell_calls(review_cap), REPS,
+                                          timed=()))
+    del review_cap
 
     log("edges", checked=check_edges())
     log("match_live_selectors",
@@ -1638,18 +2134,22 @@ def main(argv=None) -> int:
     # sweep that makes it, from memory reserved here; K1-K3 are recorded on
     # the pass after it
     torch.empty(RECORD_RESERVE, dtype=torch.uint8, device=DEVICE)  # freed, kept
-    with Capture(names=("delta", "scatter")) as churn_cap:
+    with NoIR(), Capture(names=("delta", "scatter")) as churn_cap:
         churn_path(client, driver, churn, pauses)
     churn_launches = dict(gdev.launches)
-    missing = [k for k in ("delta", "scatter", "match", "strpred",
-                           "setcount") if churn_launches[k] == 0]
+    missing = [k for k in ("delta", "scatter", "match", "program")
+               if churn_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the incremental "
                              f"path: {missing}")
+    if churn_launches["program"] != churn_launches["match"]:
+        raise AssertionError(f"K9 is not one launch per evaluation: "
+                             f"{churn_launches}")
     log("churn_launches", main_path=churn_launches)
-    # K1-K3 at the delta path's widths: one delta sweep for each d, whose
-    # dirty rows pad to the same w = 8, 16 and 256 as the counted run's
-    with Capture(names=("match", "strpred", "setcount")) as cap2:
+    # K1 and K9 at the delta path's widths: one delta sweep for each d,
+    # whose dirty rows pad to the same w = 8, 16 and 256 as the counted
+    # run's
+    with Capture(names=("match", "program")) as cap2:
         for d in CHURN_D:
             churn.step(d)
             client.audit_capped(CAP)
@@ -1657,9 +2157,11 @@ def main(argv=None) -> int:
     gc.callbacks.remove(pauses)
     churn_rows = check_kernels(churn_cap, REPS, timed=("delta", "scatter"))
     del churn_cap
-    churn_rows.update(check_kernels(cap2, REPS, timed=()))
+    merge_rows(churn_rows, check_kernels(cap2, REPS, timed=()))
+    merge_rows(churn_rows, check_kernels(cell_calls(cap2), REPS, timed=()))
     del cap2
     merge_rows(kernel_rows, churn_rows)
+    log("device_split", **device_split(client, driver, churn))
 
     # 7. parity at a small size against the interpreter oracle
     t0 = time.perf_counter()
@@ -1715,22 +2217,27 @@ def main(argv=None) -> int:
     del ref_objs
     gc.callbacks.append(pauses)
     gdev.reset_launches()
-    with JoinIndexTimer(rdriver) as timer:
+    with NoIR(), JoinIndexTimer(rdriver) as timer:
         cold_cap, delta_cap, _records = referential_path(
             rclient, rdriver, ref_churn, pauses, timer)
     ref_launches = dict(gdev.launches)
     gc.callbacks.remove(pauses)
-    missing = [k for k in ("joinkeys", "joinlookup", "match", "reduction",
-                           "delta", "scatter") if ref_launches[k] == 0]
+    missing = [k for k in ("joinkeys", "joinlookup", "match", "program",
+                           "reduction", "delta", "scatter")
+               if ref_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the referential "
                              f"path: {missing}")
+    if ref_launches["program"] != ref_launches["match"]:
+        raise AssertionError(f"K9 is not one launch per evaluation: "
+                             f"{ref_launches}")
     log("ref_launches", main_path=ref_launches,
         plans=rdriver.join_plan_shapes())
     ref_rows = check_kernels(cold_cap, REPS, timed=("joinkeys", "joinlookup"))
     merge_rows(ref_rows, check_kernels(delta_cap, REPS, timed=()))
     merge_rows(kernel_rows, ref_rows)
     del cold_cap, delta_cap
+    log("ref_device_split", **ref_device_split(rclient, rdriver, ref_churn))
     t0 = time.perf_counter()
     parity = ref_parity(*REF_PARITY)
     log("ref_parity", seconds=time.perf_counter() - t0, **parity)

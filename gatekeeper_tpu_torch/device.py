@@ -8,8 +8,9 @@ The CUDA kernels (``kernels/*.cu``) are plain C-interface shared
 libraries loaded with ``ctypes``: each source is compiled by its own
 ``nvcc`` process, all started together, into ``build/torch_kernels/`` at
 the repository root on first use.  Each library file name carries a hash
-of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded.
+of its source, the headers it includes (``kernels/*.cuh``) and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded.
 
 Every wrapper counts its launches in ``launches`` (one per kernel launch,
 nowhere else), so a run can show that its path went through the kernels.
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +31,7 @@ from typing import Dict, Optional
 import torch
 
 KERNEL_NAMES = ("match", "strpred", "setcount", "reduction", "delta",
-                "scatter", "joinkeys", "joinlookup")
+                "scatter", "joinkeys", "joinlookup", "program")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "kernels")
@@ -84,11 +86,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def _lib_path(name: str) -> str:
-    src = os.path.join(_SRC_DIR, f"{name}.cu")
+    """The library's path: its name and a hash of the source, every header
+    it includes from ``_SRC_DIR`` (followed through the headers' own
+    includes) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        fname = todo.pop(0)
+        if fname in seen:
+            continue
+        seen.add(fname)
+        with open(os.path.join(_SRC_DIR, fname), "rb") as f:
+            text = f.read()
+        h.update(fname.encode() + b"\0" + text)
+        todo.extend(m.decode() for m in _INCLUDE.findall(text))
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"gk_{name}-{h.hexdigest()[:16]}.so")
 
@@ -143,6 +158,7 @@ _SIGNATURES = {
     "scatter": ("gk_scatter_launch", "pppiip"),
     "joinkeys": ("gk_joinkeys_launch", "pppiippiiipppp"),
     "joinlookup": ("gk_joinlookup_launch", "ppipiipppiipp"),
+    "program": ("gk_program_launch", "piipiiiip"),
 }
 
 

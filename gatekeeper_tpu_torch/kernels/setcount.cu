@@ -18,25 +18,17 @@
 //
 // Design: one thread per (c, r) cell; a block covers CT constraints x 128
 // reviews.  The CT constraints' [P] ids and masks sit in shared memory; each
-// thread reads its review's K ids (one row, L1-cached) and loops.
+// thread reads its review's K ids (one row, L1-cached) and loops.  The
+// per-cell count is setcount.cuh's, which K9 runs too.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "setcount.cuh"
 
 namespace {
 
 constexpr int CT = 8;
 constexpr int THREADS = 128;
-
-__device__ bool compare(int cnt, int op, int n) {
-  switch (op) {
-    case 0: return cnt > n;
-    case 1: return cnt >= n;
-    case 2: return cnt < n;
-    case 3: return cnt <= n;
-    case 4: return cnt == n;
-    default: return cnt != n;
-  }
-}
 
 __global__ void setcount_kernel(const int* __restrict__ cids,
                                 const uint8_t* __restrict__ cmask, int C,
@@ -57,26 +49,9 @@ __global__ void setcount_kernel(const int* __restrict__ cids,
   if (r >= R) return;
   const int* kr = kids + (size_t)r * K;
   for (int j = 0; j < nc; ++j) {
-    const int* ci = sid + j * P;
-    const int* cm = smask + j * P;
-    int cnt = 0;
-    if (orient == 0) {
-      for (int p = 0; p < P; ++p) {
-        if (!cm[p]) continue;
-        bool in = false;
-        for (int k = 0; k < K && !in; ++k) in = kr[k] == ci[p] && kr[k] != pad;
-        cnt += !in;
-      }
-    } else {
-      for (int k = 0; k < K; ++k) {
-        const int x = kr[k];
-        if (x == pad) continue;
-        bool in = false;
-        for (int p = 0; p < P && !in; ++p) in = cm[p] && ci[p] == x;
-        cnt += !in;
-      }
-    }
-    out[(size_t)(c0 + j) * R + r] = compare(cnt, op, n);
+    const int cnt = gk::setcount_count(sid + j * P, smask + j * P, P, kr, K,
+                                       pad, orient);
+    out[(size_t)(c0 + j) * R + r] = gk::setcount_compare(cnt, op, n);
   }
 }
 

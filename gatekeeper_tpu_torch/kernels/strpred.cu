@@ -18,13 +18,15 @@
 // Design: one thread per element n, looping over a block's CT constraints
 // (their table columns staged in shared memory).  The thread reads its
 // element's table row once per constraint from the same cache line; the
-// CT output rows are written coalesced along n.
+// CT output rows are written coalesced along n.  The per-element test is
+// strpred.cuh's, which K9 runs too.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "strpred.cuh"
+
 namespace {
 
-constexpr int T_STR = 5;
 constexpr int CT = 16;        // constraints per block
 constexpr int THREADS = 256;  // elements per block
 
@@ -41,12 +43,10 @@ __global__ void strpred_kernel(const uint8_t* __restrict__ tableT, int V,
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int s = sid[n];
-  const bool ok = tcode[n] == T_STR && s >= 0;
-  const uint8_t* row = tableT + (size_t)min(max(s, 0), V - 1) * U;
-  for (int j = 0; j < nc; ++j) {
-    const bool hit = ok && row[col[j]] != 0;
-    out[(size_t)(c0 + j) * N + n] = hit != (negate != 0);
-  }
+  const int t = tcode[n];
+  for (int j = 0; j < nc; ++j)
+    out[(size_t)(c0 + j) * N + n] =
+        gk::strpred_cell(tableT, V, U, col[j], t, s, negate != 0);
 }
 
 }  // namespace

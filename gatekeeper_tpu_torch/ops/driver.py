@@ -4,10 +4,11 @@ Pipeline per review batch or audit sweep:
   1. host: pack reviews + constraints into integer/float arrays (ops/pack.py,
      columns.py, params.py; incremental interner) and carry them onto the
      device (convert.py)
-  2. device: the match kernel (K1) -> bool[C, R]; per template-structure
-     group, the violation program (ops/vexpr.py, with kernels K2 and K3) ANDed
-     into its static row block; for capped audits the packed [C, 1+K]
-     reduction (K4)
+  2. device: the match kernel (K1) -> bool[C, R]; every template-structure
+     group's violation program, as bytecode (ops/progcode.py), ANDed into
+     its static row block by one launch of the program kernel (K9, with
+     K2's and K3's cell functions inside, ops/program.py); for capped
+     audits the packed [C, 1+K] reduction (K4)
   3. host: for each positive cell, the exact native match re-check and the
      violation render — through the compiled render plan (ops/renderplan.py)
      where the template has one, else the interpreter
@@ -78,7 +79,9 @@ from .params import pack_params
 from .reduction import packed_reduction
 from .scatter import scatter_rows
 from .vectorizer import vectorize
-from .vexpr import EvalEnv, VProgram, eval_program
+from .program import bind_group, program_eval
+from .progcode import encode
+from .vexpr import EvalEnv, VProgram
 
 log = logging.getLogger("gatekeeper_tpu_torch.driver")
 
@@ -323,9 +326,11 @@ class TorchDriver(InterpDriver):
         pidx = {}
         if joins is not None:
             pidx = {p: i for i, p in enumerate(self._active_join_plans())}
-        # join tables shared ACROSS groups: N template clones of one
-        # referential family cost one table build per sweep
+        # join tables and counts shared ACROSS groups: N template clones of
+        # one referential family cost one table build and one lookup per
+        # (plan, exclude_self) a sweep
         shared_tables: dict = {}
+        bound = []
         for (prog, start, B, _packed), (params, elems, tables) in zip(
             groups, gp
         ):
@@ -350,9 +355,10 @@ class TorchDriver(InterpDriver):
                     [joins[pidx[p]] for p in prog.join_plans],
                     rv=rv, cache=shared_tables,
                 )
-            # static slice of the fresh match mask: pad rows are
-            # match-False and AND their program rows away
-            mask[start:start + B] &= eval_program(prog, env)
+            bound.append(bind_group(encode(prog), env, start))
+        # every group's program ANDed into its static slice of the fresh
+        # match mask, one launch (K9): pad rows are match-False and stay so
+        program_eval(mask, bound)
         return mask, autoreject
 
     def compute_masks(self, reviews: List[dict]):

@@ -22,7 +22,10 @@ The IR dataclasses are the JAX package's (gatekeeper_tpu/ops/vexpr.py), so
 evaluators run on torch tensors on ``EvalEnv.device``; string predicates
 (StrPred) go through the CUDA kernel K2, set counts (SetCountCmp) through
 K3 and join lookups (JoinCmp) through K8 on the card, and through their
-plain versions on the CPU.
+plain versions on the CPU.  ``eval_program`` is the port's counterpart of
+the JAX function, which the tests hold it to; TorchDriver evaluates the
+same programs through their bytecode (ops/progcode.py, ops/program.py:
+kernel K9), and shares ``join_counts`` with it.
 """
 
 from __future__ import annotations
@@ -468,11 +471,8 @@ def _eval_joincmp(node: JoinCmp, env: EvalEnv, axes: str, pidx=None):
     if jb is None:
         return unk
     plan = jb.plans[node.plan_id]
-    uk, uc = jb.table(node.plan_id, env)
-    sid = env.cols[plan.local_colkey]["sid"]  # [R] or [R, S]
-    scope = jb.self_scope(node.plan_id) if node.exclude_self else None
-    q = sid[None]
-    counts = join_lookup(uk, uc, sid, scope)[None]
+    q = env.cols[plan.local_colkey]["sid"][None]  # [1, R] or [1, R, S]
+    counts = join_counts(env, node.plan_id, node.exclude_self)[None]
     if not plan.local_slot and axes.endswith("S"):
         q, counts = q[..., None], counts[..., None]
     lhs = {
@@ -484,6 +484,24 @@ def _eval_joincmp(node: JoinCmp, env: EvalEnv, axes: str, pidx=None):
     rhs = _operand_arrays(node.rhs, env, axes, pidx)
     res = _cmp_values(lhs, rhs, node.op, node.unknown_default, env)
     return torch.where(q == UNKNOWN_KEY, unk, res)
+
+
+def join_counts(env: EvalEnv, plan_id: int, exclude_self: bool):
+    """int32 counts in the shape of the plan's local key column ([R] or
+    [R, S]): the table lookup (kernel K8), less the row's own contribution
+    with ``exclude_self``.  A count depends on the row, not the
+    constraint, so it is looked up once per (plan, exclude_self) and
+    evaluation, in the binding's cache that every group shares."""
+    jb = env.joins
+    plan = jb.plans[plan_id]
+    key = ("counts", plan, bool(exclude_self))
+    hit = jb.cache.get(key)
+    if hit is None:
+        uk, uc = jb.table(plan_id, env)
+        sid = env.cols[plan.local_colkey]["sid"]
+        scope = jb.self_scope(plan_id) if exclude_self else None
+        hit = jb.cache[key] = join_lookup(uk, uc, sid, scope)
+    return hit
 
 
 _SETCOUNT_OPS = {">": 0, ">=": 1, "<": 2, "<=": 3, "==": 4, "!=": 5}

@@ -85,6 +85,7 @@ def test_torch_driver_defaults_to_the_card_and_raises_without_one():
 def test_every_kernel_has_a_source_with_its_note():
     from gatekeeper_tpu_torch import device
 
+    assert "program" in device.KERNEL_NAMES
     for name in device.KERNEL_NAMES:
         src = (PKG / "kernels" / f"{name}.cu").read_text()
         assert "Replaces gatekeeper_tpu/" in src, name
@@ -100,6 +101,8 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     from gatekeeper_tpu_torch import device
 
+    assert set(device._SIGNATURES) == set(device.KERNEL_NAMES)
+    assert device._SIGNATURES["program"][0] == "gk_program_launch"
     for name, (fn_name, sig) in device._SIGNATURES.items():
         src = (PKG / "kernels" / f"{name}.cu").read_text()
         m = re.search(
@@ -118,6 +121,8 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     """On CPU tensors no kernel is built or launched (there is no nvcc
     here): the wrappers run their plain versions and count nothing."""
     from gatekeeper_tpu_torch import device
+    from gatekeeper_tpu_torch.ops import progcode, vexpr
+    from gatekeeper_tpu_torch.ops.program import bind_group, program_eval
     from gatekeeper_tpu_torch.ops.reduction import packed_reduction
     from gatekeeper_tpu_torch.ops.setcount import setcount
     from gatekeeper_tpu_torch.ops.strpred import strpred
@@ -141,4 +146,39 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
         torch.tensor([[3, -2], [7, 8]], dtype=torch.int32), 0, 0, 0, -2,
     )
     assert cnt.tolist() == [[True, True]]
+    col = ("scalar", (), ("a",), ())
+    env = vexpr.EvalEnv(
+        {col: {"tcode": torch.tensor([4, 4, 0], dtype=torch.int8),
+               "sid": torch.tensor([-1, -1, -1], dtype=torch.int32),
+               "num": torch.tensor([1.0, 3.0, 0.0], dtype=torch.float64)}},
+        {}, {}, {}, {}, 1, 3, "cpu")
+    prog = vexpr.VProgram([vexpr.Clause((vexpr.Cmp(
+        ">", vexpr.ColRef(col, False), vexpr.Lit(2)),))], [], [], [])
+    mask = torch.ones((2, 3), dtype=torch.bool)
+    program_eval(mask, [bind_group(progcode.encode(prog), env, 1)])
+    assert mask.tolist() == [[True, True, True], [False, True, False]]
     assert all(v == 0 for v in device.launches.values())
+
+
+def test_a_changed_header_changes_the_library_path(tmp_path, monkeypatch):
+    """A library's file name hashes the headers its source includes: an
+    edited .cuh rebuilds every kernel that includes it, and only those."""
+    import shutil
+
+    from gatekeeper_tpu_torch import device
+
+    src = tmp_path / "kernels"
+    shutil.copytree(PKG / "kernels", src)
+    monkeypatch.setattr(device, "_SRC_DIR", str(src))
+    before = {n: device._lib_path(n) for n in device.KERNEL_NAMES}
+    assert before == {n: device._lib_path(n) for n in device.KERNEL_NAMES}
+    header = src / "strpred.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: device._lib_path(n) for n in device.KERNEL_NAMES}
+    changed = {n for n in device.KERNEL_NAMES if after[n] != before[n]}
+    assert changed == {"strpred", "program"}
+    header = src / "setcount.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    again = {n: device._lib_path(n) for n in device.KERNEL_NAMES}
+    assert {n for n in device.KERNEL_NAMES
+            if again[n] != after[n]} == {"setcount", "program"}

@@ -1,0 +1,640 @@
+"""The violation programs as bytecode (gatekeeper_tpu_torch/ops/progcode.py)
+and their plain executor (ops/program.py program_eval_plain, the version
+kernel K9 is held against on the card), on the CPU.
+
+- program_eval_plain over the encoded bytecode is bit-equal to the port's
+  vexpr.eval_program and to the JAX package's eval_program on the JAX
+  driver's packed groups: the synthetic corpus (6 structures), the render
+  corpus, and the referential corpus in 'trace' and 'tables' join modes.
+- Seeded single-node cases for every node kind, on random environments
+  made from a seed with numpy.
+- The encoder refuses what eval_program refuses, with the same
+  ValueErrors, and every corpus program fits the kernel's bounds.
+- TorchDriver evaluates through the bytecode, never through eval_program.
+
+Masks are booleans: every comparison is exact (tolerance 0).
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from gatekeeper_tpu.client import Client as JClient
+from gatekeeper_tpu.engine.value import thaw
+from gatekeeper_tpu.ops import joinkernel as jjk
+from gatekeeper_tpu.ops import vexpr as jv
+from gatekeeper_tpu.ops.columns import extract_columns
+from gatekeeper_tpu.ops.driver import TpuDriver
+from gatekeeper_tpu.ops.pack import pack_reviews
+from gatekeeper_tpu.util import synthetic as jsyn
+from gatekeeper_tpu_torch import device as tdev
+from gatekeeper_tpu_torch.client import Client as TClient
+from gatekeeper_tpu_torch.client import InterpDriver as TInterp
+from gatekeeper_tpu_torch.convert import (
+    group_params_from_numpy,
+    state_from_numpy,
+    take_rows,
+)
+from gatekeeper_tpu_torch.ops import joinkernel as tjk
+from gatekeeper_tpu_torch.ops import progcode
+from gatekeeper_tpu_torch.ops import vexpr as tv
+from gatekeeper_tpu_torch.ops.program import (
+    bind_group,
+    program_eval,
+    program_eval_plain,
+)
+from gatekeeper_tpu_torch.ops.vectorizer import vectorize as tvectorize
+from gatekeeper_tpu_torch.util import synthetic as tsyn
+
+from .render_corpus import corpus, join_corpus, resources
+
+
+def bytecode_eval(prog, env):
+    """The program's bytecode, bound to ``env``, on an all-True mask: the
+    program's own [C, R] value."""
+    mask = torch.ones((env.C, env.R), dtype=torch.bool)
+    group = bind_group(progcode.encode(prog), env, 0)
+    return program_eval_plain(mask, [group]).numpy()
+
+
+# ---- the corpora, on the JAX driver's packed groups ---------------------------
+
+
+def _port_programs(templates):
+    tc = TClient(driver=TInterp())
+    out = {}
+    for t in templates:
+        tc.add_template(copy.deepcopy(t))
+        kind = t["spec"]["crd"]["spec"]["names"]["kind"]
+        out[kind] = tvectorize(tc.driver.templates[kind].policy)
+    return out
+
+
+def _jax_client(templates, constraints, objs, driver):
+    c = JClient(driver=driver)
+    for t in templates:
+        c.add_template(copy.deepcopy(t))
+    for k in constraints:
+        c.add_constraint(copy.deepcopy(k))
+    for o in objs:
+        c.add_data(copy.deepcopy(o))
+    return c
+
+
+def _envs(d, tprogs, cols, rv, R, joins=None):
+    """(JAX program, port program, JAX env, port env) for each of the JAX
+    driver's packed groups over the columns ``cols`` (numpy) of R rows;
+    ``joins`` = (mode, JAX plan args, port plan args) binds the join
+    plans."""
+    _ordered, _cp, groups, _specs, _crow = d._constraint_side()
+    kind_of = {id(p): k for k, p in d.programs.items() if p}
+    tcols = state_from_numpy(cols, "cpu")
+    trv = state_from_numpy(rv, "cpu")
+    plans = d._active_join_plans() if joins else ()
+    jshared, tshared = {}, {}
+    for prog, _start, B, packed in groups:
+        tprog = tprogs[kind_of[id(prog)]]
+        assert tprog.structure_key() == prog.structure_key()
+        params, elems, tables = packed
+        keys = [s.key for s in prog.column_specs if s.kind == "keyset"]
+        jenv = jv.EvalEnv(
+            {s.key: cols[s.key] for s in prog.column_specs
+             if s.kind != "keyset"},
+            params, elems, tables, {k: cols[k]["ids"] for k in keys}, B, R,
+        )
+        tparams, telems, ttables = group_params_from_numpy([packed], "cpu")[0]
+        tenv = tv.EvalEnv(
+            {s.key: tcols[s.key] for s in prog.column_specs
+             if s.kind != "keyset"},
+            tparams, telems, ttables, {k: tcols[k]["ids"] for k in keys},
+            B, R, "cpu",
+        )
+        if joins and prog.join_plans:
+            mode, jargs, targs = joins
+            at = [plans.index(p) for p in prog.join_plans]
+            jenv.joins = jjk.JoinBinding(mode, prog.join_plans,
+                                         [jargs[i] for i in at], rv=rv,
+                                         cache=jshared)
+            tenv.joins = tjk.JoinBinding(mode, tprog.join_plans,
+                                         [targs[i] for i in at], rv=trv,
+                                         cache=tshared)
+        yield prog, tprog, jenv, tenv
+
+
+def _hold_all_three(envs):
+    """-> groups checked, groups that flag a cell."""
+    n = flagged = 0
+    for prog, tprog, jenv, tenv in envs:
+        want = np.asarray(jv.eval_program(prog, jenv))
+        port = tv.eval_program(tprog, tenv).numpy()
+        got = bytecode_eval(tprog, tenv)
+        assert got.shape == (tenv.C, tenv.R)
+        np.testing.assert_array_equal(port, want)
+        np.testing.assert_array_equal(got, want)
+        n += 1
+        flagged += int(got.any())
+    return n, flagged
+
+
+def _rowwise(d):
+    reviews = [
+        d.target.make_audit_review(thaw(o), api, k, n, ns)
+        for o, api, k, n, ns in d.store.iter_objects()
+    ]
+    _o, _cp, _groups, col_specs, _crow = d._constraint_side()
+    rp = pack_reviews(reviews, d.interner, d.store.cached_namespace)
+    R = len(rp.arrays["valid"])
+    return rp.arrays, extract_columns(reviews, col_specs, d.interner, R), R
+
+
+@pytest.mark.parametrize("source", ["synthetic", "render_corpus"])
+def test_bytecode_bit_equal_on_the_corpora(source):
+    if source == "synthetic":
+        jclient = jsyn.build_driver(12, 256)
+        templates = jsyn.make_templates(12)[0]
+        want_groups = 6
+    else:
+        entries = corpus()
+        templates = [t for _n, t, _c, _tier in entries]
+        jclient = _jax_client(templates, [c for _n, _t, c, _tier in entries],
+                              resources(), _tpu())
+        want_groups = None
+    d = jclient.driver
+    rv, cols, R = _rowwise(d)
+    n, flagged = _hold_all_three(_envs(d, _port_programs(templates), cols,
+                                       rv, R))
+    if want_groups is not None:
+        assert n == want_groups
+    assert n >= 6 and flagged >= 4
+
+
+def _tpu():
+    d = TpuDriver()
+    d.mesh_enabled = False
+    d._mesh_cache = None
+    return d
+
+
+def _referential():
+    templates, constraints = jsyn.make_referential_templates(6)
+    jd = _tpu()
+    j = _jax_client(templates, constraints,
+                    jsyn.make_referential_objects(240, 1), jd)
+    j.audit_capped(20)
+    return templates, jd
+
+
+@pytest.mark.parametrize("mode", ["trace", "tables"])
+def test_bytecode_bit_equal_on_the_referential_corpus(mode):
+    templates, jd = _referential()
+    ap = jd._audit_pack
+    plans = jd._active_join_plans()
+    kind_ids = [jd.interner.intern(p.remote_kind) for p in plans]
+    if mode == "trace":
+        rv, cols = ap.rp, ap.cols
+        R = len(rv["valid"])
+        vocab = jd.interner.snapshot_size()
+        jargs = [{"kind_id": np.int32(k)} for k in kind_ids]
+        targs = [{"kind_id": k, "vocab": vocab} for k in kind_ids]
+    else:
+        # a delta dispatch: a row slice (here every row, shuffled) against
+        # the host index's tables
+        rows = np.random.default_rng(4).permutation(ap.n_rows).astype(
+            np.int32)
+        rv, cols = take_rows((ap.rp, ap.cols), rows)
+        R = len(rows)
+        tabs = jd._join_state.delta_tables()
+        jargs = [dict(t, kind_id=np.int32(k)) for t, k in zip(tabs, kind_ids)]
+        targs = [dict(state_from_numpy(t, "cpu"), kind_id=k)
+                 for t, k in zip(tabs, kind_ids)]
+    n, flagged = _hold_all_three(_envs(
+        jd, _port_programs(templates), cols, rv, R, (mode, jargs, targs)))
+    assert n == 3 and flagged >= 2
+
+
+def test_every_corpus_program_fits_the_kernel():
+    templates = (jsyn.make_templates(12)[0]
+                 + [t for _n, t, _c, _tier in corpus()]
+                 + jsyn.make_referential_templates(3)[0]
+                 + [t for _n, t, _c, _o in join_corpus()])
+    encoded = 0
+    for prog in _port_programs(templates).values():
+        if not prog:
+            continue
+        enc = progcode.encode(prog)
+        assert enc.stack <= progcode.MAX_STACK
+        assert enc.loops <= progcode.MAX_LOOPS
+        assert enc.n_instr <= progcode.MAX_INSTRS
+        assert len(enc.operands) <= progcode.MAX_OPERANDS
+        assert enc.code.dtype == np.int32
+        encoded += 1
+    assert encoded >= 20
+
+
+# ---- seeded single-node cases ---------------------------------------------------
+
+C, R, S, P, K, V, U = 5, 16, 3, 3, 4, 24, 4
+ITER = (("spec", "containers", "[]"),)
+ITER2 = (("spec", "volumes", "[]"),)
+SCALAR = ("scalar", (), ("a",), ())
+SCALAR2 = ("scalar", (), ("b",), ())
+SLOT = ("slot", ITER, ("image",), ())
+SLOT2 = ("slot", ITER, ("name",), ())
+VSLOT = ("slot", ITER2, ("name",), ())
+KEYS = ("keyset", (("metadata", "labels"),), (), ())
+JKEY = ("joinkey", "host")
+JSLOT = ("joinkey", "hosts")
+PAD = -2
+
+
+def _typed(rng, shape, wide=False):
+    """tcode/sid/num over every type code; numbers small halves, and with
+    ``wide`` also -0.0, NaN and infinities."""
+    tcode = rng.integers(0, 7, shape).astype(np.int8)
+    sid = np.where(tcode == 5, rng.integers(-1, V, shape), -1).astype(np.int32)
+    num = np.where(tcode == 4, rng.integers(-4, 5, shape) / 2.0, 0.0)
+    if wide:
+        odd = rng.random(shape)
+        num = np.where((tcode == 4) & (odd < 0.1), -0.0, num)
+        num = np.where((tcode == 4) & (odd > 0.9), np.nan, num)
+        num = np.where((tcode == 4) & (odd > 0.8) & (odd <= 0.9),
+                       np.inf * np.sign(odd - 0.85), num)
+    return {"tcode": tcode, "sid": sid, "num": num.astype(np.float64)}
+
+
+def _env_arrays(seed, P_=P):
+    rng = np.random.default_rng(seed)
+    slot = _typed(rng, (R, S), wide=True)
+    slot["mask"] = rng.random((R, S)) < 0.7
+    slot2 = _typed(rng, (R, S))
+    slot2["mask"] = slot["mask"]  # aligned with SLOT: one iteration group
+    vslot = _typed(rng, (R, 2))
+    vslot["mask"] = rng.random((R, 2)) < 0.5
+    elem = _typed(rng, (C, P_))
+    elem["mask"] = rng.random((C, P_)) < 0.7
+    elem["sid"] = np.where(elem["mask"], rng.integers(0, 6, (C, P_)),
+                           -1).astype(np.int32)
+    keys = rng.integers(0, 6, (R, K)).astype(np.int32)
+    keys[rng.random((R, K)) < 0.4] = PAD
+    jk = rng.integers(0, 8, R).astype(np.int32)
+    jk[rng.random(R) < 0.15] = -1
+    jk[rng.random(R) < 0.15] = tjk.UNKNOWN_KEY
+    js = rng.integers(0, 8, (R, 2)).astype(np.int32)
+    js[rng.random((R, 2)) < 0.2] = tjk.UNKNOWN_KEY
+    cols = {SCALAR: _typed(rng, (R,), wide=True), SCALAR2: _typed(rng, (R,)),
+            SLOT: slot, SLOT2: slot2, VSLOT: vslot,
+            KEYS: {"ids": keys}, JKEY: {"sid": jk},
+            JSLOT: {"sid": js, "mask": rng.random((R, 2)) < 0.9}}
+    params = {("p",): _typed(rng, (C,), wide=True),
+              ("q",): _typed(rng, (C,)),
+              ("__lit__", "x"): {"tcode": np.array([5], np.int8),
+                                 "sid": np.array([3], np.int32),
+                                 "num": np.zeros(1)}}
+    elems = {(("arr",), ()): elem,
+             (("arr",), ("sub",)): _typed(rng, (C, P_))}
+    elems[(("arr",), ("sub",))]["mask"] = elem["mask"]
+    tables = {
+        0: ((rng.random((U, V)) < 0.5).astype(np.uint8),
+            rng.integers(0, U, C).astype(np.int32)),
+        1: ((rng.random((U, V)) < 0.5).astype(np.uint8),
+            rng.integers(0, U, (C, P_)).astype(np.int32)),
+    }
+    rv = {"valid": rng.random(R) < 0.9,
+          "kind": rng.integers(0, 3, R).astype(np.int32),
+          "ns_empty": rng.random(R) < 0.4}
+    uk = np.full(8, int(tjk.KEY_INVALID), np.int32)
+    uk[:5] = [0, 2, 3, 5, 7]
+    uc = np.zeros(8, np.int32)
+    uc[:5] = rng.integers(1, 4, 5)
+    return cols, params, elems, tables, rv, (uk, uc)
+
+
+def _plans(m):
+    jk = jjk if m is jv else tjk
+    return (
+        jk.JoinPlan(agg="dup", local_colkey=JKEY, local_slot=False,
+                    remote_scope="namespace", remote_kind="Kind",
+                    remote_colkey=JKEY, remote_slot=False),
+        jk.JoinPlan(agg="count", local_colkey=JSLOT, local_slot=True,
+                    remote_scope="cluster", remote_kind="Kind",
+                    remote_colkey=JSLOT, remote_slot=True),
+    )
+
+
+def _eval_three(make_clauses, seed, joins=False, P_=P):
+    """(JAX eval_program, port eval_program, port bytecode) of one
+    program on one seeded environment."""
+    cols, params, elems, tables, rv, (uk, uc) = _env_arrays(seed, P_)
+    vals = {k: v for k, v in cols.items() if k != KEYS}
+    jenv = jv.EvalEnv(vals, params, elems, tables, {KEYS: cols[KEYS]["ids"]},
+                      C, R)
+    tparams, telems, ttables = group_params_from_numpy(
+        [(params, elems, tables)], "cpu")[0]
+    tcols = state_from_numpy(cols, "cpu")
+    tenv = tv.EvalEnv({k: v for k, v in tcols.items() if k != KEYS}, tparams,
+                      telems, ttables, {KEYS: tcols[KEYS]["ids"]}, C, R, "cpu")
+    if joins:
+        jargs = [{"uk": uk, "uc": uc, "kind_id": np.int32(1)}] * 2
+        jenv.joins = jjk.JoinBinding("tables", _plans(jv), jargs, rv=rv)
+        targs = [{"uk": torch.from_numpy(uk), "uc": torch.from_numpy(uc),
+                  "kind_id": 1}] * 2
+        tenv.joins = tjk.JoinBinding("tables", _plans(tv), targs,
+                                     rv=state_from_numpy(rv, "cpu"))
+    out = []
+    for m, env in ((jv, jenv), (tv, tenv)):
+        prog = m.VProgram(make_clauses(m), [], [], [],
+                          join_plans=_plans(m) if joins else ())
+        out.append(np.asarray(m.eval_program(prog, env)))
+    out.append(bytecode_eval(tv.VProgram(make_clauses(tv), [], [], [],
+                                         join_plans=_plans(tv) if joins
+                                         else ()), tenv))
+    return out
+
+
+def _held(make_clauses, seeds=range(3), both=True, **kw):
+    seen = set()
+    for seed in seeds:
+        want, port, got = _eval_three(make_clauses, seed, **kw)
+        np.testing.assert_array_equal(port, want)
+        np.testing.assert_array_equal(got, want)
+        seen.update(np.unique(got).tolist())
+    if both:
+        assert seen == {False, True}, "the seeded cases must hit both"
+
+
+OPS = ["==", "!=", "<", "<=", ">", ">="]
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_cmp_every_op_across_the_seven_tcodes(op):
+    """Scalar (every tcode, -0.0, NaN, infinities) against a parameter,
+    slot against a literal, element against a slot, both defaults."""
+    tcodes = set()
+    for seed in range(3):
+        tcodes |= set(_env_arrays(seed)[0][SCALAR]["tcode"].tolist())
+    assert tcodes == set(range(7))
+    for unk in (True, False):
+        _held(lambda m: [
+            m.Clause((m.Cmp(op, m.ColRef(SCALAR, False), m.ParamRef(("p",)),
+                            unknown_default=unk),)),
+        ], both=False)
+        _held(lambda m: [
+            m.Clause((m.Cmp(op, m.ColRef(SLOT, True), m.Lit(0.5),
+                            unknown_default=unk),), slot_iter=ITER),
+            m.Clause((m.Cmp(op, m.ColRef(SCALAR2, False), m.Lit("x"),
+                            unknown_default=unk),
+                      m.Cmp(op, m.Lit(True), m.ColRef(SCALAR, False)))),
+        ], both=False)
+        _held(lambda m: [m.Clause((m.AnyParam(("arr",), (
+            m.Cmp(op, m.ParamElemRef(("arr",), ("sub",)),
+                  m.ColRef(SLOT, True), unknown_default=unk),)),),
+            slot_iter=ITER)], both=False)
+
+
+def test_truthy_const_and_boolops():
+    _held(lambda m: [
+        m.Clause((m.Truthy(m.ColRef(SCALAR, False)),
+                  m.BoolOp("not", (m.Truthy(m.ParamRef(("q",))),)))),
+        m.Clause((m.BoolOp("or", (
+            m.Truthy(m.ColRef(SCALAR2, False), negate=True),
+            m.BoolOp("and", (m.Const(True), m.Truthy(m.ParamRef(("p",))))),
+            m.Const(False))),)),
+    ])
+    _held(lambda m: [m.Clause((m.Const(False),)), m.Clause(())], both=False)
+    # no clauses at all: every row False
+    for got in _eval_three(lambda m: [], 0):
+        assert not got.any() and got.shape == (C, R)
+
+
+STRPRED_CASES = {
+    "review_scalar": lambda m: [m.Clause((
+        m.StrPred("startswith", m.ColRef(SCALAR, False), m.ParamRef(("p",)),
+                  pred_id=0),))],
+    "review_slot_negated": lambda m: [m.Clause((
+        m.StrPred("startswith", m.ColRef(SLOT, True), m.Lit("x"),
+                  pred_id=0, negate=True),), slot_iter=ITER)],
+    "constraint_side": lambda m: [m.Clause((
+        m.StrPred("contains", m.ParamRef(("p",)), m.Lit("x"), pred_id=0),))],
+    "per_element": lambda m: [m.Clause((m.AnyParam(("arr",), (
+        m.StrPred("startswith", m.ColRef(SCALAR, False),
+                  m.ParamElemRef(("arr",)), pred_id=1),)),))],
+    "per_element_constraint_side": lambda m: [m.Clause((m.AnyParam(("arr",), (
+        m.StrPred("endswith", m.ParamElemRef(("arr",), ("sub",)),
+                  m.ParamElemRef(("arr",)), pred_id=1),)),))],
+}
+
+
+@pytest.mark.parametrize("case", sorted(STRPRED_CASES))
+def test_strpred_on_each_side(case):
+    _held(STRPRED_CASES[case], seeds=range(4))
+
+
+@pytest.mark.parametrize("op", [">", ">=", "<", "<=", "==", "!="])
+@pytest.mark.parametrize("orient", ["params_minus_keys", "keys_minus_params"])
+def test_setcount_both_orientations(op, orient):
+    pids, keys = ("paramids", (("arr",), ())), ("keyset", KEYS)
+    left, right = (pids, keys) if orient == "params_minus_keys" else (keys, pids)
+    _held(lambda m: [m.Clause((m.SetCountCmp(left, right, op, 1),))],
+          both=False)
+
+
+def test_anyparam_masked_elements_and_empty_axis():
+    inner = (lambda m: (
+        m.Cmp("==", m.ParamElemRef(("arr",)), m.ColRef(SCALAR, False),
+              unknown_default=False),
+        m.Truthy(m.ParamElemRef(("arr",), ("sub",))),))
+    _held(lambda m: [m.Clause((m.AnyParam(("arr",), inner(m)),))])
+    _held(lambda m: [m.Clause((m.AnyParam(("arr",), (m.Const(True),)),))],
+          both=False)
+    # P = 0: AnyParam is False, its negation True
+    for P_ in (0, 1):
+        _held(lambda m: [m.Clause((
+            m.BoolOp("not", (m.AnyParam(("arr",), inner(m)),)),
+            m.Truthy(m.ColRef(SCALAR, False))))], both=P_ == 0, P_=P_)
+
+
+def test_reduce_slots_and_slot_clauses():
+    _held(lambda m: [
+        m.Clause((m.Truthy(m.ColRef(SCALAR, False)),
+                  m.ReduceSlots((m.Cmp("==", m.ColRef(SLOT, True),
+                                       m.ColRef(SLOT2, True)),
+                                 m.Truthy(m.ColRef(SCALAR2, False))),
+                                ITER))),
+        m.Clause((m.Truthy(m.ColRef(SLOT2, True), negate=True),
+                  m.AnyParam(("arr",), (m.Cmp(
+                      "!=", m.ParamElemRef(("arr",)), m.ColRef(SLOT, True)),)),
+                  m.Truthy(m.ParamRef(("q",)))), slot_iter=ITER),
+        m.Clause((), slot_iter=ITER2),
+    ])
+
+
+def test_slot_mask_is_the_first_column_of_the_iteration_group():
+    """Two slot columns share ITER: _slot_mask binds the first one in
+    env.cols order that has a mask; give them different masks and both
+    orders."""
+    cols, params, elems, tables, _rv, _t = _env_arrays(7)
+    cols[SLOT2]["mask"] = ~cols[SLOT]["mask"]
+    for order in ((SLOT, SLOT2), (SLOT2, SLOT)):
+        tenv = tv.EvalEnv(state_from_numpy({k: cols[k] for k in order},
+                                           "cpu"), {}, {}, {}, {}, C, R, "cpu")
+        jenv = jv.EvalEnv({k: cols[k] for k in order}, {}, {}, {}, {}, C, R)
+        progs = [m.VProgram([m.Clause((m.Truthy(m.ColRef(SLOT, True)),),
+                                      slot_iter=ITER)], [], [], [])
+                 for m in (jv, tv)]
+        want = np.asarray(jv.eval_program(progs[0], jenv))
+        np.testing.assert_array_equal(
+            tv.eval_program(progs[1], tenv).numpy(), want)
+        np.testing.assert_array_equal(bytecode_eval(progs[1], tenv), want)
+        first = cols[order[0]]["mask"]
+        t = cols[SLOT]["tcode"]
+        np.testing.assert_array_equal(
+            want[0], ((t != 0) & (t != 2) & first).any(axis=1))
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_joincmp_unknown_key_and_exclude_self(op):
+    for excl in (False, True):
+        _held(lambda m: [
+            m.Clause((m.JoinCmp(0, op, m.Lit(1), exclude_self=excl),)),
+            m.Clause((m.JoinCmp(0, op, m.ParamRef(("p",)),
+                                unknown_default=False, exclude_self=excl),
+                      m.Truthy(m.ColRef(SCALAR2, False)))),
+        ], joins=True)
+        _held(lambda m: [
+            m.Clause((m.JoinCmp(1, op, m.Lit(2), slot=True,
+                                exclude_self=excl),
+                      m.Truthy(m.ColRef(SCALAR, False))), slot_iter=ITER2),
+        ], joins=True)
+
+
+def test_joincmp_without_a_binding_is_its_default():
+    for unk in (True, False):
+        outs = _eval_three(lambda m: [m.Clause((m.JoinCmp(
+            0, "<", m.Lit(1), unknown_default=unk),))], 0)
+        for got in outs:
+            assert (got == unk).all()
+
+
+# ---- refusals ----------------------------------------------------------------------
+
+
+REFUSED = {
+    "AnySlots must be handled at clause level": lambda m: [m.Clause((
+        m.AnySlots((m.Truthy(m.ColRef(SLOT, True)),)),), slot_iter=ITER)],
+    "nested slot reduction is not supported": lambda m: [m.Clause((
+        m.ReduceSlots((m.ReduceSlots((m.Truthy(m.ColRef(SCALAR, False)),),
+                                     ITER),), ITER),))],
+    "slot conditions without slot_iter": lambda m: [m.Clause((
+        m.Truthy(m.ColRef(SLOT, True)),))],
+    "ParamElemRef outside AnyParam": lambda m: [m.Clause((
+        m.Cmp("==", m.ParamElemRef(("arr",)), m.ColRef(SCALAR, False)),))],
+    "unsupported literal": lambda m: [m.Clause((
+        m.Cmp("==", m.Lit(None), m.ColRef(SCALAR, False)),))],
+    "unsupported SetCountCmp side combination": lambda m: [m.Clause((
+        m.SetCountCmp(("keyset", KEYS), ("keyset", KEYS), ">", 0),))],
+}
+
+
+@pytest.mark.parametrize("msg", sorted(REFUSED))
+def test_encoder_refuses_what_eval_program_refuses(msg):
+    cols, params, elems, tables, _rv, _t = _env_arrays(0)
+    tenv = tv.EvalEnv(state_from_numpy(
+        {k: v for k, v in cols.items() if k != KEYS}, "cpu"),
+        *group_params_from_numpy([(params, elems, tables)], "cpu")[0],
+        {KEYS: torch.from_numpy(cols[KEYS]["ids"])}, C, R, "cpu")
+    prog = tv.VProgram(REFUSED[msg](tv), [], [], [])
+    with pytest.raises(ValueError, match=msg):
+        tv.eval_program(prog, tenv)
+    with pytest.raises(ValueError, match=msg):
+        progcode.encode(prog)
+
+
+def test_encoder_refuses_a_stack_past_the_kernel_bound():
+    def nest(m, depth):
+        node = m.Truthy(m.ColRef(SCALAR, False))
+        for _ in range(depth):
+            node = m.BoolOp("and", (m.Truthy(m.ParamRef(("p",))), m.BoolOp(
+                "or", (m.Const(False), node))))
+        return node
+
+    fits = progcode.encode(tv.VProgram([tv.Clause((nest(tv, 7),))], [], [],
+                                       []))
+    assert fits.stack <= progcode.MAX_STACK
+    deep = tv.VProgram([tv.Clause((nest(tv, 20),))], [], [], [])
+    with pytest.raises(ValueError, match="stack"):
+        progcode.encode(deep)
+    # eval_program itself has no such bound: the bytecode of a program that
+    # fits agrees with it
+    _held(lambda m: [m.Clause((nest(m, 7),))], both=False)
+
+
+def test_plain_counts_the_instructions_the_kernel_runs():
+    """program_eval_plain's instruction count: none on an all-False mask,
+    one HALT and no more than the whole stream a cell otherwise, and the
+    mask it leaves unchanged by counting."""
+    cols, params, elems, tables, _rv, _t = _env_arrays(2)
+    tcols = state_from_numpy({k: v for k, v in cols.items() if k != KEYS},
+                             "cpu")
+    tenv = tv.EvalEnv(tcols, *group_params_from_numpy(
+        [(params, elems, tables)], "cpu")[0],
+        {KEYS: torch.from_numpy(cols[KEYS]["ids"])}, C, R, "cpu")
+    prog = tv.VProgram(STRPRED_CASES["per_element"](tv) + [tv.Clause((
+        tv.Truthy(tv.ColRef(SLOT, True)),), slot_iter=ITER)], [], [], [])
+    enc = progcode.encode(prog)
+    group = bind_group(enc, tenv, 0)
+    ops = []
+    program_eval_plain(torch.zeros((C, R), dtype=torch.bool), [group], ops)
+    assert ops == [0]
+    mask = torch.rand((C, R), generator=torch.Generator().manual_seed(0)) < 0.5
+    plain = program_eval_plain(mask.clone(), [group])
+    counted, ops = mask.clone(), []
+    program_eval_plain(counted, [group], ops)
+    assert torch.equal(counted, plain)
+    live = int(mask.sum())
+    # every live cell runs at least the first condition's loop set-up and
+    # HALT; at most every instruction, each loop body once per element
+    assert 2 * live <= ops[0] <= live * enc.n_instr * (P + 1) * (S + 1)
+
+
+# ---- the driver ---------------------------------------------------------------------
+
+
+def test_torch_driver_never_calls_eval_program(monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("TorchDriver called vexpr.eval_program")
+
+    monkeypatch.setattr(tv, "eval_program", refuse)
+    tdev.reset_launches()
+    client = tsyn.build_driver(6, 240, device="cpu")
+    oracle = tsyn.build_oracle(6, 240)
+    resp, totals = client.audit_capped(20)
+    assert resp.results()
+    assert set(tsyn.audit_result_sig(resp.results())) <= set(
+        tsyn.audit_result_sig(oracle.audit().results()))
+    pods = tsyn.make_pods(4, seed=3, violation_rate=1.0)
+    for i, p in enumerate(pods):
+        p["metadata"]["name"] = f"no-ir-{i}"
+    got = [[r.msg for r in x.results()] for x in client.review_batch(pods)]
+    want = [[r.msg for r in x.results()] for x in oracle.review_batch(pods)]
+    assert got == want and any(got)
+    assert all(v == 0 for v in tdev.launches.values())
+
+
+def test_program_eval_takes_the_plain_version_on_the_cpu():
+    cols, params, elems, tables, _rv, _t = _env_arrays(1)
+    tenv = tv.EvalEnv(state_from_numpy(
+        {k: v for k, v in cols.items() if k != KEYS}, "cpu"),
+        *group_params_from_numpy([(params, elems, tables)], "cpu")[0],
+        {KEYS: torch.from_numpy(cols[KEYS]["ids"])}, C, R, "cpu")
+    prog = tv.VProgram(STRPRED_CASES["review_scalar"](tv), [], [], [])
+    mask = torch.ones((C + 3, R), dtype=torch.bool)
+    mask[0] = False
+    group = bind_group(progcode.encode(prog), tenv, 1)
+    tdev.reset_launches()
+    got = program_eval(mask.clone(), [group])
+    want = program_eval_plain(mask.clone(), [group])
+    assert torch.equal(got, want)
+    assert not got[0].any() and got[C + 1:].all()  # rows outside the group
+    assert tdev.launches["program"] == 0
