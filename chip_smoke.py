@@ -20,15 +20,19 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      exactly once per evaluation (once a sweep and once a review), and
      vexpr.eval_program never (NoIR)
   4. each kernel against its plain version on the card, on the inputs the
-     main path gave it, exactly (every output is bool or int32): K9 on
-     every group of the cold sweep and on one one-pod review, K2 and K3 on
-     the cells K9 ran their device functions in (cell_calls); its time
+     main path gave it, exactly (every output is bool or int32): K1 and K9
+     on the cold sweep (every group) and on one one-pod review, K2 and K3
+     on the cells K9 ran their device functions in (cell_calls); its time
      over CUDA events, the plain version's, one library call's where one
-     computes the same function, and the least time the card could take;
+     computes the same function, and the least time the card could take,
+     K1 and K9 also at the review's call (admission is the latency path);
      then again on seeded edge cases the main path does not reach (K9:
-     every node kind, groups with pad rows and rows of no group, S = 0,
-     P = 0, unbound joins, a deep stack), and K1 once more at the main
-     path's shape on a corpus whose label and namespace selectors are live
+     every node kind, groups with pad rows and rows of no group, R of 1, 8
+     and 16 and off its tiles, rows of one thread or one warp that disagree,
+     S = 0, P = 0, a key set of 12, unbound joins, a deep
+     stack; K1: R off its 8 reviews a thread), and K1 once more at the main
+     path's shape and at R = 4099 on a corpus whose label and namespace
+     selectors are live
   5. the sweep's [C, 1+K] reduction against the same state evaluated and
      reduced through the plain versions on the card
   6. the incremental audit, the second path, at the same size: churn
@@ -727,11 +731,11 @@ def kernel_specs() -> dict:
     }
 
 
-def check_kernels(cap: Capture, reps: int, timed):
+def check_kernels(cap: Capture, reps: int, timed, phase: str = "kernel"):
     """Every recorded call of every kernel against its plain version on
     the same inputs, exactly, and against the main path's own output ->
     name -> row; the kernels in ``timed`` are also timed and bounded at
-    their largest call."""
+    their largest call, each logged under ``phase``."""
     import torch
 
     rows = {}
@@ -786,7 +790,7 @@ def check_kernels(cap: Capture, reps: int, timed):
             "library_ms": None if library is None else cuda_ms(library, reps),
             "shapes": shapes,
         })
-        log("kernel", **row)
+        log(phase, **row)
         del p
     return rows
 
@@ -826,10 +830,11 @@ def match_work(rv: dict, cs: dict, crec):
 
 
 def check_match_at_size(C: int, R: int):
-    """K1 against its plain version on the card at the main path's [C, R],
-    on the seeded selector corpus (util/matchcorpus.py): every label
-    and namespace selector kind is live there, where the synthetic corpus
-    has none.  Exact.  Not counted: the counts are read before this."""
+    """K1 against its plain version on the card at [C, R] (R rows exactly,
+    not bucketed), on the seeded selector corpus (util/matchcorpus.py):
+    every label and namespace selector kind is live there, where the
+    synthetic corpus has none.  Exact.  Not counted: the counts are read
+    before this."""
     import torch
 
     from gatekeeper_tpu_torch.convert import state_from_numpy
@@ -842,7 +847,8 @@ def check_match_at_size(C: int, R: int):
     # make_corpus appends two pad constraints
     constraints, reviews = matchcorpus.make_corpus(SEED, C - 2, R)
     interner = Interner()
-    rv = pack_reviews(reviews, interner, matchcorpus.NAMESPACES.get).arrays
+    rv = pack_reviews(reviews, interner, matchcorpus.NAMESPACES.get,
+                      bucket_rows=False).arrays
     cs = pack_constraints(constraints, interner).arrays
     rv_d, cs_d = state_from_numpy(rv, dev), state_from_numpy(cs, dev)
     got = matchkernel.match_kernel_cuda(rv_d, cs_d)
@@ -897,15 +903,21 @@ def check_edges():
         checked[name] += 1
 
     for s in range(4):
-        for n_c, n_r in ((24, 40), (61, 3001), (24, 8)):
+        for n_c, n_r in ((24, 40), (61, 3001), (24, 8), (70, 13),
+                         (130, 1025)):
             constraints, reviews = matchcorpus.make_corpus(SEED + s, n_c, n_r)
             interner = Interner()
-            rv = pack_reviews(reviews, interner,
-                              matchcorpus.NAMESPACES.get).arrays
             cs = pack_constraints(constraints, interner).arrays
-            rv_d, cs_d = state_from_numpy(rv, dev), state_from_numpy(cs, dev)
-            same("match", matchkernel.match_kernel_cuda(rv_d, cs_d),
-                 matchkernel.match_kernel_plain(rv_d, cs_d))
+            cs_d = state_from_numpy(cs, dev)
+            # rows bucketed as the driver packs them, and exactly n_r (off
+            # the thread's 8 reviews)
+            for bucket in (True, False):
+                rv = pack_reviews(reviews, interner,
+                                  matchcorpus.NAMESPACES.get,
+                                  bucket_rows=bucket).arrays
+                rv_d = state_from_numpy(rv, dev)
+                same("match", matchkernel.match_kernel_cuda(rv_d, cs_d),
+                     matchkernel.match_kernel_plain(rv_d, cs_d))
     rng = np.random.default_rng(SEED)
     for C, R, K, p in ((5, 1000, 3, 0.05), (3, 4096, 64, 0.02),
                        (7, 333, 500, 0.5), (2, 50, 80, 0.9),
@@ -1072,13 +1084,13 @@ def check_join_edges(rng, dev, same):
                      joinlookup.join_lookup_plain(t(uk), t(uc), q, sc))
 
 
-def _edge_env(rng, dev, B, R, S, P):
+def _edge_env(rng, dev, B, R, S, P, K=4):
     """A seeded EvalEnv on the card for check_program_edges: a scalar
     column, two slot columns of one iteration group and one of another,
-    a key set, two join key columns, two parameters, a parameter array of
-    width P with a sub-field, predicate tables per constraint and per
-    element, and a join binding in 'tables' mode; every type code, -0.0,
-    NaN and infinities among the numbers."""
+    a key set of width K, two join key columns, two parameters, a
+    parameter array of width P with a sub-field, predicate tables per
+    constraint and per element, and a join binding in 'tables' mode; every
+    type code, -0.0, NaN and infinities among the numbers."""
     import numpy as np
     import torch
 
@@ -1086,7 +1098,7 @@ def _edge_env(rng, dev, B, R, S, P):
         group_params_from_numpy, state_from_numpy)
     from gatekeeper_tpu_torch.ops import joinkernel, vexpr
 
-    V, U, K = 40, 4, 4
+    V, U = 40, 4
 
     def typed(shape):
         t = rng.integers(0, 7, shape).astype(np.int8)
@@ -1238,9 +1250,14 @@ def edge_programs() -> list:
 def check_program_edges(rng, dev, same):
     """K9 against the plain bytecode on seeded edge cases: every program
     of edge_programs at once, as groups of one launch with pad rows and
-    rows of no group between them, for R of 1, off the block tile and past
-    it, S = 0 and 3, P = 0, 1 and 3, masks all False, random and all True;
-    and the join comparisons without a binding.  Exact."""
+    rows of no group between them, for R of 1, a review's 8 and 16, off
+    the thread's V rows and past a block, S = 0 and 3, P = 0, 1 and 3,
+    masks all False, random and all True, and the random mask cut to every
+    other row, every V-th row and the first V rows of every 32 V (rows of
+    one thread and of one warp that disagree, in both of K9's layouts), so
+    that clauses are decided and loops left for some of a warp's rows
+    only; a key set of 12 keys; and the join comparisons
+    without a binding.  Exact."""
     import torch
 
     from gatekeeper_tpu_torch.ops import program, progcode
@@ -1248,26 +1265,35 @@ def check_program_edges(rng, dev, same):
     progs = edge_programs()
     encs = [progcode.encode(pr) for pr in progs]
     assert encs[-1].stack > 16, encs[-1].stack
-    for R, S, P, p_live in ((1, 3, 3, 1.0), (1000, 3, 1, 0.7),
-                            (1025, 0, 3, 0.7), (4099, 3, 0, 0.5),
-                            (300, 3, 3, 0.0)):
+    V = program.ROWS_PER_THREAD
+    # (R, S, P, share of live cells, key-set width)
+    for R, S, P, p_live, K in ((1, 3, 3, 1.0, 4), (8, 3, 3, 0.7, 4),
+                               (16, 2, 1, 0.8, 4), (1000, 3, 1, 0.7, 12),
+                               (1025, 0, 3, 0.7, 4), (4099, 3, 0, 0.5, 4),
+                               (300, 3, 3, 0.0, 4)):
         B = 4
         groups, start = [], 0
         for i, enc in enumerate(encs):
-            env = _edge_env(rng, dev, B, R, S, P)
+            env = _edge_env(rng, dev, B, R, S, P, K)
             if i == 2:
                 env.joins = None
             groups.append(program.bind_group(enc, env, start))
             start += B + (1 if i % 3 == 0 else 0)  # a row of no group
-        mask = torch.from_numpy(rng.random((start + 2, R)) < p_live).to(dev)
+        base = torch.from_numpy(rng.random((start + 2, R)) < p_live).to(dev)
+        r = torch.arange(R, device=dev)
+        for lanes in (None, r % 2 == 0, r % V == V - 1, r % (32 * V) < V):
+            mask = base.clone() if lanes is None else base & lanes[None, :]
+            for g in groups[::2]:
+                mask[g["start"] + B - 1] = False  # a pad row
+            same("program",
+                 program.program_eval_cuda(mask.clone(), groups),
+                 program.program_eval_plain(mask.clone(), groups))
+        mask = base.clone()
         for g in groups[::2]:
-            mask[g["start"] + B - 1] = False  # a pad row
-        same("program",
-             program.program_eval_cuda(mask.clone(), groups),
-             program.program_eval_plain(mask.clone(), groups))
+            mask[g["start"] + B - 1] = False  # the same pad rows
         unbound = []
         for g, enc in zip(groups, encs):
-            env = _edge_env(rng, dev, B, R, S, P)
+            env = _edge_env(rng, dev, B, R, S, P, K)
             env.joins = None
             unbound.append(program.bind_group(enc, env, g["start"]))
         same("program",
@@ -2083,10 +2109,10 @@ def main(argv=None) -> int:
             os.path.join(ROOT, "chiprun_out", "sweep_trace.json"))
 
     no_ir.__exit__()
-    # K9 on a one-pod review (after the counts were read)
+    # K1 and K9 on a one-pod review (after the counts were read)
     pod = syn.make_pods(1, seed=SEED + 98, violation_rate=1.0)[0]
     pod["metadata"]["name"] = "admission-recorded"
-    with Capture(names=("program",)) as review_cap:
+    with Capture(names=("match", "program")) as review_cap:
         client.review(pod)
 
     # 4. each kernel against its plain version, on the main path's inputs;
@@ -2094,7 +2120,10 @@ def main(argv=None) -> int:
     kernel_rows = check_kernels(cap, REPS, timed=PATH1_KERNELS)
     merge_rows(kernel_rows, check_kernels(
         cell_calls(cap), REPS, timed=("strpred", "setcount")))
-    merge_rows(kernel_rows, check_kernels(review_cap, REPS, timed=()))
+    # admission is the latency path: K1 and K9 timed at a review's call too
+    merge_rows(kernel_rows, check_kernels(review_cap, REPS,
+                                          timed=("match", "program"),
+                                          phase="kernel_review"))
     merge_rows(kernel_rows, check_kernels(cell_calls(review_cap), REPS,
                                           timed=()))
     del review_cap
@@ -2103,6 +2132,9 @@ def main(argv=None) -> int:
     log("match_live_selectors",
         **check_match_at_size(int(stats["mask_rows"]),
                               int(stats["padded_rows"])))
+    # R off the thread's 8 reviews: the tail takes the byte path
+    log("match_live_selectors_ragged",
+        **check_match_at_size(int(stats["mask_rows"]), 4099))
 
     # 5. the sweep's reduction against the plain versions on the card
     from gatekeeper_tpu_torch.ops import driver as driver_mod

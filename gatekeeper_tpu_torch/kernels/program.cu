@@ -12,29 +12,46 @@
 // (strpred.cuh, setcount.cuh); a join comparison reads the counts K8
 // looked up for the row before this launch.
 //
-// Replaces gatekeeper_tpu/ops/vexpr.py eval_program (with _eval_node and
-// _cmp_values), which XLA fused into the sweep's executable under jax.jit
-// (gatekeeper_tpu/ops/driver.py _eval_body).  Run op by op in eager
-// PyTorch the same IR issues some 600 launches an evaluation.  This is not
-// a carry-over of that structure: one interpreter runs every program,
-// built once with the other kernels, so a new template needs no compile.
+// Replaces gatekeeper_tpu/ops/vexpr.py:565 eval_program (with :319
+// _eval_node and :372 _cmp_values), which XLA fused into the sweep's
+// executable under jax.jit (gatekeeper_tpu/ops/driver.py _eval_body).  One
+// interpreter runs every program, built once with the other kernels, so a
+// new template needs no compile.
 //
 // What bounds it: on paper, bytes: the group rows of the mask read and
 // written (2 bytes a cell) and the columns each group reads once (a few
-// bytes a row).  In practice the interpreter's instructions: each cell
-// decodes and dispatches every instruction it reaches (tens a cell), and
-// loads its operands through a switch on their kind.
+// bytes a row); the bytecode instructions a cell executes are about as
+// many operations.  In practice the instructions it issues: an interpreter
+// spends tens of machine instructions on each bytecode instruction a cell
+// executes (decode, dispatch, the operand's kind, the row's loads and
+// compare), and one that runs a cell a thread, as the kernel this one
+// replaced did, adds divergent jumps and loop frames indexed at run time
+// (local memory).  The design below amortises all but the row's own loads
+// and compare over V rows.
 //
-// Design: one block for one padded constraint row c of a group and a tile
-// of THREADS * ROWS_PER_THREAD rows, so every thread of a block runs the
-// same instructions (warp-uniform decode; only data-dependent jumps and
-// selects differ).  The block copies its group's stream and operand table
-// into shared memory.  A cell whose match bit is already False is skipped
-// (AND keeps it False; pad rows are match-False); a clause stops at its
-// first False condition, the program at its first True clause, a loop at
-// its first True element.  Values load lazily: a string id only for a
-// string, a number only for a number, which is all the comparison reads.
-// Only a cell that turns False is written.
+// Design: a thread owns V = ROWS = 8 rows of one constraint row (an item) and
+// decodes each instruction once for all V: the operand's kind is read
+// once an instruction, every loop over the V rows is unrolled, and the V
+// rows' boolean stack is one 64-bit word, V bits a level (a word a row for
+// a program deeper than 64 / V levels), so nothing is indexed at run time.
+// Where R >= 32 V a warp's 32 items are 32 V consecutive rows, lane i of
+// thread t on row 32 i + t, so that each access of a row-major [R, S] or
+// [R, K] operand reads 32 consecutive rows; for a smaller R (a review's 8
+// rows) an item is V consecutive rows, whose mask and scalar type column
+// move in one access, and a block's threads spread over constraint rows.
+// String ids and numbers load only for the live rows whose type reads
+// them.  Control is warp-uniform: a jump is taken only where every live
+// row of the warp takes it (__all_sync), and a loop goes on while any
+// live row's accumulator is False; a row whose value is decided runs on
+// through the rest of its clause or loop, which cannot change it: the
+// functions are pure, AND with False stays False, OR with True stays True.
+// LOOP and ENDLOOP carry the loop's axis, mask, body and nesting depth, so
+// no frame is kept; the index an inner loop hides is saved per depth in
+// registers.
+// A block is 256 threads on the items of ONE group, staging its code and
+// operands in shared memory once; each thread walks up to ITEMS items,
+// loading the next item's mask while the current one runs, and a thread
+// whose rows are all match-False skips the program (pad rows are).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,7 +62,6 @@ namespace {
 
 // ops/progcode.py's encoding
 constexpr int WIDTH = 6;
-constexpr int MAX_LOOPS = 4;
 enum Opcode {
   I_CONST = 0, I_TRUTHY, I_CMP, I_STRPRED, I_SETCOUNT, I_JOIN, I_AND, I_OR,
   I_NOT, I_JFALSE, I_JTRUE, I_LOOP, I_ENDLOOP, I_HALT
@@ -62,9 +78,13 @@ constexpr int T_UNDEF = 0, T_FALSE = 2, T_TRUE = 3, T_NUM = 4, T_STR = 5,
               T_COMP = 6;
 constexpr int UNKNOWN_KEY = -5;
 
+// rows an item (V), threads a block, and items (V-row tiles of a
+// constraint row) a thread walks at most (ops/program.py ROWS_PER_THREAD,
+// THREADS, ITEMS)
+constexpr int ROWS = 8;
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_THREAD = 4;
-constexpr int TILE = THREADS * ROWS_PER_THREAD;
+constexpr int ITEMS = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Val {
   int t;
@@ -78,222 +98,482 @@ __device__ __forceinline__ int rank(int t) {
 }
 
 // OPA's cross-type order: ops/vexpr.py _cmp_values for one cell.  op:
-// 0 ==, 1 !=, 2 <, 3 <=, 4 >, 5 >=.
+// 0 ==, 1 !=, 2 <, 3 <=, 4 >, 5 >=.  The terms are combined with & and |
+// on purpose: no short-circuit, so no branch a row.
 __device__ __forceinline__ bool compare(const Val& a, const Val& b, int op,
                                         bool unk) {
   const int ra = rank(a.t), rb = rank(b.t);
-  const bool defined = a.t != T_UNDEF && b.t != T_UNDEF;
-  const bool both_comp = a.t == T_COMP && b.t == T_COMP;
+  const bool defined = (a.t != T_UNDEF) & (b.t != T_UNDEF);
+  const bool both_comp = (a.t == T_COMP) & (b.t == T_COMP);
   const bool same = ra == rb;
-  const bool eq_val = a.t == T_NUM   ? a.num == b.num
-                      : a.t == T_STR ? a.sid == b.sid
-                                     : a.t == b.t;
-  const bool eq = same && eq_val && a.t == b.t;
+  // equal types (so equal ranks), and a number's or a string's value
+  const bool eq = (a.t == b.t) & ((a.t != T_NUM) | (a.num == b.num)) &
+                  ((a.t != T_STR) | (a.sid == b.sid));
   bool res, unknown;
   if (op <= 1) {
     res = op == 0 ? eq : !eq;
     unknown = both_comp;
   } else {
-    const bool lt_val =
-        a.t == T_NUM ? a.num < b.num : (a.t == T_FALSE && b.t == T_TRUE);
+    const bool lt_val = ((a.t == T_NUM) & (a.num < b.num)) |
+                        ((a.t == T_FALSE) & (b.t == T_TRUE));
     const bool lt = same ? lt_val : ra < rb;
-    unknown = both_comp || (same && a.t == T_STR);
-    res = op == 2 ? lt : op == 3 ? (lt || eq) : op == 4 ? (!lt && !eq) : !lt;
+    unknown = both_comp | (same & (a.t == T_STR));
+    res = op == 2 ? lt : op == 3 ? (lt | eq) : op == 4 ? !(lt | eq) : !lt;
   }
-  return unknown ? unk : (defined && res);
+  return unknown ? unk : (defined & res);
 }
 
-// A value operand at cell (c, r), slot s, parameter element p.  The string
-// id is read only for a string and the number only for a number: nothing
-// reads them otherwise.
-__device__ __forceinline__ Val load(const long long* o, int c, long long r,
-                                    int s, int p) {
-  long long i;
-  switch ((int)o[0]) {
-    case K_SCALAR: i = r; break;
-    case K_SLOT: i = r * o[4] + s; break;
-    case K_PARAM: i = c; break;
-    case K_ELEM: i = (long long)c * o[4] + p; break;
-    case K_LITSTR: i = 0; break;
-    default:
-      return Val{(int)o[5], (int)o[6], __longlong_as_double(o[7])};
-  }
-  Val v;
-  v.t = reinterpret_cast<const int8_t*>(o[1])[i];
-  v.sid = v.t == T_STR ? reinterpret_cast<const int*>(o[2])[i] : -1;
-  v.num = (v.t == T_NUM && o[0] != K_LITSTR)
-              ? reinterpret_cast<const double*>(o[3])[i]
-              : 0.0;
-  return v;
+// V bytes moved as one word
+template <int V> struct Word;
+template <> struct Word<8> { typedef uint2 T; };
+template <int V>
+union Bytes {
+  typename Word<V>::T w;
+  uint8_t b[V];
+};
+
+template <int V>
+__device__ __forceinline__ bool whole(const void* p, int n) {
+  return n >= V && (reinterpret_cast<uintptr_t>(p) & (V - 1)) == 0;
 }
 
-__device__ __forceinline__ int load_t(const long long* o, int c,
-                                      long long r, int s, int p) {
-  switch ((int)o[0]) {
-    case K_SCALAR: return reinterpret_cast<const int8_t*>(o[1])[r];
-    case K_SLOT: return reinterpret_cast<const int8_t*>(o[1])[r * o[4] + s];
-    case K_PARAM: return reinterpret_cast<const int8_t*>(o[1])[c];
-    case K_ELEM:
-      return reinterpret_cast<const int8_t*>(o[1])[(long long)c * o[4] + p];
-    case K_LITSTR: return reinterpret_cast<const int8_t*>(o[1])[0];
-    default: return (int)o[5];
+// The V lanes' bytes p[STEP * i], lanes at or past n read as 0: for
+// consecutive lanes (STEP 1) one access where the V bytes are aligned to
+// V, else one a lane.
+template <int V, int STEP>
+__device__ __forceinline__ void load_bytes(const uint8_t* p, int n,
+                                           uint8_t out[V]) {
+  if (STEP == 1 && whole<V>(p, n)) {
+    Bytes<V> u;
+    u.w = *reinterpret_cast<const typename Word<V>::T*>(p);
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = u.b[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = i < n ? p[STEP * i] : 0;
   }
 }
 
-__device__ __forceinline__ bool mask_bit(const long long* m, int c,
-                                         long long r, int idx) {
+template <int V, int STEP>
+__device__ __forceinline__ void store_bytes(uint8_t* p, int n,
+                                            const uint8_t in[V]) {
+  if (STEP == 1 && whole<V>(p, n)) {
+    Bytes<V> u;
+#pragma unroll
+    for (int i = 0; i < V; ++i) u.b[i] = in[i];
+    *reinterpret_cast<typename Word<V>::T*>(p) = u.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (i < n) p[STEP * i] = in[i];
+  }
+}
+
+// The thread's V rows of one constraint row: c, lane i's row r0 + STEP * i,
+// the n lanes in range, and the live ones (match bit set) as bits.
+struct Rows {
+  int c;
+  long long r0;
+  int n;
+  unsigned live;
+};
+
+__device__ __forceinline__ bool on(unsigned bits, int i) {
+  return (bits >> i) & 1u;
+}
+
+// The type codes of a value operand on the V rows, at slot s and
+// parameter element p.
+template <int V, int STEP>
+__device__ __forceinline__ void load_t(const long long* o, const Rows& w,
+                                       int s, int p, int t[V]) {
+  const int kind = (int)o[0];
+  const int8_t* tp = reinterpret_cast<const int8_t*>(o[1]);
+  if (kind == K_SCALAR) {
+    uint8_t b[V];
+    load_bytes<V, STEP>(reinterpret_cast<const uint8_t*>(tp + w.r0), w.n, b);
+#pragma unroll
+    for (int i = 0; i < V; ++i) t[i] = (int)(int8_t)b[i];
+  } else if (kind == K_SLOT) {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      t[i] = on(w.live, i) ? tp[(w.r0 + STEP * i) * o[4] + s] : T_UNDEF;
+  } else {
+    int u;
+    if (kind == K_PARAM) u = tp[w.c];
+    else if (kind == K_ELEM) u = tp[(long long)w.c * o[4] + p];
+    else if (kind == K_LITSTR) u = tp[0];
+    else u = (int)o[5];
+#pragma unroll
+    for (int i = 0; i < V; ++i) t[i] = u;
+  }
+}
+
+// A uniform operand's one value (uniform(o)): the string id read only for
+// a string and the number only for a number.
+__device__ __forceinline__ Val load_one(const long long* o, const Rows& w,
+                                        int p) {
+  const int kind = (int)o[0];
+  if (kind <= K_LITSTR) {  // a parameter, an element or a string literal
+    const long long j = kind == K_PARAM  ? w.c
+                        : kind == K_ELEM ? (long long)w.c * o[4] + p
+                                         : 0;
+    Val u;
+    u.t = reinterpret_cast<const int8_t*>(o[1])[j];
+    u.sid = u.t == T_STR ? reinterpret_cast<const int*>(o[2])[j] : -1;
+    u.num = (u.t == T_NUM && kind != K_LITSTR)
+                ? reinterpret_cast<const double*>(o[3])[j]
+                : 0.0;
+    return u;
+  }
+  return Val{(int)o[5], (int)o[6], __longlong_as_double(o[7])};
+}
+
+// A value operand on the V rows.  The string id is read only for a live
+// string and the number only for a live number: nothing reads them
+// otherwise.
+template <int V, int STEP>
+__device__ __forceinline__ void load(const long long* o, const Rows& w, int s,
+                                     int p, Val v[V]) {
+  const int kind = (int)o[0];
+  if (kind == K_SCALAR || kind == K_SLOT) {
+    int t[V];
+    load_t<V, STEP>(o, w, s, p, t);
+    const int* sp = reinterpret_cast<const int*>(o[2]);
+    const double* np = reinterpret_cast<const double*>(o[3]);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const long long r = w.r0 + STEP * i;
+      const long long j = kind == K_SCALAR ? r : r * o[4] + s;
+      v[i].t = t[i];
+      v[i].sid = on(w.live, i) && t[i] == T_STR ? sp[j] : -1;
+      v[i].num = on(w.live, i) && t[i] == T_NUM ? np[j] : 0.0;
+    }
+    return;
+  }
+  const Val u = load_one(o, w, p);
+#pragma unroll
+  for (int i = 0; i < V; ++i) v[i] = u;
+}
+
+// Bit i: the loop mask at element idx for row i.
+template <int V, int STEP>
+__device__ __forceinline__ unsigned mask_bits(const long long* m,
+                                              const Rows& w, int idx) {
   const uint8_t* a = reinterpret_cast<const uint8_t*>(m[1]);
-  return (int)m[0] == K_MASK_S ? a[r * m[4] + idx] != 0
-                               : a[(long long)c * m[4] + idx] != 0;
+  if ((int)m[0] == K_MASK_S) {
+    unsigned b = 0;
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      if (on(w.live, i) && a[(w.r0 + STEP * i) * m[4] + idx]) b |= 1u << i;
+    return b;
+  }
+  return a[(long long)w.c * m[4] + idx] ? (1u << V) - 1u : 0u;
 }
 
-// One cell's program: the stack is the bits of one word, its top bit 0.
-__device__ __forceinline__ bool run(const int* __restrict__ code,
-                                    const long long* __restrict__ ops, int c,
-                                    long long r) {
-  unsigned st = 0;
-  int s = 0, p = 0, depth = 0;
-  int f_axis[MAX_LOOPS], f_m[MAX_LOOPS], f_body[MAX_LOOPS],
-      f_saved[MAX_LOOPS];
+// The boolean stack of the thread's V rows, two ways.  A level is V bits,
+// bit i for row i.  PackedStack holds level k in bits [kV, kV + V) of one
+// 64-bit word, so each operation is a few instructions for all V rows, up
+// to 64 / V levels; LaneStack holds a word a row, up to 32 levels (the
+// bytecode's MAX_STACK).
+template <int V>
+struct PackedStack {
+  static constexpr unsigned long long M = (1ull << V) - 1ull;
+  unsigned long long s = 0;
+  __device__ __forceinline__ void push(unsigned bits) {
+    s = (s << V) | (bits & M);
+  }
+  __device__ __forceinline__ unsigned top() const { return (unsigned)(s & M); }
+  __device__ __forceinline__ void and_() { s = (s >> V) & (~M | (s & M)); }
+  __device__ __forceinline__ void or_() { s = (s >> V) | (s & M); }
+  __device__ __forceinline__ void not_() { s ^= M; }
+};
+
+template <int V>
+struct LaneStack {
+  unsigned st[V];
+  __device__ __forceinline__ LaneStack() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) st[i] = 0;
+  }
+  __device__ __forceinline__ void push(unsigned bits) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) st[i] = (st[i] << 1) | ((bits >> i) & 1u);
+  }
+  __device__ __forceinline__ unsigned top() const {
+    unsigned b = 0;
+#pragma unroll
+    for (int i = 0; i < V; ++i) b |= (st[i] & 1u) << i;
+    return b;
+  }
+  __device__ __forceinline__ void and_() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) st[i] = (st[i] >> 1) & (~1u | st[i]);
+  }
+  __device__ __forceinline__ void or_() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) st[i] = (st[i] >> 1) | (st[i] & 1u);
+  }
+  __device__ __forceinline__ void not_() {
+#pragma unroll
+    for (int i = 0; i < V; ++i) st[i] ^= 1u;
+  }
+};
+
+// A parameter, an element, a literal or a constant: one value for all V
+// rows.
+__device__ __forceinline__ bool uniform(const long long* o) {
+  return (int)o[0] >= K_PARAM;
+}
+
+template <int V, int OP>
+__device__ __forceinline__ unsigned cmp_one(const Val a[V], const Val& b,
+                                            bool unk) {
+  unsigned r = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i) r |= (unsigned)compare(a[i], b, OP, unk) << i;
+  return r;
+}
+
+template <int V, int OP>
+__device__ __forceinline__ unsigned cmp_all(const Val a[V], const Val b[V],
+                                            bool unk) {
+  unsigned r = 0;
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    r |= (unsigned)compare(a[i], b[i], OP, unk) << i;
+  return r;
+}
+
+// the comparison with its operator made a constant: against one value
+// for all V rows, or against V values
+template <int V>
+__device__ __forceinline__ unsigned cmp_one_op(int op, const Val a[V],
+                                               const Val& b, bool unk) {
+  switch (op) {
+    case 0: return cmp_one<V, 0>(a, b, unk);
+    case 1: return cmp_one<V, 1>(a, b, unk);
+    case 2: return cmp_one<V, 2>(a, b, unk);
+    case 3: return cmp_one<V, 3>(a, b, unk);
+    case 4: return cmp_one<V, 4>(a, b, unk);
+    default: return cmp_one<V, 5>(a, b, unk);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ unsigned cmp_all_op(int op, const Val a[V],
+                                               const Val b[V], bool unk) {
+  switch (op) {
+    case 0: return cmp_all<V, 0>(a, b, unk);
+    case 1: return cmp_all<V, 1>(a, b, unk);
+    case 2: return cmp_all<V, 2>(a, b, unk);
+    case 3: return cmp_all<V, 3>(a, b, unk);
+    case 4: return cmp_all<V, 4>(a, b, unk);
+    default: return cmp_all<V, 5>(a, b, unk);
+  }
+}
+
+// The index a loop of depth d hides, in one of four registers
+__device__ __forceinline__ void save(int d, int v, int sv[4]) {
+  if (d == 0) sv[0] = v;
+  else if (d == 1) sv[1] = v;
+  else if (d == 2) sv[2] = v;
+  else sv[3] = v;
+}
+
+__device__ __forceinline__ int saved(int d, const int sv[4]) {
+  return d == 0 ? sv[0] : d == 1 ? sv[1] : d == 2 ? sv[2] : sv[3];
+}
+
+// The program on the thread's V rows -> bit i: row i's value.  Every
+// thread of ``active`` (the warp's threads with a live row) runs the same
+// instructions.
+template <int V, int STEP, typename Stack>
+__device__ __forceinline__ unsigned run(const int* __restrict__ code,
+                                        const long long* __restrict__ ops,
+                                        const Rows& w, unsigned active) {
+  Stack st;
+  int s = 0, p = 0;
+  int sv[4] = {0, 0, 0, 0};
   int pc = 0;
   while (true) {
     const int* ins = code + pc * WIDTH;
     ++pc;
     switch (ins[0]) {
       case I_CONST:
-        st = (st << 1) | (unsigned)(ins[1] != 0);
+        st.push(ins[1] != 0 ? FULL : 0u);
         break;
       case I_TRUTHY: {
-        const int t = load_t(ops + ins[1] * OPW, c, r, s, p);
-        const bool v = t != T_UNDEF && t != T_FALSE;
-        st = (st << 1) | (unsigned)(v != (ins[2] != 0));
+        int t[V];
+        load_t<V, STEP>(ops + ins[1] * OPW, w, s, p, t);
+        const bool neg = ins[2] != 0;
+        unsigned b = 0;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          b |= (unsigned)((t[i] != T_UNDEF && t[i] != T_FALSE) != neg) << i;
+        st.push(b);
         break;
       }
       case I_CMP: {
-        const Val a = load(ops + ins[3] * OPW, c, r, s, p);
-        const Val b = load(ops + ins[4] * OPW, c, r, s, p);
-        st = (st << 1) | (unsigned)compare(a, b, ins[1], ins[2] != 0);
+        Val a[V];
+        load<V, STEP>(ops + ins[3] * OPW, w, s, p, a);
+        const long long* ob = ops + ins[4] * OPW;
+        const bool unk = ins[2] != 0;
+        if (uniform(ob)) {
+          st.push(cmp_one_op<V>(ins[1], a, load_one(ob, w, p), unk));
+        } else {
+          Val b[V];
+          load<V, STEP>(ob, w, s, p, b);
+          st.push(cmp_all_op<V>(ins[1], a, b, unk));
+        }
         break;
       }
       case I_STRPRED: {
-        const Val v = load(ops + ins[1] * OPW, c, r, s, p);
+        Val v[V];
+        load<V, STEP>(ops + ins[1] * OPW, w, s, p, v);
         const long long* tb = ops + ins[2] * OPW;
         const int* idx = reinterpret_cast<const int*>(tb[4]);
-        const int col = tb[5] ? idx[(long long)c * tb[5] + p] : idx[c];
-        st = (st << 1) |
-             (unsigned)gk::strpred_cell(
-                 reinterpret_cast<const uint8_t*>(tb[1]), (int)tb[2],
-                 (int)tb[3], col, v.t, v.sid, ins[3] != 0);
+        const int col = tb[5] ? idx[(long long)w.c * tb[5] + p] : idx[w.c];
+        const uint8_t* table = reinterpret_cast<const uint8_t*>(tb[1]);
+        const bool neg = ins[3] != 0;
+        unsigned r = 0;
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          r |= (unsigned)gk::strpred_cell(table, (int)tb[2], (int)tb[3], col,
+                                          v[i].t, v[i].sid, neg)
+               << i;
+        st.push(r);
         break;
       }
       case I_SETCOUNT: {
         const long long* o = ops + ins[1] * OPW;
         const int P = (int)o[4], K = (int)o[5];
-        const int cnt = gk::setcount_count(
-            reinterpret_cast<const int*>(o[1]) + (long long)c * P,
-            reinterpret_cast<const uint8_t*>(o[2]) + (long long)c * P, P,
-            reinterpret_cast<const int*>(o[3]) + r * K, K,
-            (int)(o[7] >> 32), (int)(o[6] & 15));
+        const int* ci = reinterpret_cast<const int*>(o[1]) + (long long)w.c * P;
+        const uint8_t* cm =
+            reinterpret_cast<const uint8_t*>(o[2]) + (long long)w.c * P;
+        const int* kr = reinterpret_cast<const int*>(o[3]);
+        const int pad = (int)(o[7] >> 32), orient = (int)(o[6] & 15);
+        const int cop = (int)(o[6] >> 4);
         const int n = (int)(unsigned)(o[7] & 0xffffffffLL);
-        st = (st << 1) |
-             (unsigned)gk::setcount_compare(cnt, (int)(o[6] >> 4), n);
+        unsigned r = 0;
+        // one row at a time
+#pragma unroll 1
+        for (int i = 0; i < V; ++i) {
+          if (!on(w.live, i)) continue;
+          const int* row = kr + (w.r0 + STEP * i) * K;
+          const int cnt =
+              gk::setcount_count(ci, cm, P, row, K, pad, orient);
+          r |= (unsigned)gk::setcount_compare(cnt, cop, n) << i;
+        }
+        st.push(r);
         break;
       }
       case I_JOIN: {
         const long long* o = ops + ins[1] * OPW;
         const bool unk = ins[3] != 0;
-        bool v = unk;
-        if (o[4]) {
-          const long long i = o[3] ? r * o[3] + s : r;
-          const int q = reinterpret_cast<const int*>(o[1])[i];
-          if (q != UNKNOWN_KEY) {
-            const Val lhs{q >= 0 ? T_NUM : T_UNDEF, -1,
-                          q >= 0 ? (double)reinterpret_cast<const int*>(
-                                       o[2])[i]
-                                 : 0.0};
-            v = compare(lhs, load(ops + ins[4] * OPW, c, r, s, p), ins[2],
-                        unk);
-          }
+        if (!o[4]) {
+          st.push(unk ? FULL : 0u);
+          break;
         }
-        st = (st << 1) | (unsigned)v;
+        Val b[V];
+        load<V, STEP>(ops + ins[4] * OPW, w, s, p, b);
+        const int* qp = reinterpret_cast<const int*>(o[1]);
+        const int* cp = reinterpret_cast<const int*>(o[2]);
+        unsigned r = 0;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          bool v = unk;
+          if (on(w.live, i)) {
+            const long long r = w.r0 + STEP * i;
+            const long long j = o[3] ? r * o[3] + s : r;
+            const int q = qp[j];
+            if (q != UNKNOWN_KEY) {
+              const Val lhs{q >= 0 ? T_NUM : T_UNDEF, -1,
+                            q >= 0 ? (double)cp[j] : 0.0};
+              v = compare(lhs, b[i], ins[2], unk);
+            }
+          }
+          r |= (unsigned)v << i;
+        }
+        st.push(r);
         break;
       }
-      case I_AND: {
-        const unsigned y = st & 1u;
-        st >>= 1;
-        st &= ~1u | y;
+      case I_AND:
+        st.and_();
         break;
-      }
-      case I_OR: {
-        const unsigned y = st & 1u;
-        st >>= 1;
-        st |= y;
+      case I_OR:
+        st.or_();
         break;
-      }
       case I_NOT:
-        st ^= 1u;
+        st.not_();
         break;
       case I_JFALSE:
-        if (!(st & 1u)) pc = ins[1];
+        if (__all_sync(active, (w.live & st.top()) == 0)) pc = ins[1];
         break;
       case I_JTRUE:
-        if (st & 1u) pc = ins[1];
+        if (__all_sync(active, (w.live & ~st.top()) == 0)) pc = ins[1];
         break;
-      case I_LOOP: {
+      case I_LOOP: {  // axis, mask, end, depth
         const long long* m = ops + ins[2] * OPW;
-        st <<= 1;  // the accumulator, False
+        st.push(0u);  // the accumulator, False
         if (m[4] == 0) {
           pc = ins[3];
           break;
         }
-        f_axis[depth] = ins[1];
-        f_m[depth] = ins[2];
-        f_body[depth] = pc;
-        f_saved[depth] = ins[1] == 0 ? p : s;
-        ++depth;
-        if (ins[1] == 0) p = 0;
-        else s = 0;
-        st = (st << 1) | (unsigned)mask_bit(m, c, r, 0);
+        if (ins[1] == 0) {
+          save(ins[4], p, sv);
+          p = 0;
+        } else {
+          save(ins[4], s, sv);
+          s = 0;
+        }
+        st.push(mask_bits<V, STEP>(m, w, 0));
         break;
       }
-      case I_ENDLOOP: {
-        const unsigned part = st & 1u;
-        st >>= 1;
-        st |= part;  // the accumulator
-        const int d = depth - 1;
-        const long long* m = ops + f_m[d] * OPW;
-        const int idx = (f_axis[d] == 0 ? p : s) + 1;
-        if (!(st & 1u) && idx < (int)m[4]) {
-          if (f_axis[d] == 0) p = idx;
+      case I_ENDLOOP: {  // axis, mask, body, depth
+        st.or_();  // the element's value into the accumulator
+        const long long* m = ops + ins[2] * OPW;
+        const int idx = (ins[1] == 0 ? p : s) + 1;
+        if (idx < (int)m[4] &&
+            __any_sync(active, (w.live & ~st.top()) != 0)) {
+          if (ins[1] == 0) p = idx;
           else s = idx;
-          st = (st << 1) | (unsigned)mask_bit(m, c, r, idx);
-          pc = f_body[d];
+          st.push(mask_bits<V, STEP>(m, w, idx));
+          pc = ins[3];
+        } else if (ins[1] == 0) {
+          p = saved(ins[4], sv);
         } else {
-          if (f_axis[d] == 0) p = f_saved[d];
-          else s = f_saved[d];
-          depth = d;
+          s = saved(ins[4], sv);
         }
         break;
       }
       default:  // I_HALT
-        return st & 1u;
+        return st.top();
     }
   }
 }
 
+// Lane i of an item is row r0 + STEP * i.  STEP 1: an item is V
+// consecutive rows (a review's 8 rows fill threads on several constraint
+// rows, and 1-D columns and the mask move V bytes an access); STEP 32: a
+// warp's item is 32 * V consecutive rows, lane i of thread t row
+// 32 * i + t, so that each access of a row-major [R, S] or [R, K] operand
+// reads 32 consecutive rows.  The launcher takes STEP 32 where R >= 32 V.
+template <int V, int STEP>
 __global__ void __launch_bounds__(THREADS)
     program_kernel(const long long* __restrict__ blob, int G, int NOP,
-                   uint8_t* __restrict__ mask, int R, int n_tiles,
-                   int max_ops) {
+                   uint8_t* __restrict__ mask, int R, int max_ops) {
   extern __shared__ long long sh[];
   long long* ops = sh;                                // [max_ops * OPW]
   int* code = reinterpret_cast<int*>(sh + (long long)max_ops * OPW);
-  const long long gi = blockIdx.x / n_tiles;  // the block's group row
-  const int tile = (int)(blockIdx.x % n_tiles);
-  int g = 0;
-  while (g + 1 < G && blob[(g + 1) * HDRW + 2] <= gi) ++g;
+  // the block's group: the last whose first block is not after this one
+  int g = 0, hi = G - 1;
+  while (g < hi) {
+    const int mid = (g + hi + 1) >> 1;
+    if (blob[(long long)mid * HDRW + 2] <= (long long)blockIdx.x) g = mid;
+    else hi = mid - 1;
+  }
   const long long* h = blob + (long long)g * HDRW;
-  const int c = (int)(gi - h[2]);
   const int n_code = (int)h[4], n_op = (int)h[6];
   const long long* g_ops = blob + (long long)G * HDRW + h[5] * OPW;
   const int* g_code = reinterpret_cast<const int*>(
@@ -302,14 +582,86 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = threadIdx.x; i < n_op * OPW; i += THREADS) ops[i] = g_ops[i];
   for (int i = threadIdx.x; i < n_code; i += THREADS) code[i] = g_code[i];
   __syncthreads();
-  uint8_t* row = mask + (h[0] + c) * (long long)R;
-  const long long base = (long long)tile * TILE + threadIdx.x;
-#pragma unroll 1
-  for (int k = 0; k < ROWS_PER_THREAD; ++k) {
-    const long long r = base + k * THREADS;
-    if (r >= R) break;
-    if (row[r] && !run(code, ops, c, r)) row[r] = 0;
+
+  // the group's items, per_row to a constraint row, walked by the group's
+  // blocks in turn (ops/program.py group_blocks counts them alike)
+  const unsigned B = (unsigned)h[1];
+  const unsigned per_row =
+      STEP == 1 ? (unsigned)((R + V - 1) / V)
+                : (unsigned)((R + 32 * V - 1) / (32 * V)) * 32u;
+  const unsigned items = B * per_row;  // < 2^31: the wrapper checks it
+  const unsigned first = (unsigned)h[2];
+  const unsigned last =
+      g + 1 < G ? (unsigned)blob[(long long)(g + 1) * HDRW + 2] : gridDim.x;
+  const unsigned stride = (last - first) * THREADS;
+  const bool packed = h[7] <= 64 / V;  // the stack fits one word
+  unsigned item = (blockIdx.x - first) * THREADS + threadIdx.x;
+  uint8_t m[V], next[V];
+  Rows w;
+  uint8_t* row = nullptr;
+  // an item's rows and mask bytes; each item's are loaded while the one
+  // before it runs
+  auto fetch = [&](unsigned it, Rows& x, uint8_t*& at, uint8_t out[V]) {
+    const bool in = it < items;
+    const unsigned c = in ? it / per_row : B - 1;
+    const unsigned k = in ? it % per_row : 0;
+    x.c = (int)c;
+    x.r0 = STEP == 1 ? (long long)k * V
+                     : (long long)(k / 32) * (32 * V) + (k % 32);
+    x.n = x.r0 < R ? (int)min((long long)V, (R - x.r0 + STEP - 1) / STEP) : 0;
+    at = mask + (h[0] + c) * (long long)R + x.r0;
+    x.live = 0;
+    if (in) {
+      load_bytes<V, STEP>(at, x.n, out);
+#pragma unroll
+      for (int i = 0; i < V; ++i) x.live |= (unsigned)(out[i] != 0) << i;
+    }
+  };
+  fetch(item, w, row, m);
+  while (__any_sync(FULL, item < items)) {
+    Rows wn;
+    uint8_t* row_n;
+    fetch(item + stride, wn, row_n, next);
+    const unsigned active = __ballot_sync(FULL, w.live != 0);
+    if (w.live) {
+      const unsigned res =
+          packed ? run<V, STEP, PackedStack<V>>(code, ops, w, active)
+                 : run<V, STEP, LaneStack<V>>(code, ops, w, active);
+      if (w.live & ~res) {  // only rows that turn False are written
+#pragma unroll
+        for (int i = 0; i < V; ++i) m[i] = on(w.live & res, i) ? 1 : 0;
+        store_bytes<V, STEP>(row, w.n, m);
+      }
+    }
+    item += stride;
+    w = wn;
+    row = row_n;
+#pragma unroll
+    for (int i = 0; i < V; ++i) m[i] = next[i];
   }
+}
+
+template <int V, int STEP>
+int launch_step(const long long* blob, int G, int NOP, uint8_t* mask, int R,
+                int blocks, size_t smem, int max_ops, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        program_kernel<V, STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  program_kernel<V, STEP><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      blob, G, NOP, mask, R, max_ops);
+  return cudaGetLastError();
+}
+
+int launch(const long long* blob, int G, int NOP, uint8_t* mask, int R,
+           int blocks, size_t smem, int max_ops, cudaStream_t stream) {
+  return R >= 32 * ROWS
+             ? launch_step<ROWS, 32>(blob, G, NOP, mask, R, blocks, smem,
+                                     max_ops, stream)
+             : launch_step<ROWS, 1>(blob, G, NOP, mask, R, blocks, smem,
+                                    max_ops, stream);
 }
 
 }  // namespace
@@ -319,27 +671,17 @@ extern "C" const char* gk_error_string(int code) {
 }
 
 // blob: G headers of HDRW words (mask row start, B, the group's first
-// block row, code offset and length in int32 words, operand offset and
-// count, stack depth), then NOP operands of OPW words, then the code.
-// rows: the sum of B over the groups; max_code / max_ops: the largest
-// group's code words and operands (the shared memory a block takes).
+// block, code offset and length in int32 words, operand offset and count,
+// stack depth), then NOP operands of OPW words, then the code.  blocks:
+// the sum over the groups of ops/program.py group_blocks(B, R);
+// max_code / max_ops: the largest group's code words and operands (the
+// shared memory a block takes).
 extern "C" int gk_program_launch(const long long* blob, int G, int NOP,
-                                 uint8_t* mask, int R, int rows,
+                                 uint8_t* mask, int R, int blocks,
                                  int max_code, int max_ops, void* stream) {
-  if (G <= 0 || rows <= 0 || R <= 0) return 0;
-  const int n_tiles = (R + TILE - 1) / TILE;
-  const long long blocks = (long long)rows * n_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if (G <= 0 || blocks <= 0 || R <= 0) return 0;
   const size_t smem =
       (size_t)max_ops * OPW * sizeof(long long) + (size_t)max_code * 4;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        program_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  program_kernel<<<(unsigned)blocks, THREADS, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      blob, G, NOP, mask, R, n_tiles, max_ops);
-  return cudaGetLastError();
+  return launch(blob, G, NOP, mask, R, blocks, smem, max_ops,
+                static_cast<cudaStream_t>(stream));
 }

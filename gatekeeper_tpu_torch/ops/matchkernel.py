@@ -174,9 +174,34 @@ _SELECTORS = (
 )
 
 
+def _live_len(live: torch.Tensor) -> torch.Tensor:
+    """bool [C, n, ...] -> int32 [C]: one past the last index along dim 1
+    that holds a live entry anywhere, 0 for none (the packer's widths are
+    at least 1)."""
+    C, n = live.shape[:2]
+    pos = torch.arange(1, n + 1, dtype=torch.int32, device=live.device)
+    any_live = live.reshape(C, n, -1).any(dim=2)
+    return (any_live.to(torch.int32) * pos).amax(dim=1).to(torch.int32)
+
+
+def live_lengths(cs: dict) -> torch.Tensor:
+    """int32 [C, 9]: each constraint's live entries of every padded list,
+    one past the last live one: kind pairs, namespace ids, excluded ids,
+    then for each selector its matchLabels pairs, expressions, and
+    expression values (the longest over its expressions).  A PAD entry can
+    never hit: a label's value is an interned id or NON_STRING, not PAD."""
+    cols = [_live_len(cs["kind_pairs"][..., 0] != PAD),
+            _live_len(cs["ns_ids"] != PAD), _live_len(cs["ex_ids"] != PAD)]
+    for ml, op, _key, vals, _nvals in _SELECTORS:
+        cols += [_live_len(cs[ml][..., 0] != PAD), _live_len(cs[op] != -1),
+                 _live_len((cs[vals] != PAD).transpose(1, 2))]
+    return torch.stack(cols, dim=1)
+
+
 def constraint_records(cs: dict) -> Tuple[torch.Tensor, list]:
     """Pack the constraint side into one int32 record per constraint
-    ([C, W]) plus the field offsets kernels/match.cu reads it by."""
+    ([C, W]) plus the field offsets kernels/match.cu reads it by; the
+    record ends with live_lengths(cs)."""
     C = cs["valid"].shape[0]
     parts = []
     off = 0
@@ -200,6 +225,7 @@ def constraint_records(cs: dict) -> Tuple[torch.Tensor, list]:
             put(cs[vals]), put(cs[nvals]), cs[op].shape[1],
             cs[vals].shape[2],
         ]
+    layout.append(put(live_lengths(cs)))
     layout[0] = off
     return torch.cat(parts, dim=1).contiguous(), layout
 

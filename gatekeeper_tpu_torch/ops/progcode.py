@@ -25,7 +25,10 @@ are loops over an axis (P or S) of a mask operand: LOOP pushes the
 accumulator (False) and the first element's mask bit, the body ANDs its
 conditions into that bit, and ENDLOOP ORs it into the accumulator and
 either starts the next element or, once the accumulator holds or the
-axis ends, leaves the accumulator.
+axis ends, leaves the accumulator.  LOOP and ENDLOOP both carry the
+loop's axis, mask operand and nesting depth, and ENDLOOP its body's first
+instruction, so an executor keeps no frame of its own: the index an inner
+loop of the same axis hides is saved per depth.
 
 The encoder refuses what ``eval_program`` refuses, with the same
 ValueErrors: AnySlots anywhere, a nested slot reduction, slot conditions
@@ -82,8 +85,8 @@ OR = 7        #                                pop y, pop x, push x | y
 NOT = 8       #                                top = !top
 JFALSE = 9    # target                         top false: go to target
 JTRUE = 10    # target                         top true: go to target
-LOOP = 11     # axis, mask, end                push False, push mask[0]
-ENDLOOP = 12  #                                part = pop, acc = pop | part
+LOOP = 11     # axis, mask, end, depth         push False, push mask[0]
+ENDLOOP = 12  # axis, mask, body, depth        part = pop, acc = pop | part
 HALT = 13     #                                the cell's value is the top
 
 # the boolean stack's change for each opcode
@@ -245,15 +248,16 @@ class _Encoder:
 
     def loop(self, axis: int, mask: int, conds, s_loop: int, p_loop: int):
         """any over the axis of (mask & AND conds)."""
+        depth = self.loop_depth
         self.loop_depth += 1
         self.max_loops = max(self.max_loops, self.loop_depth)
-        start = self.emit(LOOP, axis, mask, 0)
+        start = self.emit(LOOP, axis, mask, 0, depth)
         jumps = []
         for cond in conds:
             jumps.append(self.emit(JFALSE, 0))
             self.node(cond, s_loop, p_loop)
             self.emit(AND)
-        end = self.emit(ENDLOOP)
+        end = self.emit(ENDLOOP, axis, mask, start + 1, depth)
         for at in jumps:
             self.patch(at, 0, end)
         self.patch(start, 2, end + 1)

@@ -37,6 +37,8 @@ from .vexpr import EvalEnv, _cmp_values, _slot_mask, join_counts
 SCALAR, SLOT, PARAM, ELEM, LITSTR, CONSTV = 0, 1, 2, 3, 4, 5
 MASK_S, MASK_P, TABLE, SETCOUNT, JOIN = 6, 7, 8, 9, 10
 _CMP_NAMES = {v: k for k, v in pc.CMP_OPS.items()}
+# the opcodes that push one value and read nothing off the stack
+PUSHES = (pc.CONST, pc.TRUTHY, pc.CMP, pc.STRPRED, pc.SETCOUNT, pc.JOIN)
 
 
 def _value(d, kind):
@@ -219,6 +221,25 @@ class _Plain:
         return torch.where(q == UNKNOWN_KEY,
                            self.const(bool(unk), torch.bool), res)
 
+    def pushed(self, ins):
+        """The value a pushing instruction (PUSHES) pushes at the current
+        loop indices, broadcastable to [B, R]."""
+        op = ins[0]
+        if op == pc.CONST:
+            return self.const(bool(ins[1]), torch.bool)
+        if op == pc.TRUTHY:
+            t = self.value(ins[1])[0]
+            v = (t != T_UNDEF) & (t != T_FALSE)
+            return ~v if ins[2] else v
+        if op == pc.CMP:
+            return self.cmp(self.value(ins[3]), self.value(ins[4]), ins[1],
+                            bool(ins[2]))
+        if op == pc.STRPRED:
+            return self.strpred(ins[1], ins[2], ins[3])
+        if op == pc.SETCOUNT:
+            return self.setcount(ins[1])
+        return self.join(ins[1], ins[2], ins[3], ins[4])
+
     def cost(self, ins) -> int:
         if ins[0] == pc.SETCOUNT:
             o = self.ops_[ins[1]]
@@ -234,7 +255,10 @@ class _Plain:
     def run(self, code: np.ndarray):
         code = code.reshape(-1, pc.WIDTH).tolist()
         stack: list = []
-        frames: list = []
+        # per loop depth: the index the loop hides, and the cells that
+        # entered it (for the count)
+        saved = [0] * pc.MAX_LOOPS
+        entry: list = [None] * pc.MAX_LOOPS
         pending: dict = {}
         counting = self.reach is not None
         at = 0
@@ -246,22 +270,8 @@ class _Plain:
                     self.reach = self.reach | pending.pop(at)
                 self.count(ins)
             at += 1
-            if op == pc.CONST:
-                stack.append(self.const(bool(ins[1]), torch.bool))
-            elif op == pc.TRUTHY:
-                t = self.value(ins[1])[0]
-                v = (t != T_UNDEF) & (t != T_FALSE)
-                stack.append(~v if ins[2] else v)
-            elif op == pc.CMP:
-                stack.append(self.cmp(self.value(ins[3]),
-                                      self.value(ins[4]), ins[1],
-                                      bool(ins[2])))
-            elif op == pc.STRPRED:
-                stack.append(self.strpred(ins[1], ins[2], ins[3]))
-            elif op == pc.SETCOUNT:
-                stack.append(self.setcount(ins[1]))
-            elif op == pc.JOIN:
-                stack.append(self.join(ins[1], ins[2], ins[3], ins[4]))
+            if op in PUSHES:
+                stack.append(self.pushed(ins))
             elif op in (pc.AND, pc.OR):
                 y, x = stack.pop(), stack.pop()
                 stack.append(x & y if op == pc.AND else x | y)
@@ -274,38 +284,39 @@ class _Plain:
                     pending[ins[1]] = pending.get(ins[1], leave) | leave
                     self.reach = self.reach & ~leave
             elif op == pc.LOOP:
-                axis, m, end = ins[1], ins[2], ins[3]
-                count = self.ops_[m]["width"]
+                axis, m, end, depth = ins[1:5]
                 stack.append(self.const(False, torch.bool))
-                if count == 0:
+                if self.ops_[m]["width"] == 0:
                     at = end
                     continue
-                saved = self.p if axis == pc.AXIS_P else self.s
-                frames.append([axis, m, count, at, saved, self.reach])
+                saved[depth] = self._get(axis)
+                entry[depth] = self.reach
                 self._set(axis, 0)
                 stack.append(self.mask_bit(m, 0))
             elif op == pc.ENDLOOP:
+                axis, m, body, depth = ins[1:5]
                 part = stack.pop()
                 acc = stack.pop() | part
-                axis, m, count, body, saved, entry = frames[-1]
-                idx = self.p if axis == pc.AXIS_P else self.s
+                idx = self._get(axis) + 1
                 stack.append(acc)
-                if idx + 1 < count:
-                    self._set(axis, idx + 1)
-                    stack.append(self.mask_bit(m, idx + 1))
+                if idx < self.ops_[m]["width"]:
+                    self._set(axis, idx)
+                    stack.append(self.mask_bit(m, idx))
                     if counting:
-                        self.reach = entry & ~self.full(acc)
+                        self.reach = entry[depth] & ~self.full(acc)
                     at = body
                 else:
-                    self._set(axis, saved)
-                    frames.pop()
+                    self._set(axis, saved[depth])
                     if counting:
-                        self.reach = entry
+                        self.reach = entry[depth]
             elif op == pc.HALT:
                 (out,) = stack
                 return out
             else:
                 raise ValueError(f"bad opcode {op}")
+
+    def _get(self, axis: int) -> int:
+        return self.p if axis == pc.AXIS_P else self.s
 
     def _set(self, axis: int, idx: int):
         if axis == pc.AXIS_P:
@@ -410,16 +421,42 @@ def _check_rows(o: dict, g: dict, R: int):
         _need(o["sid"].numel() >= 1, "empty literal")
 
 
-def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
-    """K9: one launch for every group."""
-    dev = mask.device
-    _dev.check(mask, "mask", torch.bool, 2, dev)
-    C, R = mask.shape
+# K9's geometry (kernels/program.cu): rows a thread's item, threads a
+# block, and items a thread walks at most
+ROWS_PER_THREAD = 8
+THREADS = 256
+ITEMS = 8
+
+
+def items_per_row(R: int) -> int:
+    """K9's items for one constraint row of R rows: V consecutive rows
+    each, or where R >= 32 V a warp's 32 V rows over 32 threads (lane i of
+    thread t on row 32 i + t), V = ROWS_PER_THREAD."""
+    V = ROWS_PER_THREAD
+    if R >= 32 * V:
+        return -(-R // (32 * V)) * 32
+    return -(-R // V)
+
+
+def group_blocks(B: int, R: int) -> int:
+    """K9's blocks for a group of B constraint rows: up to ITEMS items a
+    thread, THREADS threads a block, no block shared by two groups."""
+    items = B * items_per_row(R)
+    if items >= 2 ** 31:
+        raise ValueError(f"a group of {B} rows x {R} is past K9's 2^31 items")
+    return -(-items // (THREADS * ITEMS))
+
+
+def pack_launch(groups: List[dict], C: int, R: int, dev) -> dict:
+    """The launch of K9 for the groups over a [C, R] mask, checked: one
+    int64 blob of G headers (mask row start, B, the group's first block,
+    code offset and length in int32 words, operand offset and count,
+    stack depth), then the operands (OPW words each, pointers of tensors
+    on ``dev``), then every group's code, padded to whole words; with the
+    counts the launcher takes.  Groups with B = 0 are dropped."""
     groups = [g for g in groups if g["B"] > 0]
-    if not groups or R == 0:
-        return mask
     headers, table, code = [], [], []
-    rows = code_words = 0
+    blocks = code_words = 0
     for g in groups:
         if g["start"] < 0 or g["start"] + g["B"] > C:
             raise ValueError(f"group rows [{g['start']}, "
@@ -427,15 +464,15 @@ def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
         if g["stack"] > pc.MAX_STACK:
             raise ValueError(f"group stack {g['stack']} > {pc.MAX_STACK}")
         n_code = len(g["code"])
-        headers.append([g["start"], g["B"], rows, code_words, n_code,
+        headers.append([g["start"], g["B"], blocks, code_words, n_code,
                         len(table), len(g["operands"]), g["stack"]])
         for o in g["operands"]:
             _check_rows(o, g, R)
             table.append(_operand_words(o, dev))
         code.append(np.asarray(g["code"], np.int32))
-        rows += g["B"]
+        blocks += group_blocks(g["B"], R)
         code_words += n_code
-    code = np.concatenate(code)
+    code = np.concatenate(code) if code else np.zeros(0, np.int32)
     if len(code) % 2:
         code = np.append(code, np.int32(0))
     blob = np.concatenate([
@@ -443,14 +480,32 @@ def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
         np.asarray(table, np.int64).reshape(-1),
         code.view(np.int64),
     ])
-    # a fresh device buffer every evaluation, copied synchronously: the
-    # table holds this evaluation's pointers
-    blob_d = torch.from_numpy(blob).to(dev)
-    max_code = max(h[4] for h in headers)
-    max_ops = max(h[6] for h in headers)
+    return {"blob": blob, "G": len(headers), "NOP": len(table),
+            "blocks": blocks,
+            "max_code": max((h[4] for h in headers), default=0),
+            "max_ops": max((h[6] for h in headers), default=0)}
+
+
+def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
+    """K9: one launch for every group."""
+    dev = mask.device
+    _dev.check(mask, "mask", torch.bool, 2, dev)
+    C, R = mask.shape
+    if R == 0:
+        return mask
+    lp = pack_launch(groups, C, R, dev)
+    if not lp["G"]:
+        return mask
+    # a fresh device buffer every evaluation (the table holds this
+    # evaluation's pointers), copied from pinned memory without waiting:
+    # the launch queues behind the copy, and the caching host allocator
+    # keeps the pinned block until the copy is done
+    blob_d = torch.from_numpy(lp["blob"]).pin_memory().to(
+        dev, non_blocking=True)
     _dev.launch(
-        "program", _dev.ptr(blob_d), len(headers), len(table),
-        _dev.ptr(mask), R, rows, max_code, max_ops, _dev.stream(mask),
+        "program", _dev.ptr(blob_d), lp["G"], lp["NOP"], _dev.ptr(mask), R,
+        lp["blocks"], lp["max_code"], lp["max_ops"],
+        _dev.stream(mask),
     )
     return mask
 

@@ -11,11 +11,19 @@ kernel K9 is held against on the card), on the CPU.
 - The encoder refuses what eval_program refuses, with the same
   ValueErrors, and every corpus program fits the kernel's bounds.
 - TorchDriver evaluates through the bytecode, never through eval_program.
+- K9's control rule on the CPU (``tiled_eval``): the bytecode run on tiles
+  of T cells that share their jumps and loop exits, taken only where every
+  live cell of the tile takes them, as the threads of one warp of K9 do,
+  bit-equal to the plain executor and to eval_program for T = 1, 8, 32 and
+  R; the executed-instruction count the kernel's bound is computed from is
+  the one the bytecode had before LOOP and ENDLOOP carried their
+  arguments; the launch packing (``pack_launch``) and its offsets.
 
 Masks are booleans: every comparison is exact (tolerance 0).
 """
 
 import copy
+import pathlib
 
 import numpy as np
 import pytest
@@ -40,6 +48,7 @@ from gatekeeper_tpu_torch.convert import (
 from gatekeeper_tpu_torch.ops import joinkernel as tjk
 from gatekeeper_tpu_torch.ops import progcode
 from gatekeeper_tpu_torch.ops import vexpr as tv
+from gatekeeper_tpu_torch.ops import program as tprogram
 from gatekeeper_tpu_torch.ops.program import (
     bind_group,
     program_eval,
@@ -57,6 +66,95 @@ def bytecode_eval(prog, env):
     mask = torch.ones((env.C, env.R), dtype=torch.bool)
     group = bind_group(progcode.encode(prog), env, 0)
     return program_eval_plain(mask, [group]).numpy()
+
+
+def tiled_eval(mask, group, T):
+    """K9's control rule on the CPU -> the group's rows of ``mask`` ANDed
+    with the program (numpy [B, R]).  The group's cells, row-major, are cut
+    into tiles of T, each run as one warp of K9 runs its threads' rows: one
+    instruction stream for the tile, a jump taken only where every live
+    cell of the tile takes it, a loop continued while any live cell's
+    accumulator is False, LOOP and ENDLOOP read from their arguments.  A
+    cell whose value is decided runs on through its clause or loop."""
+    B, R = group["B"], mask.shape[1]
+    ex = tprogram._Plain(group, R, mask.device)
+    code = np.asarray(group["code"]).reshape(-1, progcode.WIDTH).tolist()
+    memo = {}
+
+    def full(key, make, idx):
+        if (key, *idx) not in memo:
+            ex.p, ex.s = idx
+            memo[(key, *idx)] = make().expand(B, R).reshape(-1).numpy()
+        return memo[(key, *idx)]
+
+    live_all = mask[group["start"]:group["start"] + B].reshape(-1).numpy()
+    out = np.zeros(B * R, bool)
+    for t0 in range(0, B * R, T):
+        cells = slice(t0, min(t0 + T, B * R))
+        live = live_all[cells]
+        if not live.any():
+            continue
+        stack, idx, saved, at = [], [0, 0], [0] * progcode.MAX_LOOPS, 0
+        while True:
+            ins = code[at]
+            op, at = ins[0], at + 1
+            if op in tprogram.PUSHES:
+                stack.append(full(at - 1, lambda: ex.pushed(ins), idx)[cells])
+            elif op in (progcode.AND, progcode.OR):
+                y, x = stack.pop(), stack.pop()
+                stack.append(x & y if op == progcode.AND else x | y)
+            elif op == progcode.NOT:
+                stack.append(~stack.pop())
+            elif op == progcode.JFALSE:
+                if not (stack[-1] & live).any():
+                    at = ins[1]
+            elif op == progcode.JTRUE:
+                if (stack[-1] | ~live).all():
+                    at = ins[1]
+            elif op == progcode.LOOP:
+                axis, m, end, depth = ins[1:5]
+                stack.append(np.zeros(len(live), bool))
+                if not group["operands"][m]["width"]:
+                    at = end
+                    continue
+                saved[depth], idx[axis] = idx[axis], 0
+                stack.append(full(("m", m, 0), lambda: ex.mask_bit(m, 0),
+                                  idx)[cells])
+            elif op == progcode.ENDLOOP:
+                axis, m, body, depth = ins[1:5]
+                part = stack.pop()
+                stack.append(stack.pop() | part)
+                nxt = idx[axis] + 1
+                if nxt < group["operands"][m]["width"] and \
+                        (~stack[-1] & live).any():
+                    idx[axis] = nxt
+                    stack.append(full(("m", m, nxt),
+                                      lambda: ex.mask_bit(m, nxt),
+                                      idx)[cells])
+                    at = body
+                else:
+                    idx[axis] = saved[depth]
+            else:
+                assert op == progcode.HALT
+                out[cells] = stack[-1] & live
+                break
+    return out.reshape(B, R)
+
+
+TILES = (1, 8, 32, "R")
+
+
+def _hold_tiled(prog, env, want, seed=0):
+    """tiled_eval for each tile in TILES, on an all-True and a seeded mask,
+    against ``want`` (the program's own value)."""
+    group = bind_group(progcode.encode(prog), env, 1)
+    rng = np.random.default_rng(seed)
+    for p_live in (1.0, 0.6):
+        mask = torch.from_numpy(rng.random((env.C + 2, env.R)) < p_live)
+        rows = mask[1:1 + env.C].numpy()
+        for T in TILES:
+            got = tiled_eval(mask, group, env.R if T == "R" else T)
+            np.testing.assert_array_equal(got, rows & want)
 
 
 # ---- the corpora, on the JAX driver's packed groups ---------------------------
@@ -347,9 +445,10 @@ def _eval_three(make_clauses, seed, joins=False, P_=P):
         prog = m.VProgram(make_clauses(m), [], [], [],
                           join_plans=_plans(m) if joins else ())
         out.append(np.asarray(m.eval_program(prog, env)))
-    out.append(bytecode_eval(tv.VProgram(make_clauses(tv), [], [], [],
-                                         join_plans=_plans(tv) if joins
-                                         else ()), tenv))
+    prog = tv.VProgram(make_clauses(tv), [], [], [],
+                       join_plans=_plans(tv) if joins else ())
+    out.append(bytecode_eval(prog, tenv))
+    _hold_tiled(prog, tenv, out[0], seed)
     return out
 
 
@@ -596,6 +695,151 @@ def test_plain_counts_the_instructions_the_kernel_runs():
     # every live cell runs at least the first condition's loop set-up and
     # HALT; at most every instruction, each loop body once per element
     assert 2 * live <= ops[0] <= live * enc.n_instr * (P + 1) * (S + 1)
+
+
+# ---- K9's control rule and launch ------------------------------------------------
+
+
+def _edge_groups(R, S, P, seed):
+    """chip_smoke's edge programs (every node kind, nested loops, a deep
+    stack, no clauses), bound on the CPU as groups of one launch."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    groups, start = [], 0
+    for prog in chip_smoke.edge_programs():
+        env = chip_smoke._edge_env(rng, torch.device("cpu"), 4, R, S, P)
+        groups.append(bind_group(progcode.encode(prog), env, start))
+        start += 4
+    return groups, start, rng
+
+
+@pytest.mark.parametrize("R,S,P", [(1, 3, 3), (17, 3, 1), (40, 0, 3),
+                                   (24, 3, 0)])
+def test_tiled_control_rule_on_the_edge_programs(R, S, P):
+    """Tiles that straddle rows (T past R) and cut them (T under R), masks
+    that differ lane by lane: the tile model equals the plain executor."""
+    groups, C, rng = _edge_groups(R, S, P, R + S + P)
+    r = np.arange(R)
+    for pattern in (np.ones(R, bool), r % 2 == 0, r % 8 == 7,
+                    rng.random(R) < 0.5):
+        mask = torch.from_numpy((rng.random((C, R)) < 0.8) & pattern)
+        want = program_eval_plain(mask.clone(), groups)
+        for g in groups:
+            rows = want[g["start"]:g["start"] + g["B"]].numpy()
+            for T in TILES:
+                np.testing.assert_array_equal(
+                    tiled_eval(mask, g, R if T == "R" else T), rows)
+
+
+def test_executed_instruction_count_is_unchanged_by_the_loop_arguments():
+    """program_eval_plain's count of the instructions K9 executes (its
+    bound's operations) on seeded inputs: the numbers the bytecode gave
+    before LOOP carried its depth and ENDLOOP its axis, mask, body and
+    depth."""
+    cols, params, elems, tables, _rv, _t = _env_arrays(2)
+    tenv = tv.EvalEnv(state_from_numpy(
+        {k: v for k, v in cols.items() if k != KEYS}, "cpu"),
+        *group_params_from_numpy([(params, elems, tables)], "cpu")[0],
+        {KEYS: torch.from_numpy(cols[KEYS]["ids"])}, C, R, "cpu")
+    mask = torch.rand((C, R), generator=torch.Generator().manual_seed(0)) < 0.6
+    counts = []
+    for name in sorted(STRPRED_CASES):
+        ops = []
+        prog = tv.VProgram(STRPRED_CASES[name](tv), [], [], [])
+        program_eval_plain(mask.clone(), [bind_group(progcode.encode(prog),
+                                                     tenv, 0)], ops)
+        counts += ops
+    assert counts == [98, 614, 554, 98, 338]
+    rng = np.random.default_rng(0)
+    want = {(300, 3, 3): [6221, 18627, 6273, 8710, 34166, 32157, 16467,
+                          17599, 1614, 52233],
+            (64, 0, 1): [1442, 5141, 1372, 1466, 1738, 3696, 2116, 3869,
+                         402, 11169],
+            (50, 3, 0): [1195, 2868, 1085, 1268, 2114, 828, 2619, 2694, 286,
+                         11520]}
+    import chip_smoke
+
+    for (R_, S_, P_), counts in want.items():
+        groups, start = [], 0
+        for prog in chip_smoke.edge_programs():
+            env = chip_smoke._edge_env(rng, torch.device("cpu"), 4, R_, S_,
+                                       P_)
+            groups.append(bind_group(progcode.encode(prog), env, start))
+            start += 4
+        ops = []
+        program_eval_plain(torch.from_numpy(rng.random((start, R_)) < 0.7),
+                           groups, ops)
+        assert ops == counts, (R_, S_, P_)
+
+
+def test_pack_launch_offsets_and_alignment():
+    """The blob K9 reads: G headers and NOP operand rows of 8 int64 words,
+    then the code, whole words; each group's first block follows the
+    blocks of the groups before it, so no block holds two groups; a group
+    of B = 0 is dropped; rows outside the mask are refused."""
+    groups, C, _rng = _edge_groups(1025, 3, 3, 5)
+    groups.insert(3, dict(groups[3], B=0))
+    lp = tprogram.pack_launch(groups, C, 1025, torch.device("cpu"))
+    live = [g for g in groups if g["B"]]
+    G, NOP = lp["G"], lp["NOP"]
+    assert G == len(live) == 10
+    assert NOP == sum(len(g["operands"]) for g in live)
+    blob = lp["blob"]
+    n_code = sum(len(g["code"]) for g in live)
+    assert blob.dtype == np.int64
+    assert len(blob) == 8 * G + 8 * NOP + -(-n_code // 2)
+    hdr = blob[:8 * G].reshape(G, 8)
+    blocks = code = ops = 0
+    for h, g in zip(hdr.tolist(), live):
+        assert h == [g["start"], g["B"], blocks, code, len(g["code"]), ops,
+                     len(g["operands"]), g["stack"]]
+        V = tprogram.ROWS_PER_THREAD
+        per_row = -(-1025 // (32 * V)) * 32  # 1025 >= 32 V: a warp's tiles
+        assert tprogram.items_per_row(1025) == per_row
+        assert tprogram.group_blocks(g["B"], 1025) == -(-g["B"] * per_row
+                                                         // (256 * 8))
+        blocks += tprogram.group_blocks(g["B"], 1025)
+        code += len(g["code"])
+        ops += len(g["operands"])
+    assert lp["blocks"] == blocks
+    assert lp["max_code"] == max(len(g["code"]) for g in live)
+    assert lp["max_ops"] == max(len(g["operands"]) for g in live)
+    words = blob[8 * G + 8 * NOP:].view(np.int32)
+    np.testing.assert_array_equal(
+        words[:n_code], np.concatenate([g["code"] for g in live]))
+    assert (words[n_code:] == 0).all()
+    table = blob[8 * G:8 * G + 8 * NOP].reshape(NOP, 8)
+    kinds = [o["kind"] for g in live for o in g["operands"]]
+    assert table[:, 0].tolist() == kinds
+    # a review's 8 rows: V consecutive rows an item, every thread busy on
+    # up to ITEMS items
+    items = 8 // tprogram.ROWS_PER_THREAD
+    assert tprogram.items_per_row(8) == items
+    assert tprogram.group_blocks(256 * 8 // items, 8) == 1
+    assert tprogram.group_blocks(256 * 8 // items + 1, 8) == 2
+    with pytest.raises(ValueError, match="2\\^31"):
+        tprogram.group_blocks(2 ** 20, 2 ** 13 * tprogram.ROWS_PER_THREAD)
+    bad = [dict(live[0], start=C - 1)]
+    with pytest.raises(ValueError, match="outside the mask"):
+        tprogram.pack_launch(bad, C, 1025, torch.device("cpu"))
+
+
+def test_k9_geometry_matches_the_kernel_source():
+    """ROWS_PER_THREAD, THREADS, ITEMS and the instruction width as
+    kernels/program.cu has them."""
+    import re
+
+    src = (pathlib.Path(tdev.__file__).parent / "kernels"
+           / "program.cu").read_text()
+    assert re.search(r"constexpr int THREADS = (\d+);", src).group(1) == \
+        str(tprogram.THREADS)
+    assert re.search(r"constexpr int ROWS = (\d+);", src).group(1) == \
+        str(tprogram.ROWS_PER_THREAD)
+    assert re.search(r"constexpr int ITEMS = (\d+);", src).group(1) == \
+        str(tprogram.ITEMS)
+    assert re.search(r"constexpr int WIDTH = (\d+);", src).group(1) == \
+        str(progcode.WIDTH)
 
 
 # ---- the driver ---------------------------------------------------------------------

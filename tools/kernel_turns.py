@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time kernels of one checkout of gatekeeper_tpu_torch on a CUDA card, so
+that two checkouts can be compared in turns on one card.
+
+    python3 tools/kernel_turns.py --root DIR [--kernels match,program]
+                                  [--per-group]
+
+DIR holds a checkout's gatekeeper_tpu_torch/ (this tree, or an earlier
+commit unpacked with git archive into a git-ignored directory).  The script
+builds DIR's kernels, drives DIR's TorchDriver through chip_smoke.py's main
+path (500 templates x 100,000 pods, a cold capped sweep, then one one-pod
+admission review), records the calls of the kernels named in --kernels
+(any that chip_smoke.Capture records and this path launches: match,
+program, reduction), and for the largest call of the sweep and of the
+review checks each kernel against its plain version exactly and takes its
+median time over CUDA events (chip_smoke.cuda_ms, with an in-place output
+restored outside the events).  Where match is named, K1 is timed once more
+at the sweep's shape on the seeded corpus whose selectors are live
+(chip_smoke.check_match_at_size); with --per-group, K9 on each group of
+the sweep alone too.  The checks and timings are this tree's
+chip_smoke.kernel_specs(), so DIR's wrappers must take the arguments that
+this tree's take; one that does not fails its call.  It prints one JSON
+line: the card as nvidia-smi names it with its power limit, DIR, ptxas's
+register and spill report for each kernel, the shapes and the times in ms.
+Run it old, new, new, old in one command to compare:
+
+    for r in build/parent . . build/parent; do
+        python3 tools/kernel_turns.py --root $r; done
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """This tree's chip_smoke.py (DIR may hold an older one)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--kernels", default="match,program")
+    ap.add_argument("--templates", type=int, default=500)
+    ap.add_argument("--pods", type=int, default=100_000)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--per-group", action="store_true",
+                    help="also time K9 on each group of the sweep alone")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_turns: no CUDA card visible", file=sys.stderr)
+        return 1
+    cs = _chip_smoke()
+    names = tuple(args.kernels.split(","))
+    specs = cs.kernel_specs()
+    recorded = {name for _m, _f, name in cs.Capture.SITES}
+    for name in names:
+        if name not in specs or name not in recorded:
+            ap.error(f"--kernels: {name} is not a kernel that chip_smoke "
+                     f"records (one of {sorted(recorded)})")
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.ops import program
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    if not os.path.abspath(gdev.__file__).startswith(root + os.sep):
+        raise AssertionError(f"imported {gdev.__file__}, not from {root}")
+    gdev.build_kernels()
+    gdev.kernels()
+    out = {"root": args.root, "card": cs.nvidia_smi_line(),
+           "torch_name": torch.cuda.get_device_name(0),
+           "ptxas": {n: [ln.strip() for ln in
+                         gdev.build_log.get(n, "").splitlines()
+                         if "registers" in ln or "spill" in ln]
+                     for n in names},
+           "shapes": {}, "ms": {}}
+    client = syn.build_driver(args.templates, args.pods, cs.SEED)
+    with cs.Capture(names=names) as sweep:
+        client.audit_capped(cs.CAP)
+    pod = syn.make_pods(1, seed=cs.SEED + 98, violation_rate=1.0)[0]
+    pod["metadata"]["name"] = "admission-timed"
+    with cs.Capture(names=names) as review:
+        client.review(pod)
+    for name in names:
+        if not sweep.calls[name] and not review.calls[name]:
+            raise AssertionError(f"{name}: no call on the sweep or review")
+    for label, cap in (("sweep", sweep), ("review", review)):
+        for name in names:
+            if not cap.calls[name]:
+                continue
+            spec = specs[name]
+            reset = spec.reset or (lambda p, which: None)
+            a, kw, _o = max(cap.calls[name], key=lambda c: spec.size(c[0]))
+            p = spec.prep(a, kw)
+            key = f"{label}_{name}"
+            out["shapes"][key] = spec.work(p)[2]
+            reset(p, "kernel")
+            reset(p, "plain")
+            got = cs._tensors(spec.kernel(p))
+            want = cs._tensors(spec.plain(p))
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{label} {name}: kernel != plain")
+            out["ms"][key] = cs.cuda_ms(lambda: spec.kernel(p), args.reps,
+                                        setup=lambda: reset(p, "kernel"))
+            if args.per_group and name == "program" and label == "sweep":
+                for gi, g in enumerate(p["groups"]):
+                    out["ms"][f"{key}_group{gi}"] = cs.cuda_ms(
+                        lambda: program.program_eval_cuda(p["kernel"], [g]),
+                        args.reps, setup=lambda: reset(p, "kernel"))
+            del p
+    if "match" in names and sweep.calls["match"]:
+        # K1 at the sweep's shape on the seeded corpus whose selectors are
+        # live
+        shape = out["shapes"]["sweep_match"]
+        out["ms"]["live_selectors_match"] = cs.check_match_at_size(
+            shape["C"], shape["R"])["ms"]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
