@@ -75,6 +75,24 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      K9.  Then parity against the oracle at 6 x 240 under
      GK_JOIN_ASSERT=1, capped, uncapped, and uncapped after churn through
      the join delta path
+  9. the sharded sweep (parallel/mesh.py): both corpora of phases 3 and 8,
+     at widths 2 and 4 on the virtual mesh of the one card
+     (GK_VIRTUAL_DEVICES), and at up to 4 cards where more are visible.
+     At each width a cold and a warm forced full sweep, whose results,
+     totals, counts and [C, 1+K] first candidates must equal width 1's
+     bit for bit, K1, K9 and K4 launched once a shard, K7 once a shard
+     and its merge once a join plan; churn of d = 1 and 16 through the
+     delta path, delta_rows the dirty rows (with the readers of the key
+     groups they touch), delta_shards and K5's launches their owning
+     shards, the synthetic corpus's added pods in the padded tail of the
+     last slab, each d closed by a forced full sweep (K6 on the owning
+     shards) that must equal it.  Every K4 call (row_offset) and K7 merge
+     call of that run is held against its plain version and timed at its
+     largest call.  Then sharded_masks and sharded_violation_counts of
+     4,096 stored pods against compute_masks and its sums, and the
+     multi-process sweep: two processes of this script on gloo over
+     loopback, each with a 2-slot virtual mesh of the card, each equal to
+     its one-process sweep bit for bit
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -145,6 +163,13 @@ SPLIT_REVIEWS = 64
 REF_CHURN_D = (1, 16)
 REF_CHURN_SWEEPS = 5
 REF_PARITY = (6, 240)
+# the sharded sweep: mesh widths on the virtual mesh of the one card, churn
+# on its delta path, reviews of the sharded masks, and the time the two
+# processes of the multi-process sweep get
+MESH_WIDTHS = (2, 4)
+MESH_CHURN_D = (1, 16)
+MESH_REVIEWS = 4096
+MULTIHOST_TIMEOUT_S = 420
 
 
 def log(phase: str, **fields):
@@ -281,6 +306,7 @@ class Capture:
         ("driver", "delta_columns", "delta"),
         ("driver", "scatter_rows", "scatter"),
         ("joinkeys", "join_keys", "joinkeys"),
+        ("joinkeys", "merge_key_tables", "joinkeys_merge"),
         ("vexpr", "join_lookup", "joinlookup"),
     )
 
@@ -536,10 +562,12 @@ def cell_calls(cap: Capture) -> dict:
 
 
 def _reduction_work(p):
-    (mask, K), _kw = p
+    (mask, K, *offset), _kw = p
     C, R = mask.shape
     k = min(K, R)
-    return C * R + C * (1 + k) * 4, C * R, {"C": C, "R": R, "K": k}, None
+    return (C * R + C * (1 + k) * 4, C * R,
+            {"C": C, "R": R, "K": k, "row_offset": offset[0] if offset else 0},
+            None)
 
 
 def _match_work(p):
@@ -649,6 +677,22 @@ def _joinkeys_work(p):
             lambda: torch.unique(flat, return_counts=True))
 
 
+def _merge_work(p):
+    import torch
+
+    (uk, uc, vocab), _kw = p
+    N = uk.numel()
+    ok = (uk >= 0) & (uk < vocab) & (uc != 0)
+    keys, weights = uk[ok].long(), uc[ok]
+    counts = torch.zeros(max(vocab, 1), dtype=torch.int32, device=uk.device)
+    # bytes: the [N] tables read, the [N] merged table written;
+    # operations: the test and the atomic of an entry, one test a
+    # vocabulary id
+    return (16 * N, 2 * N + vocab,
+            {"N": N, "vocab": vocab, "valid_entries": int(keys.numel())},
+            lambda: counts.index_add_(0, keys, weights))
+
+
 def _joinlookup_work(p):
     import torch
 
@@ -704,7 +748,9 @@ def kernel_specs() -> dict:
             "gatekeeper_tpu/ops/driver.py:88",
             lambda p: reduction.packed_reduction_cuda(*p[0], **p[1]),
             lambda p: reduction.packed_reduction_plain(*p[0], **p[1]),
-            _reduction_work),
+            # the largest mask, a shard's (a row offset) before the first
+            _reduction_work,
+            size=lambda a: (a[0].numel(), len(a) > 2 and a[2] > 0)),
         "delta": Kernel(
             "gatekeeper_tpu_torch/kernels/delta.cu",
             "gatekeeper_tpu/ops/driver.py:3709",
@@ -722,6 +768,12 @@ def kernel_specs() -> dict:
             lambda p: joinkeys.join_keys_cuda(*p[0], **p[1]),
             lambda p: joinkeys.join_keys_plain(*p[0], **p[1]),
             _joinkeys_work, size=lambda a: a[3].numel()),
+        "joinkeys_merge": Kernel(
+            "gatekeeper_tpu_torch/kernels/joinkeys.cu",
+            "gatekeeper_tpu/ops/joinkernel.py:262",
+            lambda p: joinkeys.merge_key_tables_cuda(*p[0], **p[1]),
+            lambda p: joinkeys.merge_key_tables_plain(*p[0], **p[1]),
+            _merge_work, size=lambda a: a[0].numel()),
         "joinlookup": Kernel(
             "gatekeeper_tpu_torch/kernels/joinlookup.cu",
             "gatekeeper_tpu/ops/joinkernel.py:271",
@@ -1356,6 +1408,39 @@ class Churn:
         self.n += d
         return {"add": n_add, "modify": n_mod, "delete": n_del}
 
+    def add(self, n: int):
+        """Add n new pods."""
+        import copy
+
+        from gatekeeper_tpu_torch.util import synthetic as syn
+
+        for j, pod in enumerate(syn.make_pods(n, seed=self.seed + self.n,
+                                              violation_rate=0.5)):
+            pod["metadata"]["name"] = f"churn-{self.n}-{j}"
+            self.live[pod["metadata"]["name"]] = pod
+            for c in self.clients:
+                c.add_data(copy.deepcopy(pod))
+        self.pool.extend(f"churn-{self.n}-{j}" for j in range(n))
+        self.n += n
+
+    def grow(self, d: int) -> dict:
+        """Change d stored pods without freeing a row: ceil(d / 2) added,
+        the rest modified (as step does).  With no free row in the pack
+        the added pods take rows past its last one, in the padded tail."""
+        import copy
+
+        n_add = (d + 1) // 2
+        self.add(n_add)
+        for name in self.rng.sample(self.pool[:-n_add], d - n_add):
+            pod = copy.deepcopy(self.live[name])
+            pod["metadata"]["labels"] = next(
+                lb for lb in ({}, {"owner": "core"}, {"owner": "plat"})
+                if lb != pod["metadata"].get("labels"))
+            self.live[name] = pod
+            for c in self.clients:
+                c.add_data(copy.deepcopy(pod))
+        return {"add": n_add, "modify": d - n_add, "delete": 0}
+
 
 def churn_sweep(client, driver, pauses, d: int, ops: dict):
     """One capped sweep after a churn step -> (its record, results,
@@ -1797,6 +1882,354 @@ def ref_parity(n_templates: int, n_objects: int):
             "uncapped_stats": u_stats}
 
 
+def mesh_reference(client, driver, label: str) -> tuple:
+    """A full capped sweep at width 1, then WARM forced full ones whose
+    device stage is logged -> (results signature, totals, counts [C],
+    first candidates [C, K])."""
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    driver.set_mesh(True, width=1)
+    resp, totals = client.audit_capped(CAP)
+    _r, _o, _m, counts, topk = driver._audit_cache[1]
+    ref = (syn.audit_result_sig(resp.results()), totals, counts.copy(),
+           topk.copy())
+    stages = []
+    for _ in range(WARM):
+        force_full(driver)
+        resp, totals = client.audit_capped(CAP)
+        if not all(_equal_to(ref, resp, totals, driver).values()):
+            raise AssertionError(f"{label}: width 1 sweeps differ")
+        stages.append(driver.last_sweep_stats["device_ms"])
+    log("mesh_width_1", config=label, n=WARM,
+        median_device_ms=statistics.median(stages), device_ms=stages)
+    return ref
+
+
+def _equal_to(ref, resp, totals, driver) -> dict:
+    import numpy as np
+
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    _r, _o, _m, counts, topk = driver._audit_cache[1]
+    return {
+        "results": syn.audit_result_sig(resp.results()) == ref[0],
+        "totals": totals == ref[1],
+        "counts": bool(np.array_equal(counts, ref[2])),
+        "first_k": topk.shape == ref[3].shape
+        and bool(np.array_equal(topk, ref[3])),
+    }
+
+
+def mesh_sweeps(client, driver, ref, width: int, label: str,
+                plans: int = 0) -> list:
+    """A cold capped sweep at ``width`` (the slabs committed) and WARM
+    warm forced full ones (on the resident slabs), each equal to width 1
+    bit for bit: results, totals, counts and first candidates.  K1, K9
+    and K4 launch ``width`` times a sweep; with join plans K7 ``width``
+    times a plan and its merge once a plan."""
+    driver.set_mesh(True, width=width)
+    want = {"match": width, "program": width, "reduction": width}
+    if plans:
+        want.update(joinkeys=width * plans, joinkeys_merge=plans)
+    recs = []
+    for which in ("cold",) + ("warm",) * WARM:
+        if which == "warm":
+            force_full(driver)
+        before = dict(_dev().launches)
+        t0 = time.perf_counter()
+        resp, totals = client.audit_capped(CAP)
+        wall = time.perf_counter() - t0
+        st = dict(driver.last_sweep_stats)
+        got = {k: _dev().launches[k] - before[k] for k in want}
+        equal = _equal_to(ref, resp, totals, driver)
+        rec = {"config": label, "width": width, "sweep": which, "s": wall,
+               "launches": got, "equal_to_width_1": equal,
+               **{k: st.get(k) for k in (
+                   "pack_ms", "device_ms", "render_ms", "shards",
+                   "rows_per_shard", "padded_rows", "upload_bytes",
+                   "join_plans")}}
+        if not all(equal.values()) or got != want \
+                or st.get("shards") != width or "delta_rows" in st:
+            raise AssertionError(f"mesh sweep: {rec}, want {want}")
+        recs.append(rec)
+        log("mesh_sweep", **rec)
+    warm = [r for r in recs if r["sweep"] == "warm"]
+    log("mesh_warm_sweeps", config=label, width=width, n=len(warm),
+        median_s=statistics.median(r["s"] for r in warm),
+        median_stage_ms={k: statistics.median(r[k] for r in warm)
+                         for k in ("pack_ms", "device_ms", "render_ms")})
+    return recs
+
+
+def mesh_churn(client, driver, width: int, label: str, step,
+               tail: bool = False) -> list:
+    """For each d in MESH_CHURN_D, ``step(d)`` changes the store; the
+    sweep after it must take the delta path with delta_rows the dirty rows
+    (and, for join plans, the readers of the key groups they touch),
+    delta_shards their owning shards, K5 launched once on each.  With
+    ``tail`` the added objects must take rows in the padded tail of the
+    last slab (no free row: Churn.grow after fill_free).  Each d is closed
+    by a forced full sweep (K6 on the owning shards) that must equal
+    it."""
+    from gatekeeper_tpu_torch.parallel.mesh import owning_shards
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    recs = []
+    ap = driver._audit_pack
+    for d in MESH_CHURN_D:
+        n_before = ap.n_rows
+        ops = step(d)
+        # the pack synced ahead of the sweep: its dirty rows are the
+        # dispatch's, with the readers a join plan adds to them
+        driver._synced_side()
+        rows = set(ap.delta_dirty)
+        js = driver._join_state
+        if js is not None:
+            rows |= js.affected(ap, driver.interner, ap.delta_dirty)
+        shards = owning_shards(rows, ap.capacity, width)
+        new_rows = sorted(r for r in rows if r >= n_before)
+        # where the rows held before lie past the last slab's start (at
+        # full size), the new ones are in its padded tail
+        slab = -(-ap.capacity // width)
+        in_last_slab = n_before < slab * (width - 1) or \
+            owning_shards(new_rows, ap.capacity, width) == {width - 1}
+        before = dict(_dev().launches)
+        t0 = time.perf_counter()
+        resp, totals = client.audit_capped(CAP)
+        wall = time.perf_counter() - t0
+        st = dict(driver.last_sweep_stats)
+        k5 = _dev().launches["delta"] - before["delta"]
+        counts = driver._delta_state.counts.copy()
+        sig = syn.audit_result_sig(resp.results())
+        force_full(driver)
+        f_resp, f_totals = client.audit_capped(CAP)
+        f_st = dict(driver.last_sweep_stats)
+        equal = {
+            "totals": f_totals == totals,
+            "results": syn.audit_result_sig(f_resp.results()) == sig,
+            "counts": bool((driver._delta_state.counts == counts).all()),
+        }
+        rec = {"config": label, "width": width, "d": d, **ops, "s": wall,
+               "delta_rows": st.get("delta_rows"),
+               "delta_shards": st.get("delta_shards"),
+               "owning_shards": sorted(shards), "tail_rows": new_rows,
+               "delta_launches": k5, "device_ms": st.get("device_ms"),
+               "full_scatter_rows": f_st.get("scatter_rows"),
+               "full_scatter_shards": f_st.get("scatter_shards"),
+               "equal_to_full": equal}
+        if (st.get("delta_rows") != len(rows) or k5 != len(shards)
+                or st.get("delta_shards") != len(shards)
+                or not all(equal.values()) or "delta_rows" in f_st
+                or not f_st.get("scatter_rows")
+                or (tail and (len(new_rows) != ops["add"]
+                              or not in_last_slab))):
+            raise AssertionError(f"mesh churn: {rec}")
+        recs.append(rec)
+        log("mesh_churn", **rec)
+    return recs
+
+
+def fill_free(driver, churn) -> int:
+    """Add as many pods as the pack has free rows (rows of deleted
+    objects, which the next added objects take first) -> that count."""
+    driver._synced_side()
+    n = len(driver._audit_pack.free)
+    if n:
+        churn.add(n)
+        driver._synced_side()
+    if driver._audit_pack.free:
+        raise AssertionError("free rows left after filling them")
+    return n
+
+
+def _dev():
+    from gatekeeper_tpu_torch import device
+
+    return device
+
+
+def mesh_masks(driver, width: int) -> dict:
+    """sharded_masks and sharded_violation_counts of MESH_REVIEWS stored
+    objects at ``width`` against compute_masks on one device and its
+    mask sums."""
+    import itertools
+
+    import numpy as np
+
+    from gatekeeper_tpu_torch.engine.value import thaw
+    from gatekeeper_tpu_torch.parallel import mesh as pm
+
+    reviews = [
+        driver.target.make_audit_review(thaw(o), api, k, n, ns)
+        for o, api, k, n, ns in itertools.islice(
+            driver.store.iter_objects(), MESH_REVIEWS)
+    ]
+    mesh = pm.audit_mesh(width, driver.device)
+    _o, mask, rej = driver.compute_masks(reviews)
+    _o2, smask, srej = pm.sharded_masks(driver, reviews, mesh)
+    _o3, counts, rejects = pm.sharded_violation_counts(driver, reviews,
+                                                       mesh)
+    equal = {
+        "mask": bool(np.array_equal(mask, smask)),
+        "autoreject": bool(np.array_equal(rej, srej)),
+        "counts": bool(np.array_equal(counts, mask.sum(axis=1))),
+        "autoreject_counts": bool(np.array_equal(rejects, rej.sum(axis=1))),
+    }
+    if not all(equal.values()) or not mask.any():
+        raise AssertionError(f"sharded masks at width {width}: {equal}")
+    return {"width": width, "reviews": len(reviews), "equal": equal,
+            "candidates": int(mask.sum())}
+
+
+def multihost_worker(args) -> int:
+    """One process of the multi-process sweep (--multihost-worker RANK):
+    the synthetic store of the main path, built from its seed, swept by
+    parallel/multihost.py over gloo (this process's shards on the virtual
+    mesh of GK_VIRTUAL_DEVICES slots), then on one device; prints one
+    JSON line."""
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.parallel import multihost
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    rank = args.multihost_worker
+    multihost.init_distributed(args.coordinator, 2, rank)
+    try:
+        client = syn.build_driver(args.templates, args.pods, SEED)
+        driver = client.driver
+        K = driver._audit_topk(CAP)
+        gdev.reset_launches()
+        t0 = time.perf_counter()
+        _ordered, counts, topk = multihost.multihost_capped_sweep(driver, K)
+        sweep_s = time.perf_counter() - t0
+        launches = dict(gdev.launches)
+        _mesh, first, width = multihost.multihost_layout(driver.device)
+        driver.set_mesh(False)
+        _r, _o, _m, ref_counts, ref_topk = driver._audit_sweep(K)
+        equal = {
+            "counts": bool(np.array_equal(counts, ref_counts)),
+            "first_k": topk.shape == ref_topk.shape
+            and bool(np.array_equal(topk, ref_topk)),
+        }
+        print(json.dumps({
+            "rank": rank, "first_shard": first, "width": width,
+            "equal_to_one_process": equal, "sweep_s": sweep_s,
+            "candidates": int(counts.sum()), "launches": launches,
+            "digest": int(np.asarray(topk, np.int64).sum()),
+        }), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0 if all(equal.values()) else 1
+
+
+def multihost_phase(args) -> dict:
+    """Two processes on gloo over loopback, each with a 2-slot virtual mesh
+    of the card: each one's sweep must equal its one-process sweep bit for
+    bit, and the two must agree.  Both are stopped, whatever happens."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, GK_VIRTUAL_DEVICES="2")
+            env.pop("GK_MESH", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multihost-worker", str(rank), "--coordinator", coord,
+                 "--templates", str(args.templates),
+                 "--pods", str(args.pods)],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            ))
+        outs = [p.communicate(timeout=MULTIHOST_TIMEOUT_S)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multi-process rank {rank} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+        lines.append(json.loads(out.strip().splitlines()[-1]))
+    if lines[0]["digest"] != lines[1]["digest"] or \
+            lines[0]["candidates"] != lines[1]["candidates"]:
+        raise AssertionError(f"the two processes disagree: {lines}")
+    return {"seconds": time.perf_counter() - t0, "processes": lines}
+
+
+def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
+    """Phase 9's counted run: the synthetic and the referential corpus at
+    each width of MESH_WIDTHS on the virtual mesh of the one card (and at
+    up to 4 real cards where more are visible): sweep parity and delta
+    locality, every K4 (row_offset), K7 merge and K5 call recorded.  Then
+    the sharded masks and counts and the multi-process sweep.  -> (the
+    kernel rows, the counted run's launches)."""
+    import torch
+
+    from gatekeeper_tpu_torch.parallel import mesh as pm
+
+    gdev = _dev()
+    os.environ[pm.VIRTUAL_DEVICES_ENV] = str(max(MESH_WIDTHS))
+    log("mesh_setup", filled_free_rows=fill_free(driver, churn))
+    synth_ref = mesh_reference(client, driver, "synthetic")
+    ref_ref = mesh_reference(rclient, rdriver, "referential")
+    plans = len(rdriver._active_join_plans())
+    layouts = [("virtual", w) for w in MESH_WIDTHS]
+    if torch.cuda.device_count() > 1:
+        layouts.append(("cards", min(torch.cuda.device_count(), 4)))
+    # every mesh sweep's K4, K7 merge and K5 calls are recorded; the width
+    # 1 references between them are not
+    cap = Capture(names=("reduction", "joinkeys_merge", "delta"))
+    gdev.reset_launches()
+    with NoIR():
+        for devices, width in layouts:
+            if devices == "cards":
+                del os.environ[pm.VIRTUAL_DEVICES_ENV]
+            with cap:
+                mesh_sweeps(client, driver, synth_ref, width,
+                            f"synthetic/{devices}")
+                mesh_churn(client, driver, width, f"synthetic/{devices}",
+                           churn.grow, tail=True)
+            synth_ref = mesh_reference(client, driver, "synthetic")
+            with cap:
+                mesh_sweeps(rclient, rdriver, ref_ref, width,
+                            f"referential/{devices}", plans)
+                mesh_churn(rclient, rdriver, width,
+                           f"referential/{devices}", ref_churn.moving)
+            ref_ref = mesh_reference(rclient, rdriver, "referential")
+    launches = dict(gdev.launches)
+    os.environ[pm.VIRTUAL_DEVICES_ENV] = str(max(MESH_WIDTHS))
+    offsets = sorted({c[0][2] for c in cap.calls["reduction"]
+                      if len(c[0]) > 2})
+    # every recorded K4 is a shard's, with its row offset
+    if len(offsets) < 2 or offsets[0] != 0 or \
+            any(len(c[0]) < 3 for c in cap.calls["reduction"]):
+        raise AssertionError(f"K4 row offsets on the mesh: {offsets}")
+    log("mesh_launches", main_path=launches, row_offsets=offsets,
+        merge_calls=len(cap.calls["joinkeys_merge"]))
+    rows = check_kernels(cap, REPS, timed=("reduction", "joinkeys_merge"),
+                         phase="kernel_mesh")
+    del cap
+    for width in MESH_WIDTHS:
+        log("mesh_masks", **mesh_masks(driver, width))
+    log("multihost", **multihost_phase(args))
+    del os.environ[pm.VIRTUAL_DEVICES_ENV]
+    driver.set_mesh(False)
+    rdriver.set_mesh(False)
+    return rows, launches
+
+
 SPLIT_MODES = ("op_by_op", "k9")
 
 
@@ -1930,6 +2363,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ref-objects", type=int, default=100_000)
     ap.add_argument("--profile", action="store_true",
                     help="profile one warm sweep with torch.profiler")
+    ap.add_argument("--multihost-worker", type=int, default=None,
+                    metavar="RANK", help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(ROOT, "gatekeeper_tpu_torch")):
@@ -1941,6 +2377,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    if args.multihost_worker is not None:
+        return multihost_worker(args)
+    # phases 3-8 drive the single-device paths, on a machine of several
+    # cards too; phase 9 picks its mesh widths with set_mesh
+    os.environ["GK_MESH"] = "0"
     sys.path.insert(0, ROOT)
     from gatekeeper_tpu_torch import device as gdev
     from gatekeeper_tpu_torch.ops.driver import TorchDriver
@@ -2273,9 +2714,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     parity = ref_parity(*REF_PARITY)
     log("ref_parity", seconds=time.perf_counter() - t0, **parity)
+
+    # 9. the sharded sweep
+    t0 = time.perf_counter()
+    mesh_rows, mesh_launches = mesh_phase(args, client, driver, churn,
+                                          rclient, rdriver, ref_churn)
+    missing = [k for k in ("match", "program", "reduction", "delta",
+                           "scatter", "joinkeys", "joinkeys_merge",
+                           "joinlookup") if mesh_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded "
+                             f"sweep: {missing}")
+    merge_rows(kernel_rows, mesh_rows)
+    log("mesh", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
-                           + ref_launches[name])
+                           + ref_launches[name] + mesh_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

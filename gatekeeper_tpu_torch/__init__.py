@@ -7,6 +7,7 @@ kernels (kernels/*.cu).  It imports neither JAX nor gatekeeper_tpu.
 
   client/   constraint-framework Client and the Driver seam
   ops/      packing, the VExpr evaluator, the kernels' wrappers, TorchDriver
+  parallel/ the audit sweep sharded over a mesh of devices or processes
   device.py device selection and the kernels' build and loader
   convert.py packed host state -> tensors on a device
 """

@@ -8,7 +8,8 @@ numpy trees into tensors on a device, dtype for dtype; numeric columns and
 parameters stay float64.  The JAX package's packers build the same trees,
 so a test hands both implementations identical inputs through here; for
 the incremental audit it also carries the resident mask, the dirty-row
-slices of the pack and another implementation's DeltaState.
+slices of the pack and another implementation's DeltaState.  On a mesh
+(parallel/mesh.py) ``place`` puts a tree on each shard's device.
 """
 
 from __future__ import annotations
@@ -29,6 +30,23 @@ def state_from_numpy(tree, device):
         return {k: state_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(state_from_numpy(v, device) for v in tree)
+    return tree
+
+
+def place(tree, device):
+    """A tree of numpy arrays and tensors on ``device``: arrays are copied
+    there (state_from_numpy), tensors moved, and a tensor already on
+    ``device`` kept as it is, so shards that share a device share one
+    copy."""
+    device = torch.device(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, np.ndarray):
+        return state_from_numpy(tree, device)
+    if isinstance(tree, dict):
+        return {k: place(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, device) for v in tree)
     return tree
 
 

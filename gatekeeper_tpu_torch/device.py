@@ -14,6 +14,13 @@ loaded.
 
 Every wrapper counts its launches in ``launches`` (one per kernel launch,
 nowhere else), so a run can show that its path went through the kernels.
+A library may hold more than one launcher (K7's library holds its key
+table and the weighted merge of per-shard tables); each is counted under
+its own name.
+
+A launch runs inside ``torch.cuda.device`` of its tensors' device: the C
+launchers start their kernels on the CUDA runtime's current device, and on
+a mesh of several cards a shard's tensors are not on the current one.
 """
 
 from __future__ import annotations
@@ -41,8 +48,25 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: kernel name -> launches since the last reset_launches()
-launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+# launcher name -> (library, C launcher, its parameters, one letter each:
+# p pointer (or stream), i int, l 64-bit int); tests/test_torch_imports.py
+# checks them against the sources
+_SIGNATURES = {
+    "match": ("match", "gk_match_launch", "ppii" + "p" * 13 + "iii" + "ppp"),
+    "strpred": ("strpred", "gk_strpred_launch", "piipipplipp"),
+    "setcount": ("setcount", "gk_setcount_launch", "ppiipiiiiiipp"),
+    "reduction": ("reduction", "gk_packed_reduction_launch", "piiiiipp"),
+    "delta": ("delta", "gk_delta_launch", "piipippp"),
+    "scatter": ("scatter", "gk_scatter_launch", "pppiip"),
+    "joinkeys": ("joinkeys", "gk_joinkeys_launch", "pppiippiiipppp"),
+    "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiipppp"),
+    "joinlookup": ("joinlookup", "gk_joinlookup_launch", "ppipiipppiipp"),
+    "program": ("program", "gk_program_launch", "piipiiiip"),
+}
+LAUNCHERS = tuple(_SIGNATURES)
+
+#: launcher name -> launches since the last reset_launches()
+launches: Dict[str, int] = {name: 0 for name in LAUNCHERS}
 #: kernel name -> nvcc's stderr (ptxas register / shared-memory report)
 build_log: Dict[str, str] = {}
 #: wall seconds of the last build (0.0 when every library was current)
@@ -146,24 +170,9 @@ def _c_args(*kinds: str):
     return [table[k] for k in kinds]
 
 
-# the C launchers' parameters, one letter each: p pointer (or stream),
-# i int, l 64-bit int (tests/test_torch_imports.py checks them against
-# the sources)
-_SIGNATURES = {
-    "match": ("gk_match_launch", "ppii" + "p" * 13 + "iii" + "ppp"),
-    "strpred": ("gk_strpred_launch", "piipipplipp"),
-    "setcount": ("gk_setcount_launch", "ppiipiiiiiipp"),
-    "reduction": ("gk_packed_reduction_launch", "piiiipp"),
-    "delta": ("gk_delta_launch", "piipippp"),
-    "scatter": ("gk_scatter_launch", "pppiip"),
-    "joinkeys": ("gk_joinkeys_launch", "pppiippiiipppp"),
-    "joinlookup": ("gk_joinlookup_launch", "ppipiipppiipp"),
-    "program": ("gk_program_launch", "piipiiiip"),
-}
-
-
 def kernels() -> Dict[str, ctypes.CDLL]:
-    """The loaded kernel libraries, built on first use."""
+    """The loaded kernel libraries (library name -> CDLL), built on
+    first use."""
     global _libs
     if _libs is not None:
         return _libs
@@ -175,25 +184,27 @@ def kernels() -> Dict[str, ctypes.CDLL]:
             # must wait for it, and every later call returns above
             for name, path in build_kernels().items():
                 lib = ctypes.CDLL(path)
-                fn_name, sig = _SIGNATURES[name]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = _c_args(*sig)
-                fn.restype = ctypes.c_int
                 lib.gk_error_string.argtypes = [ctypes.c_int]
                 lib.gk_error_string.restype = ctypes.c_char_p
                 libs[name] = lib
+            for lib_name, fn_name, sig in _SIGNATURES.values():
+                fn = getattr(libs[lib_name], fn_name)
+                fn.argtypes = _c_args(*sig)
+                fn.restype = ctypes.c_int
             _libs = libs
     return _libs
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C launcher; raise on a refused launch, and
-    count the launch."""
-    lib = kernels()[name]
-    fn_name, sig = _SIGNATURES[name]
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call launcher ``name`` on ``device``, the device of the tensors it
+    launches on, made the CUDA runtime's current device for the call;
+    raise on a refused launch, and count the launch."""
+    lib_name, fn_name, sig = _SIGNATURES[name]
+    lib = kernels()[lib_name]
     if len(args) != len(sig):  # ctypes would pass extra ones unchecked
         raise TypeError(f"{fn_name} takes {len(sig)} arguments, got {len(args)}")
-    rc = getattr(lib, fn_name)(*args)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         msg = lib.gk_error_string(rc).decode()
         raise RuntimeError(f"kernel {name} launch failed: {msg} ({rc})")
@@ -206,6 +217,28 @@ def ptr(t: torch.Tensor) -> int:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pinned_empty(nbytes: int) -> torch.Tensor:
+    """A page-locked uint8 host buffer, the source of an asynchronous
+    copy to the card.  PyTorch's host allocator keeps a block whose copy
+    is still in flight until that copy is done, so a buffer dropped after
+    ``.to(dev, non_blocking=True)`` is never rewritten under the copy; a
+    caller that keeps and refills one must wait for it itself."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+def upload(array, dev: torch.device) -> torch.Tensor:
+    """A copy of the host array ``array`` on ``dev``, staged through
+    pinned memory and not waited for: work queued after it on ``dev``'s
+    stream runs after the copy."""
+    import numpy as np
+
+    a = np.ascontiguousarray(array)
+    host = pinned_empty(a.nbytes)
+    host.numpy()[:] = a.reshape(-1).view(np.uint8)
+    return host.view(torch.from_numpy(a[:0]).dtype).view(a.shape).to(
+        dev, non_blocking=True)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

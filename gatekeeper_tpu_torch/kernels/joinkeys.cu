@@ -31,6 +31,17 @@
 // a scan of the 32 warp totals gives each nonzero count its rank, as K4
 // ranks rows; it writes (id, count) at that rank.  Ids outside [0, V) are
 // not counted: the wrapper's caller guarantees there are none.
+//
+// The merge (gk_joinkeys_merge_launch).  On a mesh each shard builds its
+// slab's table with the launcher above; the tables of every shard,
+// concatenated on one device ([N] = W tables), merge into the table of the
+// whole row axis.  This replaces the all_gather and second
+// compact_key_table(keys, counts) of gatekeeper_tpu/ops/joinkernel.py
+// provider_key_table (:262-267), bit-equal to it for shard tables (a valid
+// key's count is at least 1).  Bound: bytes, the [N] tables read and the
+// [N] merged table written, 16 N bytes, and the [V] counts.  Design: the
+// same count array, a thread per entry adding its count (not 1) with an
+// integer atomic, then the compact pass above.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +80,19 @@ __global__ void count_kernel(const uint8_t* __restrict__ valid,
     for (int i = 0; i < j && !seen; ++i) seen = row[i] == k && (!m || m[i]);
     if (!seen) atomicAdd(counts + k, 1);
   }
+}
+
+__global__ void merge_count_kernel(const int* __restrict__ in_uk,
+                                   const int* __restrict__ in_uc, int N, int V,
+                                   int* __restrict__ counts,
+                                   int* __restrict__ uk, int* __restrict__ uc) {
+  const int i = blockIdx.x * ROW_THREADS + threadIdx.x;
+  if (i >= N) return;
+  uk[i] = KEY_INVALID;
+  uc[i] = 0;
+  const int k = in_uk[i];
+  const int w = in_uc[i];
+  if (k >= 0 && k < V && w != 0) atomicAdd(counts + k, w);
 }
 
 __global__ void compact_kernel(const int* __restrict__ counts, int V,
@@ -152,6 +176,30 @@ extern "C" int gk_joinkeys_launch(const uint8_t* valid, const int* kind,
     if (e != cudaSuccess) return e;
   }
   if (V > 0 && R > 0 && S > 0) {
+    compact_kernel<<<1, SCAN_THREADS, 0, s>>>(counts, V, uk, uc);
+  }
+  return cudaGetLastError();
+}
+
+// in_uk, in_uc: int32 [N], the shards' tables one after another; counts:
+// int32 scratch of at least max(V, 1) entries; uk, uc: int32 [N], the
+// merged table.
+extern "C" int gk_joinkeys_merge_launch(const int* in_uk, const int* in_uc,
+                                        int N, int V, int* counts, int* uk,
+                                        int* uc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (V > 0) {
+    const cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)V * sizeof(int), s);
+    if (e != cudaSuccess) return e;
+  }
+  if (N > 0) {
+    const unsigned blocks = (unsigned)((N + ROW_THREADS - 1) / ROW_THREADS);
+    merge_count_kernel<<<blocks, ROW_THREADS, 0, s>>>(in_uk, in_uc, N, V,
+                                                      counts, uk, uc);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (V > 0 && N > 0) {
     compact_kernel<<<1, SCAN_THREADS, 0, s>>>(counts, V, uk, uc);
   }
   return cudaGetLastError();

@@ -1,10 +1,15 @@
 // K4: the packed audit reduction, [C, R] bool -> [C, 1+k] int32.
 //
 //   out[c, 0]     = number of true cells in row c
-//   out[c, 1..k]  = the first k true columns of row c, ascending, -1 padded
+//   out[c, 1..k]  = the first k true columns of row c, ascending, plus
+//                   row_offset, -1 padded
 //
 // Replaces gatekeeper_tpu/ops/driver.py _packed_reduction, which on the TPU
 // OR-ed W=64 blocks and ran two narrow stable top_ks.  Bit-equal to it.
+// row_offset is 0 on one device; on a mesh each shard reduces its row slab
+// and writes global rows, shard * slab + column, as the JAX package's
+// shard_map bodies do after the reduction (ops/driver.py
+// _fused_audit_mesh_fn, parallel/multihost.py multihost_capped_sweep).
 //
 // What bounds it: the count needs the whole row, so every mask byte is read
 // once (C*R bytes; about 134 MB at C=1024, R=131072, about 40 us at
@@ -28,6 +33,7 @@ constexpr int BYTES = 16;  // per thread per chunk
 
 __global__ void packed_reduction_kernel(const uint8_t* __restrict__ mask,
                                         int R, int k, int vec,
+                                        int row_offset,
                                         int* __restrict__ out) {
   __shared__ int warp_sum[WARPS];
   const int c = blockIdx.x;
@@ -75,7 +81,7 @@ __global__ void packed_reduction_kernel(const uint8_t* __restrict__ mask,
     __syncthreads();
     int rank = base + (wid ? warp_sum[wid - 1] : 0) + incl - local;
     for (unsigned b = bits; b && rank < k; b &= b - 1) {
-      o[1 + rank] = beg + __ffs(b) - 1;
+      o[1 + rank] = row_offset + beg + __ffs(b) - 1;
       ++rank;
     }
     base += warp_sum[WARPS - 1];
@@ -91,10 +97,10 @@ extern "C" const char* gk_error_string(int code) {
 }
 
 extern "C" int gk_packed_reduction_launch(const uint8_t* mask, int C, int R,
-                                          int k, int vec, int* out,
-                                          void* stream) {
-  packed_reduction_kernel<<<C, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(mask, R, k,
-                                                                 vec, out);
+                                          int k, int vec, int row_offset,
+                                          int* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  packed_reduction_kernel<<<C, THREADS, 0, s>>>(mask, R, k, vec, row_offset,
+                                                out);
   return cudaGetLastError();
 }

@@ -40,8 +40,8 @@ def delta_columns_cuda(mask: torch.Tensor, idx: torch.Tensor,
     if C == 0 or w == 0:
         return out
     _dev.launch(
-        "delta", _dev.ptr(mask), C, R, _dev.ptr(idx), w, _dev.ptr(new),
-        _dev.ptr(out), _dev.stream(mask),
+        "delta", dev, _dev.ptr(mask), C, R, _dev.ptr(idx), w,
+        _dev.ptr(new), _dev.ptr(out), _dev.stream(mask),
     )
     return out
 

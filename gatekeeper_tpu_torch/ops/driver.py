@@ -22,7 +22,7 @@ semantics kept — the group-major padded constraint layout, review-mode
 evaluation (join nodes resolve to their polarity default), masks gathered
 through ``crow``, the capped render and its "exact"/"resources" totals —
 and its serving machinery left out: every review evaluates on the device,
-with no tier routing, request memo, circuit breaker, mesh or compile cache.
+with no tier routing, request memo, circuit breaker or compile cache.
 
 Audits are incremental, as in TpuDriver: a full sweep keeps its [C, R]
 mask resident and rebases the host-side DeltaState (ops/deltasweep.py);
@@ -40,12 +40,25 @@ group its churn touched, against the index's tables ('tables' mode); every
 JoinCmp lookup is K8.  Flagged cells of a join-safe template render against
 a pruned inventory holding only their key groups' provider rows.  Left out:
 the join metrics and route ledger, and the index in snapshots.
+
+Audit sweeps shard the resource axis over a mesh of devices when one is
+visible (parallel/mesh.py; GK_MESH, set_mesh): the resident inventory lives
+in contiguous row slabs, one a shard, committed once per pack layout and
+patched by K6 on the owning shards only; each shard runs K1 -> K9 -> K4
+(K4 writing global rows) on its slab, each join plan's table is K7 per
+shard and K7's merge, and the host merges the [W, C, 1+K'] reductions.  A
+delta sweep evaluates its dirty rows on the mesh's first device and K5
+gathers their before-columns on their owning shards.  compute_masks and
+review_batch stay on one device, as in TpuDriver.  Left out: the mesh's
+metrics and flight-recorder events, and the circuit breaker that a stalled
+dispatch trips there (a stall degrades the mesh and raises).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -64,6 +77,18 @@ from ..convert import (
     state_from_numpy,
     take_rows,
     tree_nbytes,
+)
+from ..parallel.mesh import (
+    DISPATCH_LOCK,
+    MeshDispatchStall,
+    ShardedMask,
+    audit_mesh,
+    maybe_audit_mesh,
+    owning_shards,
+    replicate_tree,
+    shard_review_side,
+    slab_rows,
+    visible_devices,
 )
 from ..device import select_device
 from ..target.match import constraint_matches, needs_autoreject
@@ -116,9 +141,36 @@ class TorchDriver(InterpDriver):
     DELTA_ROW_COLS_MAX = 8192
 
     def __init__(self, target: Optional[K8sValidationTarget] = None,
-                 device=None):
+                 device=None, mesh_watchdog_s: Optional[float] = None):
         super().__init__(target)
         self.device = select_device(device)
+        # several devices: the audit sweep's row axis sharded over a mesh
+        # (parallel/mesh.py).  GK_MESH=0 keeps the single-device path,
+        # GK_MESH=1 (the default) meshes every visible device, GK_MESH=<n>
+        # for n >= 2 pins the mesh to the first n; the visible devices are
+        # visible_devices()'s (the cards, or GK_VIRTUAL_DEVICES slots of
+        # one device).  Mutate via set_mesh(), which invalidates every
+        # cache keyed on the topology.
+        mesh_env = os.environ.get("GK_MESH", "1")
+        try:
+            width = int(mesh_env)
+        except ValueError:
+            width = -1
+        if width < 0:
+            raise ValueError(
+                f"GK_MESH={mesh_env!r} is not a non-negative integer"
+            )
+        if width > 1 and width > len(visible_devices(self.device)):
+            raise ValueError(
+                f"GK_MESH={mesh_env} exceeds visible devices "
+                f"({len(visible_devices(self.device))})"
+            )
+        self.mesh_enabled = mesh_env != "0"
+        self.mesh_width: Optional[int] = width if width > 1 else None
+        self._mesh_cache: Optional[tuple] = None
+        # a mesh dispatch that runs past this many seconds is written off
+        # (MeshDispatchStall) and the mesh narrowed; None or 0: no watchdog
+        self.mesh_watchdog_s = mesh_watchdog_s
         # eager native build/load: the g++ compile happens here, not
         # inside the first review
         from ..native import load as _load_native
@@ -135,9 +187,11 @@ class TorchDriver(InterpDriver):
         self._ordered_cache = None
         # resident incremental audit packing (ops/auditpack.py) and its
         # device copy: (layout_gen, (rv, cols)), patched in place by the
-        # row scatter (K6) and re-uploaded only when the layout changed
+        # row scatter (K6) and re-uploaded only when the layout changed;
+        # under a mesh the slabs, (layout_gen, mesh, [(rv, cols)])
         self._audit_pack = AuditPackCache()
         self._audit_dev = None
+        self._audit_dev_mesh = None
         # the last full sweep, served again while neither the inventory
         # nor the constraint side changed: (key, sweep, host mask or None)
         self._audit_cache = None
@@ -205,6 +259,7 @@ class TorchDriver(InterpDriver):
             self._ordered_cache = None
             self._audit_pack = AuditPackCache()
             self._audit_dev = None  # layout gens restart with the new pack
+            self._audit_dev_mesh = None
             self._audit_cache = None
             self._delta_state = None
             self._join_state = None
@@ -212,6 +267,113 @@ class TorchDriver(InterpDriver):
             self._bound_plans.clear()
             self._bound_plans_epoch = -1
             self._cs_epoch += 1
+
+    # ---- the mesh (parallel/mesh.py) ---------------------------------------
+
+    def _mesh(self):
+        """The audit sweep's mesh: every visible device (or the pinned
+        mesh_width), data-parallel on the resource axis.  None on one
+        device, at width 1, or when mesh_enabled is off."""
+        if not self.mesh_enabled:
+            return None
+        if self._mesh_cache is None:
+            if self.mesh_width is not None:
+                mesh = (audit_mesh(self.mesh_width, self.device)
+                        if self.mesh_width > 1 else None)
+            else:
+                mesh = maybe_audit_mesh(self.device)
+            self._mesh_cache = (mesh,)
+        return self._mesh_cache[0]
+
+    def set_mesh(self, enabled: bool, width: Optional[int] = None):
+        """Switch the mesh topology (on/off, or a pinned device count) and
+        invalidate every cache keyed on it: the mesh itself, the resident
+        audit slabs, the sweep cache and the delta-sweep basis (its
+        resident mask lies in the old topology's slabs).  width=None uses
+        every visible device; width=1 forces the single-device path even
+        when enabled.  A width past visible_devices() is refused."""
+        n = len(visible_devices(self.device))
+        if enabled and width is not None and width > n:
+            raise ValueError(f"mesh width {width} exceeds visible devices "
+                             f"({n})")
+        with self._lock:
+            self.mesh_enabled = bool(enabled)
+            self.mesh_width = width
+            self._mesh_cache = None
+            self._audit_dev = None
+            self._audit_dev_mesh = None
+            self._audit_cache = None
+            self._delta_state = None
+
+    def mesh_layout(self) -> int:
+        """The row-sharding width serving audit sweeps: the active mesh's
+        device count, 1 on the single-device path.  A delta basis stamped
+        with another width is refused (_try_delta)."""
+        mesh = self._mesh()
+        return 1 if mesh is None else int(mesh.devices.size)
+
+    def _guarded_mesh_dispatch(self, mesh, thunk):
+        """Run one mesh dispatch (every shard's launches) under the
+        dispatch gate, with the stall watchdog when mesh_watchdog_s is
+        set: then the guarded dispatch runs on a worker thread the caller
+        joins with the budget; a timeout (the gate never freed, or the
+        dispatch itself wedged) revokes the gate's generation, so
+        narrower dispatches can proceed past the wedged holder, narrows
+        the mesh (degrade_mesh) and raises MeshDispatchStall.  An
+        abandoned worker keeps its operand tensors until its dispatch
+        returns."""
+        timeout = self.mesh_watchdog_s or 0.0
+        if timeout <= 0:
+            with DISPATCH_LOCK:
+                return thunk()
+
+        def _stall(where: str) -> MeshDispatchStall:
+            DISPATCH_LOCK.revoke()
+            log.warning("mesh dispatch watchdog: %s exceeded %.3fs at "
+                        "width %d", where, timeout, mesh.devices.size)
+            self.degrade_mesh()
+            return MeshDispatchStall(
+                f"mesh dispatch {where} exceeded the {timeout:.3f}s "
+                f"watchdog budget"
+            )
+
+        token = DISPATCH_LOCK.acquire(timeout=timeout)
+        if token is None:
+            raise _stall("gate wait")  # a previous dispatch holds the gate
+        done = threading.Event()
+        box: dict = {}
+
+        def run():
+            try:
+                box["out"] = thunk()
+            except BaseException as e:  # surfaced on the caller's side
+                box["err"] = e
+            finally:
+                done.set()
+                # released from the worker: a late (post-revoke) release
+                # of an abandoned generation is harmless by design
+                DISPATCH_LOCK.release(token)
+
+        threading.Thread(target=run, name="gk-mesh-dispatch",
+                         daemon=True).start()
+        if not done.wait(timeout):
+            raise _stall("dispatch")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def degrade_mesh(self) -> int:
+        """Re-shard the audit sweep one step narrower after a stalled
+        dispatch (_guarded_mesh_dispatch): width w -> w // 2, bottoming
+        out at the single-device path.  set_mesh drops every topology-keyed cache, the delta basis
+        included, so the next sweep is one full sweep that rebases the
+        incremental state at the new width.  -> the new width."""
+        width = self.mesh_layout()
+        new = width // 2 if width // 2 >= 2 else 1
+        self.set_mesh(True, width=new)
+        log.warning("mesh degraded after a dispatch stall: width %d -> %d",
+                    width, new)
+        return new
 
     # ---- constraint side --------------------------------------------------
 
@@ -284,24 +446,26 @@ class TorchDriver(InterpDriver):
         self.side_stats["pack_ms"] += (time.perf_counter() - t0) * 1e3
         return side
 
-    def _constraint_device(self, side):
-        """The constraint side on the device, cached on (epoch, vocab):
-        (match arrays, K1's constraint records, group params)."""
+    def _constraint_device(self, side, device=None):
+        """The constraint side on ``device`` (default the driver's), cached
+        on (epoch, vocab) and placed once per distinct device: (match
+        arrays, K1's constraint records, group params)."""
+        device = self.device if device is None else torch.device(device)
         key = self._cs_cache[0]
         cache = self._cs_device_cache
-        if cache is not None and cache[0] == key:
-            return cache[1]
+        if cache is None or cache[0] != key:
+            cache = self._cs_device_cache = (key, {})
+        if device in cache[1]:
+            return cache[1][device]
         t0 = time.perf_counter()
         _ordered, cp, groups, _specs, _crow = side
-        cs = state_from_numpy(cp.arrays, self.device)
-        records = (
-            constraint_records(cs) if self.device.type == "cuda" else None
-        )
+        cs = state_from_numpy(cp.arrays, device)
+        records = constraint_records(cs) if device.type == "cuda" else None
         gp = group_params_from_numpy(
-            [packed for *_s, packed in groups], self.device
+            [packed for *_s, packed in groups], device
         )
         placed = (cs, records, gp)
-        self._cs_device_cache = (key, placed)
+        cache[1][device] = placed
         self.side_stats["uploads"] += 1
         self.side_stats["upload_ms"] += (time.perf_counter() - t0) * 1e3
         return placed
@@ -344,8 +508,9 @@ class TorchDriver(InterpDriver):
                 for spec in prog.column_specs
                 if spec.kind != "keyset"
             }
+            # the evaluation's device: a mesh shard's, not the driver's
             env = EvalEnv(
-                prog_cols, params, elems, tables, keysets, B, R, self.device
+                prog_cols, params, elems, tables, keysets, B, R, mask.device
             )
             if pidx and prog.join_plans:
                 from .joinkernel import JoinBinding
@@ -361,20 +526,25 @@ class TorchDriver(InterpDriver):
         program_eval(mask, bound)
         return mask, autoreject
 
-    def compute_masks(self, reviews: List[dict]):
-        """-> (ordered constraints, candidate mask [C, rows], autoreject
-        mask [C, rows]) as numpy bool arrays, rows the bucketed review
-        count, in sorted constraint order (pad block rows dropped)."""
+    def _review_pack(self, reviews: List[dict]):
+        """Pack ``reviews`` for an evaluation -> (side, review arrays,
+        columns, rows), rows the bucketed review count."""
         side = self._constraint_side()
         rp = pack_reviews(reviews, self.interner, self.store.cached_namespace)
         rows = len(rp.arrays["valid"])
         cols = extract_columns(reviews, side[3], self.interner, rows)
         # row packing may have interned new strings: the side re-packs
         # (its predicate tables are vocab-sized)
-        side = self._constraint_side()
+        return self._constraint_side(), rp.arrays, cols, rows
+
+    def compute_masks(self, reviews: List[dict]):
+        """-> (ordered constraints, candidate mask [C, rows], autoreject
+        mask [C, rows]) as numpy bool arrays, rows the bucketed review
+        count, in sorted constraint order (pad block rows dropped)."""
+        side, rv, cols, rows = self._review_pack(reviews)
         ordered, _cp, _groups, _specs, crow = side
         placed = self._constraint_device(side)
-        rv_d = state_from_numpy(rp.arrays, self.device)
+        rv_d = state_from_numpy(rv, self.device)
         cols_d = state_from_numpy(cols, self.device)
         mask, autoreject = self._eval(side, rv_d, cols_d, placed)
         both = torch.cat([mask, autoreject], dim=0).cpu().numpy()
@@ -411,16 +581,16 @@ class TorchDriver(InterpDriver):
         vocab = self.interner.snapshot_size()
         return tuple({"kind_id": k, "vocab": vocab} for k in kind_ids)
 
-    def _join_delta_tables(self) -> Optional[tuple]:
-        """'tables'-mode join arguments from the host join index, on the
-        device: per plan its (uk, uc) tables and the kind id
-        JoinCmp.exclude_self needs."""
+    def _join_delta_tables(self, device=None) -> Optional[tuple]:
+        """'tables'-mode join arguments from the host join index, on
+        ``device`` (default the driver's): per plan its (uk, uc) tables
+        and the kind id JoinCmp.exclude_self needs."""
         js = self._join_state
         if js is None or not js.built:
             return None
         out = []
         for p, tab in zip(self._active_join_plans(), js.delta_tables()):
-            tab = state_from_numpy(tab, self.device)
+            tab = state_from_numpy(tab, device or self.device)
             tab["kind_id"] = self.interner.intern(p.remote_kind)
             out.append(tab)
         return tuple(out)
@@ -809,6 +979,14 @@ class TorchDriver(InterpDriver):
             k *= 2
         return min(k, 4096)
 
+    def _synced_side(self):
+        """Bring the resident audit pack current with the store -> the
+        constraint side aligned with it (re-packed if the pack's rows
+        interned new strings: its predicate tables are vocab-sized)."""
+        side = self._constraint_side()
+        self._audit_pack.sync(self, side[3])
+        return self._constraint_side()
+
     def _audit_device_inputs(self):
         """The resident audit pack on the device -> ((rv, cols), upload
         stats).  A full upload only when the pack's layout changed
@@ -817,6 +995,10 @@ class TorchDriver(InterpDriver):
         so the bytes moved follow the churn, not the inventory."""
         ap = self._audit_pack
         dirty = ap.take_dirty()
+        if dirty:
+            # the dirty set is consumed here: the mesh's slabs can no
+            # longer patch themselves and are committed anew on next use
+            self._audit_dev_mesh = None
         cache = self._audit_dev
         if cache is None or cache[0] != ap.layout_gen:
             tree = (ap.rp, ap.cols)
@@ -838,6 +1020,92 @@ class TorchDriver(InterpDriver):
             "scatter_ms": (time.perf_counter() - t0) * 1e3,
         }
 
+    def _audit_device_inputs_mesh(self, mesh):
+        """The resident audit pack in row slabs on the mesh -> ([(rv,
+        cols)] one a shard, upload stats).  The padded slabs are committed
+        once per pack layout (pipelined_shard_commit); later the rows
+        dirtied since the last full sweep are patched by K6 on their
+        owning shards only, at slab-local rows, and every other slab sees
+        no traffic."""
+        ap = self._audit_pack
+        dirty = ap.take_dirty()
+        if dirty:
+            self._audit_dev = None  # consumed here: the twin re-uploads
+        cache = self._audit_dev_mesh
+        if cache is None or cache[0] != ap.layout_gen or cache[1] is not mesh:
+            shards, _target = shard_review_side(
+                mesh, ap.capacity, ap.rp, ap.cols
+            )
+            # the mesh object rides in the cache: identity is liveness
+            self._audit_dev_mesh = (ap.layout_gen, mesh, shards)
+            return shards, {
+                "upload_bytes": float(tree_nbytes((ap.rp, ap.cols))),
+                "scatter_rows": 0.0, "scatter_ms": 0.0,
+            }
+        shards = cache[2]
+        if not dirty:
+            return shards, {"upload_bytes": 0.0, "scatter_rows": 0.0,
+                            "scatter_ms": 0.0}
+        t0 = time.perf_counter()
+        rows = np.fromiter(sorted(dirty), np.int64, len(dirty))
+        _target, slab = slab_rows(ap.capacity, mesh.devices.size)
+        owner = rows // slab
+        nbytes = 0
+        for shard in np.unique(owner):
+            mine = rows[owner == shard]
+            host_rows = take_rows((ap.rp, ap.cols), mine)
+            scatter_rows(shards[shard], mine - shard * slab, host_rows)
+            nbytes += tree_nbytes(host_rows)
+        return shards, {
+            "upload_bytes": float(nbytes),
+            "scatter_rows": float(len(rows)),
+            "scatter_ms": (time.perf_counter() - t0) * 1e3,
+            "scatter_shards": float(len(np.unique(owner))),
+        }
+
+    def _mesh_join_tables(self, mesh, shards, jargs) -> list:
+        """Each join plan's key table of the whole row axis, from the
+        shards' slabs: K7 on every shard, K7's merge on the first shard's
+        device (joinkernel.provider_key_table under a mesh), then placed
+        once on each distinct device -> one 'tables'-mode ``joins`` tuple
+        a shard."""
+        from .joinkernel import provider_key_table
+
+        per_shard: List[list] = [[] for _ in shards]
+        rvs = [rv for rv, _cols in shards]
+        colss = [cols for _rv, cols in shards]
+        for plan, arg in zip(self._active_join_plans(), jargs):
+            uk, uc = provider_key_table(
+                plan, arg["kind_id"], rvs, colss, torch, axis_name="data",
+                vocab=arg["vocab"],
+            )
+            placed = replicate_tree(mesh, {"uk": uk, "uc": uc})
+            for mine, tab in zip(per_shard, placed):
+                mine.append({**tab, "kind_id": arg["kind_id"]})
+        return [tuple(mine) for mine in per_shard]
+
+    def _sweep_shards(self, side, mesh, shards, K: int, jargs=None,
+                      first: int = 0):
+        """Every shard's full-sweep evaluation and capped reduction ->
+        (packed [n, C_total, 1+K'] int32 on the host, the shards' masks).
+        Shard i of this mesh holds global row slab ``first + i`` (a
+        process of a multi-process sweep holds its own): its K4 writes
+        global rows, slab * (first + i) + column, and K' = min(K, slab).
+        Every shard's launches are queued before any result is read."""
+        slab = int(shards[0][0]["valid"].shape[0])
+        joins = ([None] * len(shards) if jargs is None
+                 else self._mesh_join_tables(mesh, shards, jargs))
+        masks, reds = [], []
+        for i, ((rv, cols), dev, jt) in enumerate(
+                zip(shards, mesh.devices, joins)):
+            placed = self._constraint_device(side, dev)
+            mask, _autoreject = self._eval(side, rv, cols, placed,
+                                           join_mode="tables", joins=jt)
+            masks.append(mask)
+            reds.append(packed_reduction(mask, K, (first + i) * slab))
+        packed = np.stack([r.cpu().numpy() for r in reds])
+        return packed, masks
+
     def _audit_sweep(self, K: int, reuse_any_k: bool = False):
         """One full device sweep over the resident audit pack ->
         (reviews, ordered, mask_src MaskSource of the resident [C, R']
@@ -856,10 +1124,8 @@ class TorchDriver(InterpDriver):
                 }
                 return self._audit_cache[1]
         t0 = time.perf_counter()
-        side = self._constraint_side()
+        side = self._synced_side()
         ap = self._audit_pack
-        ap.sync(self, side[3])
-        side = self._constraint_side()  # re-packs if the vocab grew
         if ap.n_rows == 0:
             return None
         ordered, _cp, _groups, _specs, crow = side
@@ -870,16 +1136,31 @@ class TorchDriver(InterpDriver):
         # join verdicts, never the review mode's defaults
         self._ensure_join_state()
         jargs = self._join_trace_args()
-        placed = self._constraint_device(side)
-        (rv_d, cols_d), upload = self._audit_device_inputs()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        mask, _autoreject = self._eval(side, rv_d, cols_d, placed,
-                                       join_mode="trace", joins=jargs)
-        # crow folds the group-major pad rows out: all host-side state is
-        # per ordered constraint
-        packed = packed_reduction(mask, K).cpu().numpy()[crow]
+        mesh = self._mesh()
+        if mesh is None:
+            placed = self._constraint_device(side)
+            (rv_d, cols_d), upload = self._audit_device_inputs()
+            _synchronize([self.device])
+            t1 = time.perf_counter()
+            mask, _autoreject = self._eval(side, rv_d, cols_d, placed,
+                                           join_mode="trace", joins=jargs)
+            # crow folds the group-major pad rows out: all host-side
+            # state is per ordered constraint
+            packed = packed_reduction(mask, K).cpu().numpy()[crow]
+        else:
+            shards, upload = self._audit_device_inputs_mesh(mesh)
+            for dev in mesh.distinct():
+                self._constraint_device(side, dev)
+            _synchronize(mesh.distinct())
+            t1 = time.perf_counter()
+            packed_all, masks = self._guarded_mesh_dispatch(
+                mesh, lambda: self._sweep_shards(side, mesh, shards, K,
+                                                 jargs))
+            # the width one device gives, min(K, capacity): the merged
+            # result equals the single-device reduction bit for bit
+            packed = _merge_sharded_packed(
+                packed_all, min(K, ap.capacity))[crow]
+            mask = ShardedMask(masks)
         t2 = time.perf_counter()
         counts = packed[:, 0].astype(np.int64)
         # resolved, never lazy: K6 patches the inputs in place, so a mask
@@ -887,10 +1168,12 @@ class TorchDriver(InterpDriver):
         mask_src = MaskSource.resolved(mask)
         sweep = (ap.reviews, ordered, mask_src, counts, packed[:, 1:])
         self._audit_cache = (key, sweep, None)
+        # the mesh_width stamp pins the basis to the sharding that made
+        # it: _try_delta refuses a basis of another width
         self._delta_state = DeltaState(
             counts, packed[:, 1:], K, mask_src, cs_epoch=self._cs_epoch,
             layout_gen=ap.layout_gen, store_epoch=self.store.epoch,
-            crow=crow,
+            crow=crow, mesh_width=self.mesh_layout(),
         )
         # the full sweep's inputs already hold every pending change; drop
         # the delta channel so those rows aren't applied again
@@ -903,6 +1186,9 @@ class TorchDriver(InterpDriver):
             "padded_rows": float(mask.shape[1]),
             "mask_rows": float(mask.shape[0]),
             "cells": float(len(ordered) * ap.n_rows),
+            "shards": float(self.mesh_layout()),
+            "rows_per_shard": float(
+                slab_rows(ap.capacity, self.mesh_layout())[1]),
             **upload,
         }
         if jargs is not None:
@@ -921,11 +1207,17 @@ class TorchDriver(InterpDriver):
         st = self._delta_state
         if st is None or st.cs_epoch != self._cs_epoch:
             return None
+        if st.mesh_width != self.mesh_layout():
+            # a basis from another sharding (mesh_enabled or the mesh
+            # cache poked directly, not through set_mesh): its mask lies
+            # in the old topology's slabs, so rebase via a full sweep; the
+            # sweep cache rides the same topology and goes too
+            self._delta_state = None
+            self._audit_cache = None
+            return None
         t0 = time.perf_counter()
-        side = self._constraint_side()
+        side = self._synced_side()
         ap = self._audit_pack
-        ap.sync(self, side[3])
-        side = self._constraint_side()  # re-packs if the vocab grew
         ordered = side[0]
         if st.layout_gen != ap.layout_gen or ap.n_rows == 0:
             return None
@@ -982,17 +1274,38 @@ class TorchDriver(InterpDriver):
             return None
 
     def _delta_eval(self, side, placed, mask, rows_pad, rv_slice,
-                    cols_slice, joins=None):
+                    cols_slice, joins=None, device=None) -> torch.Tensor:
         """The dirty rows' before-columns from the resident mask and their
-        fresh evaluation -> int8 [C_total, 2w] on the device (w =
+        fresh evaluation -> int8 [C_total, 2w] (w =
         len(rows_pad)), the match kernel and the programs run on the
-        w-row slice of the pack; ``joins`` the host join index's tables
-        on the device ('tables' mode), or None without join plans."""
-        rv_d = state_from_numpy(rv_slice, self.device)
-        cols_d = state_from_numpy(cols_slice, self.device)
+        w-row slice of the pack on ``device`` (default the driver's);
+        ``joins`` the host join index's tables there ('tables' mode), or
+        None without join plans.  Under a mesh (``mask`` a ShardedMask)
+        K5 gathers each row's before-column on its owning shard, at its
+        slab-local column, and the result is assembled on the host."""
+        device = device or self.device
+        rv_d = state_from_numpy(rv_slice, device)
+        cols_d = state_from_numpy(cols_slice, device)
         new, _autoreject = self._eval(side, rv_d, cols_d, placed,
                                       join_mode="tables", joins=joins)
-        return delta_columns(mask, rows_pad, new)
+        if not isinstance(mask, ShardedMask):
+            return delta_columns(mask, rows_pad, new)
+        w = len(rows_pad)
+        owner = rows_pad // mask.slab
+        parts = []
+        for shard in np.unique(owner):
+            cols = np.nonzero(owner == shard)[0]
+            slab = mask.slabs[shard]
+            mine = new.index_select(
+                1, torch.as_tensor(cols, device=new.device)).to(slab.device)
+            parts.append((cols, delta_columns(
+                slab, rows_pad[cols] - shard * mask.slab, mine)))
+        both = np.empty((new.shape[0], 2 * w), np.int8)
+        for cols, part in parts:
+            part = part.cpu().numpy()
+            both[:, cols] = part[:, :len(cols)]
+            both[:, w + cols] = part[:, len(cols):]
+        return torch.from_numpy(both)
 
     def _apply_delta(self, st, ap, rows, side, t0, join_rows: int = 0):
         t1 = time.perf_counter()
@@ -1005,16 +1318,24 @@ class TorchDriver(InterpDriver):
             rows + [rows[-1]] * (width - len(rows)), np.int32
         )
         rv_slice, cols_slice = take_rows((ap.rp, ap.cols), rows_pad)
-        placed = self._constraint_device(side)
+        # under a mesh the [C, w] evaluation runs on its first device
+        mesh = self._mesh()
+        device = self.device if mesh is None else mesh.devices[0]
+        placed = self._constraint_device(side, device)
         # post-commit join tables: the dispatch evaluates the churned rows
         # AND the affected key-group readers against the UPDATED global
         # aggregate
-        jt = self._join_delta_tables()
-        both_d = self._delta_eval(
-            side, placed, st.mask_src.get(), rows_pad, rv_slice, cols_slice,
-            jt,
-        )
-        both = both_d.cpu().numpy().astype(bool)[st.crow]
+        jt = self._join_delta_tables(device)
+
+        def dispatch():
+            return self._delta_eval(
+                side, placed, st.mask_src.get(), rows_pad, rv_slice,
+                cols_slice, jt, device,
+            )
+
+        both = dispatch() if mesh is None else \
+            self._guarded_mesh_dispatch(mesh, dispatch)
+        both = both.cpu().numpy().astype(bool)[st.crow]
         base_old, dmask = both[:, :width], both[:, width:]
         t2 = time.perf_counter()
         for j, r in enumerate(rows):
@@ -1032,7 +1353,13 @@ class TorchDriver(InterpDriver):
             "delta_rows": float(len(rows)),
             "rows": float(ap.n_rows),
             "cells": float(len(side[0]) * len(rows)),
+            "shards": float(self.mesh_layout()),
         }
+        if mesh is not None:
+            # churn locality: the owning shards are the only ones K5 ran on
+            # and the only slabs the next full sweep's K6 patches
+            self.last_sweep_stats["delta_shards"] = float(len(
+                owning_shards(rows, ap.capacity, mesh.devices.size)))
         if jt is not None:
             # key-group locality: how many of the dispatched rows were
             # affected readers rather than content churn
@@ -1287,7 +1614,7 @@ class TorchDriver(InterpDriver):
                 return
             if st.row_cols:
                 raise NeedsFullSweep(ci)
-            row = st.mask_src.get()[int(st.crow[ci])].cpu().numpy()[:R]
+            row = _host_row(st.mask_src.get(), int(st.crow[ci]))[:R]
             fallback_rows += 1
             full = [int(x) for x in np.nonzero(row)[0]]
             st.cand[ci] = full  # complete knowledge for later sweeps
@@ -1418,8 +1745,46 @@ class TorchDriver(InterpDriver):
         return results, totals, ("\n".join(trace) if trace is not None else None)
 
 
-def _host_rows(mask: torch.Tensor, crow, capacity: int) -> np.ndarray:
+def _host_rows(mask, crow, capacity: int) -> np.ndarray:
     """The device mask's rows ``crow`` on the host, as a writable array
-    that shares no memory with ``mask``."""
+    that shares no memory with ``mask`` (a tensor, or a mesh sweep's
+    ShardedMask)."""
+    if isinstance(mask, ShardedMask):
+        return mask.host_rows(crow)[:, :capacity]
     crow_t = torch.as_tensor(crow, device=mask.device)
     return mask.index_select(0, crow_t).cpu().numpy()[:, :capacity]
+
+
+def _host_row(mask, c: int) -> np.ndarray:
+    """Row ``c`` of the device mask on the host."""
+    if isinstance(mask, ShardedMask):
+        return mask.host_row(c)
+    return mask[c].cpu().numpy()
+
+
+def _synchronize(devices):
+    """Wait for the work queued on each CUDA device of ``devices``."""
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _merge_sharded_packed(packed_all: np.ndarray, K: int) -> np.ndarray:
+    """[N shards, C, 1+K'] per-shard capped reductions -> global
+    [C, 1+K].  Counts sum; candidate indices are already global rows
+    (-1 padded) and each shard's list is ascending within its contiguous
+    row slab, so shard-major concatenation preserves global ascending
+    order — the merge keeps the first K valid entries per constraint.
+    K' = min(K, rows per shard) may be smaller than K (each shard then
+    contributes its COMPLETE row slab, so the merge is still exact);
+    the output is padded back to width K.  Copied from
+    gatekeeper_tpu/ops/driver.py."""
+    counts = packed_all[:, :, 0].sum(axis=0, dtype=np.int32)
+    cand = np.transpose(packed_all[:, :, 1:], (1, 0, 2))
+    cand = cand.reshape(cand.shape[0], -1)  # [C, N*K'], shard-major
+    if cand.shape[1] < K:
+        cand = np.pad(cand, ((0, 0), (0, K - cand.shape[1])),
+                      constant_values=-1)
+    order = np.argsort(cand == -1, axis=1, kind="stable")[:, :K]
+    merged = np.take_along_axis(cand, order, axis=1)
+    return np.concatenate([counts[:, None], merged], axis=1)

@@ -25,9 +25,9 @@ This module keeps referential templates inside the vectorized sweep:
   interned key id, no sort), and each JoinCmp's per-cell count is one
   binary search into it minus the row's own contribution, kernel K8
   (ops/joinlookup.py), then the engine's exact total-order comparison.
-  The plain torch and numpy versions of both live here.  The JAX
-  package's cross-shard merge of per-shard tables is the multi-GPU
-  slice's work (ROADMAP A7).
+  The plain torch and numpy versions of both live here.  Under a mesh
+  each shard's slab builds its own table and K7's merge sums the shards'
+  counts per key (``provider_key_table`` with ``axis_name``).
 - :class:`JoinState` is the host-side join-group index (key -> provider
   rows, key -> reader rows) that gives the delta sweep O(churn) dispatch:
   a churned row invalidates only its key group (old keys + new keys), and
@@ -186,10 +186,6 @@ class JoinPlan:
 # ---------------------------------------------------------------------------
 
 
-#: where the cross-shard merge of the key tables is queued (ROADMAP.md A7)
-_MESH_SLICE = "the cross-shard key-table merge is port slice A7 (multi-GPU)"
-
-
 def _scatter_add(n: int, idx, w, xp):
     if xp is np:
         tot = np.zeros(n, np.int64)
@@ -285,14 +281,37 @@ def key_table(part, sid, mask, xp):
 
 
 def provider_key_table(plan: JoinPlan, kind_id, rv, cols, xp,
-                       axis_name: Optional[str] = None):
+                       axis_name: Optional[str] = None,
+                       vocab: Optional[int] = None):
     """The per-key distinct-provider-row table of ``plan`` from the
     resident columns (``xp`` numpy or torch): one segment-reduce over the
-    full row axis.  Under a mesh (``axis_name``) the JAX package merges
-    per-shard tables with an ``all_gather``; that merge belongs to the
-    multi-GPU slice and raises here."""
+    full row axis.
+
+    Under a mesh (``axis_name`` set, torch only) ``rv`` and ``cols`` are
+    sequences of the shards' trees, in row order: each shard's slab
+    builds its own table (kernel K7 on the card, ops/joinkeys.py), the
+    tables are concatenated on the first shard's device and merged by
+    their counts (K7's merge) — the JAX package's ``all_gather`` and
+    second ``compact_key_table``, so a key whose providers span shards
+    counts every provider row once.  ``vocab`` must then exceed every
+    key id (the interner's size when the columns were packed)."""
     if axis_name is not None:
-        raise NotImplementedError(_MESH_SLICE)
+        from .joinkeys import join_keys, merge_key_tables
+
+        if xp is not torch or vocab is None:
+            raise ValueError("a mesh key table takes torch shards and vocab")
+        first = rv[0]["valid"].device
+        uks, ucs = [], []
+        for srv, scols in zip(rv, cols):
+            rcol = scols[plan.remote_colkey]
+            uk, uc = join_keys(
+                srv["valid"], srv["kind"], srv["ns_empty"], rcol["sid"],
+                rcol["mask"] if plan.remote_slot else None, int(kind_id),
+                plan.remote_scope == "namespace", int(vocab),
+            )
+            uks.append(uk.to(first))
+            ucs.append(uc.to(first))
+        return merge_key_tables(torch.cat(uks), torch.cat(ucs), int(vocab))
     part = participation(
         xp.asarray(rv["valid"]), xp.asarray(rv["kind"]),
         xp.asarray(rv["ns_empty"]), kind_id,

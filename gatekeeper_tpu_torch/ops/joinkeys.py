@@ -10,6 +10,14 @@ gatekeeper_tpu/ops/joinkernel.py ``provider_key_table`` on one device.
 (kernels/joinkeys.cu) on CUDA tensors and runs ``join_keys_plain`` on
 CPU ones.  The kernel counts into a [vocab] array, so ``vocab`` must
 exceed every key id: the interner's size when the columns were packed.
+
+``merge_key_tables`` is the cross-shard merge of a mesh sweep: the tables
+of every shard's row slab, concatenated on one device, become the table of
+the whole row axis (the all_gather and second ``compact_key_table`` of
+gatekeeper_tpu/ops/joinkernel.py provider_key_table, :262-267).  On CUDA
+tensors it launches K7's second launcher, counted as ``joinkeys_merge``;
+on CPU ones its plain version is ``compact_key_table`` weighted by the
+shards' counts.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Optional
 import torch
 
 from .. import device as _dev
-from .joinkernel import key_table, participation
+from .joinkernel import compact_key_table, key_table, participation
 
 
 def join_keys_plain(valid, kind, ns_empty, sid, mask: Optional[torch.Tensor],
@@ -55,8 +63,8 @@ def join_keys_cuda(valid, kind, ns_empty, sid, mask: Optional[torch.Tensor],
         return uk, uc
     counts = torch.empty(max(vocab, 1), dtype=torch.int32, device=dev)
     _dev.launch(
-        "joinkeys", _dev.ptr(valid), _dev.ptr(kind), _dev.ptr(ns_empty),
-        int(kind_id), int(namespaced), _dev.ptr(sid),
+        "joinkeys", dev, _dev.ptr(valid), _dev.ptr(kind),
+        _dev.ptr(ns_empty), int(kind_id), int(namespaced), _dev.ptr(sid),
         0 if mask is None else _dev.ptr(mask), R, S, int(vocab),
         _dev.ptr(counts), _dev.ptr(uk), _dev.ptr(uc), _dev.stream(sid),
     )
@@ -71,3 +79,41 @@ def join_keys(valid, kind, ns_empty, sid, mask: Optional[torch.Tensor],
                                namespaced, vocab)
     return join_keys_cuda(valid, kind, ns_empty, sid, mask, kind_id,
                           namespaced, vocab)
+
+
+def merge_key_tables_plain(uk, uc, vocab: int):
+    """The weighted group-by of the JAX package, in torch (``vocab`` is
+    not needed)."""
+    return compact_key_table(uk, uc, torch)
+
+
+def merge_key_tables_cuda(uk, uc, vocab: int):
+    """K7's merge.  Every valid key of ``uk`` must have a count of at
+    least 1 in ``uc``, as every shard table's has: a key whose counts sum
+    to 0 is dropped, where the plain version keeps it with count 0."""
+    dev = uk.device
+    _dev.check(uk, "uk", torch.int32, 1, dev)
+    _dev.check(uc, "uc", torch.int32, 1, dev)
+    if uc.shape != uk.shape:
+        raise ValueError(f"uc {tuple(uc.shape)} != uk {tuple(uk.shape)}")
+    if vocab < 0:
+        raise ValueError(f"vocab {vocab} < 0")
+    N = uk.shape[0]
+    out_uk = torch.empty(N, dtype=torch.int32, device=dev)
+    out_uc = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
+        return out_uk, out_uc
+    counts = torch.empty(max(vocab, 1), dtype=torch.int32, device=dev)
+    _dev.launch(
+        "joinkeys_merge", dev, _dev.ptr(uk), _dev.ptr(uc), N, int(vocab),
+        _dev.ptr(counts), _dev.ptr(out_uk), _dev.ptr(out_uc),
+        _dev.stream(uk),
+    )
+    return out_uk, out_uc
+
+
+def merge_key_tables(uk, uc, vocab: int):
+    """K7's merge on CUDA tensors, the plain version on CPU ones."""
+    if uk.device.type == "cpu":
+        return merge_key_tables_plain(uk, uc, vocab)
+    return merge_key_tables_cuda(uk, uc, vocab)

@@ -58,8 +58,9 @@ def join_lookup_cuda(uk, uc, q, scope=None):
         rows = tuple(_dev.ptr(t) for t in (valid, kind, ns_empty))
         code = int(bool(namespaced))
     _dev.launch(
-        "joinlookup", _dev.ptr(uk), _dev.ptr(uc), uk.shape[0], _dev.ptr(q),
-        R, S, *rows, int(kind_id), code, _dev.ptr(out), _dev.stream(q),
+        "joinlookup", dev, _dev.ptr(uk), _dev.ptr(uc), uk.shape[0],
+        _dev.ptr(q), R, S, *rows, int(kind_id), code, _dev.ptr(out),
+        _dev.stream(q),
     )
     return out
 

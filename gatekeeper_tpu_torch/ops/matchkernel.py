@@ -260,7 +260,7 @@ def match_kernel_cuda(rv: dict, cs: dict, records=None):
         return match, autoreject
     lay = (ctypes.c_int * len(layout))(*layout)
     _dev.launch(
-        "match", ctypes.addressof(lay), _dev.ptr(crec), C, R,
+        "match", dev, ctypes.addressof(lay), _dev.ptr(crec), C, R,
         *(_dev.ptr(rv[n]) for n in (*_RV_IDS, "ns_mode", *_RV_FLAGS,
                                     *_RV_LABELS)),
         *(rv[n].shape[1] for n in _RV_LABELS),

@@ -500,11 +500,10 @@ def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
     # evaluation's pointers), copied from pinned memory without waiting:
     # the launch queues behind the copy, and the caching host allocator
     # keeps the pinned block until the copy is done
-    blob_d = torch.from_numpy(lp["blob"]).pin_memory().to(
-        dev, non_blocking=True)
+    blob_d = _dev.upload(lp["blob"], dev)
     _dev.launch(
-        "program", _dev.ptr(blob_d), lp["G"], lp["NOP"], _dev.ptr(mask), R,
-        lp["blocks"], lp["max_code"], lp["max_ops"],
+        "program", dev, _dev.ptr(blob_d), lp["G"], lp["NOP"],
+        _dev.ptr(mask), R, lp["blocks"], lp["max_code"], lp["max_ops"],
         _dev.stream(mask),
     )
     return mask

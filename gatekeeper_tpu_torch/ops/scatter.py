@@ -133,7 +133,7 @@ def stage_rows(dev_tree, idx, host_rows) -> Staged:
         offsets.append(off)
         row_bytes.append(rb)
         off = _align(off + n * rb)
-    host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+    host = _dev.pinned_empty(off)
     hv = host.numpy()
     table = hv[:idx_off].view(np.int64).reshape(len(pairs), 3)
     for i, (_path, dst, rows) in enumerate(pairs):
@@ -151,8 +151,8 @@ def scatter_staged_cuda(st: Staged) -> None:
         return
     base = _dev.ptr(st.buf)
     _dev.launch(
-        "scatter", base, base + st.idx_off, base, st.n_leaves, st.n_rows,
-        _dev.stream(st.buf),
+        "scatter", st.buf.device, base, base + st.idx_off, base,
+        st.n_leaves, st.n_rows, _dev.stream(st.buf),
     )
 
 

@@ -66,7 +66,7 @@ def setcount_cuda(cids, cmask, kids, orient: int, op: int, n: int,
     if C == 0 or R == 0:
         return out
     _dev.launch(
-        "setcount", _dev.ptr(cids), _dev.ptr(cmask), C, P, _dev.ptr(kids),
+        "setcount", dev, _dev.ptr(cids), _dev.ptr(cmask), C, P, _dev.ptr(kids),
         R, K, pad, orient, op, n, _dev.ptr(out), _dev.stream(out),
     )
     return out

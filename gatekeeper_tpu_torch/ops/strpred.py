@@ -56,7 +56,7 @@ def strpred_cuda(tableT, idx, tcode, sid, negate: bool = False):
     if V == 0 or U == 0:
         raise ValueError("empty predicate table")
     _dev.launch(
-        "strpred", _dev.ptr(tableT), V, U, _dev.ptr(idx), C,
+        "strpred", dev, _dev.ptr(tableT), V, U, _dev.ptr(idx), C,
         _dev.ptr(tcode), _dev.ptr(sid), N, int(bool(negate)), _dev.ptr(out),
         _dev.stream(out),
     )

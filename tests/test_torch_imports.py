@@ -101,20 +101,30 @@ def test_ctypes_signatures_match_the_c_launchers():
 
     from gatekeeper_tpu_torch import device
 
-    assert set(device._SIGNATURES) == set(device.KERNEL_NAMES)
-    assert device._SIGNATURES["program"][0] == "gk_program_launch"
-    for name, (fn_name, sig) in device._SIGNATURES.items():
-        src = (PKG / "kernels" / f"{name}.cu").read_text()
+    libraries = {lib for lib, _fn, _sig in device._SIGNATURES.values()}
+    assert libraries == set(device.KERNEL_NAMES)
+    assert device._SIGNATURES["program"][1] == "gk_program_launch"
+    for name, (lib, fn_name, sig) in device._SIGNATURES.items():
+        src = (PKG / "kernels" / f"{lib}.cu").read_text()
+        launchers = re.findall(r'extern "C" int (gk_\w+_launch)\(', src)
+        assert fn_name in launchers, name
         m = re.search(
-            r'extern "C" int (gk_\w+_launch)\((.*?)\)\s*\{', src, re.S
+            rf'extern "C" int ({fn_name})\((.*?)\)\s*\{{', src, re.S
         )
-        assert m and m.group(1) == fn_name, name
+        assert m, name
         params = [p.strip() for p in m.group(2).split(",")]
         want = "".join(
             "p" if "*" in p else "l" if "long long" in p else "i"
             for p in params
         )
         assert sig == want, (name, sig, want)
+    # and every launcher of every source has its signature
+    every = {
+        fn for lib in libraries for fn in re.findall(
+            r'extern "C" int (gk_\w+_launch)\(',
+            (PKG / "kernels" / f"{lib}.cu").read_text())
+    }
+    assert every == {fn for _l, fn, _s in device._SIGNATURES.values()}
 
 
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu():

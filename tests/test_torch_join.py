@@ -24,7 +24,12 @@ from gatekeeper_tpu_torch import device as tdev
 from gatekeeper_tpu_torch.client.client import Client as TorchClient
 from gatekeeper_tpu_torch.ops import joinkernel as tjk
 from gatekeeper_tpu_torch.ops.driver import TorchDriver
-from gatekeeper_tpu_torch.ops.joinkeys import join_keys, join_keys_plain
+from gatekeeper_tpu_torch.ops.joinkeys import (
+    join_keys,
+    join_keys_plain,
+    merge_key_tables,
+    merge_key_tables_plain,
+)
 from gatekeeper_tpu_torch.ops.joinlookup import join_lookup, join_lookup_plain
 
 CAP = 4096  # above every per-constraint count: totals exact everywhere
@@ -132,8 +137,65 @@ def test_provider_key_table_bit_equal(slot, scope):
                                scope == "namespace", vocab)
     assert torch.equal(kuk, uk) and torch.equal(kuc, uc)
     assert int((uk != INVALID).sum()) > 0  # the table is not empty
-    with pytest.raises(NotImplementedError, match="A7"):
-        tjk.provider_key_table(plan, 1, trv, tcols, torch, axis_name="data")
+    # under a mesh: the shards' slabs (their rows sum to R, so the merged
+    # table has the single table's length), each table and the merge
+    cuts = [0, 100, 101, 200, R]
+    shards = [({k: v[a:b] for k, v in trv.items()},
+               {ck: {k: v[a:b] for k, v in c.items()}
+                for ck, c in tcols.items()}) for a, b in zip(cuts, cuts[1:])]
+    muk, muc = tjk.provider_key_table(
+        plan, 1, [r for r, _c in shards], [c for _r, c in shards], torch,
+        axis_name="data", vocab=vocab)
+    assert torch.equal(muk, uk) and torch.equal(muc, uc)
+    with pytest.raises(ValueError, match="vocab"):
+        tjk.provider_key_table(plan, 1, [trv], [tcols], torch,
+                               axis_name="data")
+
+
+@pytest.mark.parametrize("slot", [False, True])
+@pytest.mark.parametrize("W", [1, 2, 3, 8])
+def test_weighted_merge_bit_equal_to_jax_compact_over_shard_tables(slot, W):
+    """The cross-shard merge: the JAX package's per-shard provider tables,
+    gathered and compacted with their counts as weights
+    (gatekeeper_tpu/ops/joinkernel.py:262-267), against the port's merge
+    of the same tables; and equal to the whole row axis's table."""
+    rng = np.random.default_rng(11 * W + slot)
+    R, S, vocab = 96, 3, 20  # few keys: many span shards
+    rv, cols = _rows(rng, R, S, vocab, slot)
+    plan = _plan(slot, "namespace")
+    slab = -(-R // W)
+
+    def jtable(a, b):
+        return jjk.provider_key_table(
+            plan, jnp.int32(1), {k: jnp.asarray(v[a:b])
+                                 for k, v in rv.items()},
+            {ck: {k: jnp.asarray(v[a:b]) for k, v in c.items()}
+             for ck, c in cols.items()}, jnp)
+
+    tabs = [jtable(s * slab, min(R, (s + 1) * slab)) for s in range(W)]
+    ku = np.concatenate([np.asarray(t[0]) for t in tabs])
+    cu = np.concatenate([np.asarray(t[1]) for t in tabs])
+    juk, juc = jjk.compact_key_table(jnp.asarray(ku), jnp.asarray(cu), jnp)
+    for fn in (merge_key_tables, merge_key_tables_plain):
+        uk, uc = fn(_t(ku), _t(cu), vocab)
+        _same(uk, juk)
+        _same(uc, juc)
+    whole_uk, whole_uc = jtable(0, R)
+    n = int((np.asarray(whole_uk) != INVALID).sum())
+    np.testing.assert_array_equal(np.asarray(juk)[:n],
+                                  np.asarray(whole_uk)[:n])
+    np.testing.assert_array_equal(np.asarray(juc)[:n],
+                                  np.asarray(whole_uc)[:n])
+    assert (np.asarray(juk)[n:] == INVALID).all() and n > 0
+
+
+def test_merge_of_empty_and_invalid_tables():
+    empty = _t(np.zeros(0, np.int32))
+    uk, uc = merge_key_tables(empty, empty, 5)
+    assert uk.numel() == uc.numel() == 0
+    keys = _t(np.full(6, INVALID, np.int32))
+    uk, uc = merge_key_tables(keys, _t(np.zeros(6, np.int32)), 5)
+    assert (uk == INVALID).all() and (uc == 0).all()
 
 
 def _tables():

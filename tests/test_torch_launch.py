@@ -1,0 +1,118 @@
+"""Every kernel launch runs inside its tensors' device.
+
+The C launchers start their kernels on the CUDA runtime's current device,
+and a mesh shard's tensors may lie on another card than the current one.
+So ``device.launch`` takes the device of the tensors it launches on and
+calls the launcher inside ``torch.cuda.device`` of it, and every wrapper
+hands it the device of its inputs.  Both are checked here on the CPU:
+``launch`` with a stand-in library and device context, each of the ten
+launchers' wrappers with ``launch`` recording what it was handed (the
+wrappers' CUDA functions, called on CPU tensors, with the stream and the
+pinned staging buffer stood in for)."""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+from gatekeeper_tpu_torch import device as dev
+from gatekeeper_tpu_torch.ops import delta, joinkeys, joinlookup
+from gatekeeper_tpu_torch.ops import driver as driver_mod
+from gatekeeper_tpu_torch.ops import matchkernel, program, reduction
+from gatekeeper_tpu_torch.ops import scatter, setcount, strpred
+from gatekeeper_tpu_torch.util import synthetic as syn
+
+CPU = torch.device("cpu")
+
+
+def test_launch_enters_the_device_it_is_given(monkeypatch):
+    entered, current = [], [None]
+
+    @contextlib.contextmanager
+    def fake_device(d):
+        entered.append(torch.device(d))
+        before, current[0] = current[0], torch.device(d)
+        yield
+        current[0] = before
+
+    class Lib:
+        def __getattr__(self, fn_name):
+            def launcher(*args):
+                calls.append((fn_name, current[0], args))
+                return 0
+            return launcher
+
+    calls = []
+    libs = {name: Lib() for name in dev.KERNEL_NAMES}
+    monkeypatch.setattr(dev, "kernels", lambda: libs)
+    monkeypatch.setattr(torch.cuda, "device", fake_device)
+    dev.reset_launches()
+    target = torch.device("cuda", 3)
+    for name, (_lib, fn_name, sig) in dev._SIGNATURES.items():
+        dev.launch(name, target, *range(len(sig)))
+        assert calls[-1][:2] == (fn_name, target), name
+    assert entered == [target] * len(dev._SIGNATURES)
+    assert current[0] is None  # left again after each call
+    assert all(n == 1 for n in dev.launches.values())
+    with pytest.raises(TypeError):
+        dev.launch("reduction", target, 1, 2)
+    dev.reset_launches()
+
+
+def _i32(a):
+    return torch.tensor(a, dtype=torch.int32)
+
+
+def _sweep_inputs():
+    """A tiny CPU sweep's match inputs and its bound K9 groups."""
+    client = syn.build_driver(4, 12, device="cpu")
+    d = client.driver
+    client.audit_capped(5)
+    side = d._constraint_side()
+    rv, cols = d._audit_dev[1]
+    placed = d._constraint_device(side)
+    seen = []
+    orig = driver_mod.program_eval
+    driver_mod.program_eval = lambda mask, groups: seen.append(groups) or mask
+    try:
+        mask, _rej = d._eval(side, rv, cols, placed)
+    finally:
+        driver_mod.program_eval = orig
+    return rv, placed[0], mask, seen[0]
+
+
+def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
+    rv, cs, mask, groups = _sweep_inputs()
+    got = []
+    monkeypatch.setattr(dev, "launch",
+                        lambda name, device, *args: got.append((name,
+                                                                device)))
+    monkeypatch.setattr(dev, "stream", lambda t: 0)
+    monkeypatch.setattr(dev, "pinned_empty",
+                        lambda n: torch.empty(n, dtype=torch.uint8))
+    matchkernel.match_kernel_cuda(rv, cs, matchkernel.constraint_records(cs))
+    program.program_eval_cuda(mask.clone(), groups)
+    reduction.packed_reduction_cuda(mask, 8, row_offset=64)
+    strpred.strpred_cuda(
+        torch.tensor([[0, 1], [1, 0]], dtype=torch.uint8), _i32([0, 1]),
+        torch.tensor([[5, 5]], dtype=torch.int8), _i32([[0, 1]]))
+    setcount.setcount_cuda(_i32([[3, 4]]), torch.tensor([[True, True]]),
+                           _i32([[3, -2], [7, 8]]), 0, 0, 0, -2)
+    delta.delta_columns_cuda(mask, _i32([0, 2]),
+                             torch.zeros((mask.shape[0], 2), dtype=bool))
+    tree = {"a": torch.zeros((4, 2), dtype=torch.int32),
+            "b": torch.zeros(4, dtype=torch.bool)}
+    scatter.scatter_staged_cuda(scatter.stage_rows(
+        tree, np.array([1, 3]),
+        {"a": np.ones((2, 2), np.int32), "b": np.ones(2, bool)}))
+    valid = torch.ones(3, dtype=torch.bool)
+    kind = _i32([1, 1, 0])
+    ns_empty = torch.zeros(3, dtype=torch.bool)
+    uk, uc = joinkeys.join_keys_cuda(valid, kind, ns_empty, _i32([2, 0, 1]),
+                                     None, 1, True, 4)
+    joinkeys.merge_key_tables_cuda(_i32([0, 2, 2]), _i32([1, 1, 2]), 4)
+    joinlookup.join_lookup_cuda(_i32([0, 2]), _i32([1, 2]), _i32([2, 1, 0]),
+                                (valid, kind, ns_empty, 1, True))
+    assert {name for name, _d in got} == set(dev.LAUNCHERS)
+    assert all(d == CPU for _n, d in got), got

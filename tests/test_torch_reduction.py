@@ -59,3 +59,81 @@ def test_first_k_rows_ascending_with_ties():
         idx = got[c, 1:]
         np.testing.assert_array_equal(idx, np.nonzero(mask[c])[0][:32])
         assert (np.diff(idx) > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# row_offset: a mesh shard's reduction in global rows
+# ---------------------------------------------------------------------------
+
+
+def _jax_offset(packed, offset):
+    """The JAX package's offset lines after the per-shard reduction
+    (gatekeeper_tpu/ops/driver.py _fused_audit_mesh_fn,
+    parallel/multihost.py multihost_capped_sweep)."""
+    import jax.numpy as jnp
+
+    idx = packed[:, 1:]
+    idx = jnp.where(idx >= 0, idx + offset, -1)
+    return np.asarray(jnp.concatenate([packed[:, :1], idx], axis=1))
+
+
+@pytest.mark.parametrize(
+    "C, R, K, density, offset",
+    [
+        (5, 64 * 40, 3, 0.01, 0),
+        (5, 64 * 40, 7, 0.3, 64 * 40 * 3),  # the fourth slab of four
+        (4, 1000, 3, 0.05, 1000),           # R off the 64-row blocks
+        (3, 300, 64, 0.05, 7 * 300),        # -1 padding is not offset
+        (2, 50, 80, 0.5, 2 ** 31 - 1 - 50),  # the last rows int32 holds
+    ],
+)
+def test_row_offset_bit_equal_to_the_jax_offset_lines(C, R, K, density,
+                                                      offset):
+    rng = np.random.default_rng(C * 7 + R + K)
+    mask = rng.random((C, R)) < density
+    mask[0] = False
+    want = _jax_offset(_packed_reduction(mask, K), offset)
+    for fn in (packed_reduction, packed_reduction_plain):
+        got = fn(torch.from_numpy(mask), K, offset).numpy()
+        assert got.dtype == np.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_row_offset_past_int32_is_refused():
+    mask = torch.zeros((2, 10), dtype=torch.bool)
+    for offset in (-1, 2 ** 31 - 10):
+        with pytest.raises(ValueError, match="row_offset"):
+            packed_reduction(mask, 3, offset)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K", [4, 32, 600])
+def test_shard_reductions_merge_to_the_single_device_one(W, K):
+    """Each shard's K4 with row_offset = shard * slab, merged on the host
+    (the port's _merge_sharded_packed, a copy of the JAX package's): the
+    single-device reduction at width min(K, R), and the JAX merge of the
+    JAX per-shard reductions exactly."""
+    from gatekeeper_tpu.ops.driver import _merge_sharded_packed as jmerge
+    from gatekeeper_tpu_torch.ops.driver import _merge_sharded_packed
+    from gatekeeper_tpu_torch.parallel.mesh import _slab_of, slab_rows
+
+    rng = np.random.default_rng(W * 100 + K)
+    C, R = 6, 512
+    mask = rng.random((C, R)) < 0.08
+    mask[1] = False
+    mask[2, -3:] = True  # the last slab's tail
+    target, slab = slab_rows(R, W)
+    slabs = [_slab_of(mask.T, s * slab, (s + 1) * slab).T.copy()
+             for s in range(W)]
+    port = np.stack([
+        packed_reduction(torch.from_numpy(m), K, s * slab).numpy()
+        for s, m in enumerate(slabs)
+    ])
+    jax_all = np.stack([_jax_offset(_packed_reduction(m, K), s * slab)
+                        for s, m in enumerate(slabs)])
+    np.testing.assert_array_equal(port, jax_all)
+    merged = _merge_sharded_packed(port, min(K, R))
+    np.testing.assert_array_equal(merged,
+                                  np.asarray(_packed_reduction(mask, K)))
+    np.testing.assert_array_equal(_merge_sharded_packed(port, K),
+                                  jmerge(jax_all, K))
