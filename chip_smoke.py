@@ -16,9 +16,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      audit_capped(20), warm sweeps (each one's stages and garbage-collector
      pauses, then as many again with the collector's old objects frozen),
      and admission reviews of unique pods (each one's constraint-side
-     re-pack split out); K1, K9 and K4 must have launched on that run, K9
-     exactly once per evaluation (once a sweep and once a review), and
-     vexpr.eval_program never (NoIR)
+     re-pack split out); K1, K9, K4 and K10 must have launched on that
+     run, K9 exactly once per evaluation (once a sweep and once a review),
+     K10 exactly once a review and never in a sweep, and
+     vexpr.eval_program never (NoIR).  Then the same reviews again and
+     one batch of 256 pods, K10's calls recorded
   4. each kernel against its plain version on the card, on the inputs the
      main path gave it, exactly (every output is bool or int32): K1 and K9
      on the cold sweep (every group) and on one one-pod review, K2 and K3
@@ -26,11 +28,15 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      over CUDA events, the plain version's, one library call's where one
      computes the same function, and the least time the card could take,
      K1 and K9 also at the review's call (admission is the latency path);
+     K10 on every recorded review call, timed at a review's call (R = 8)
+     and at the batch's (R = 256);
      then again on seeded edge cases the main path does not reach (K9:
      every node kind, groups with pad rows and rows of no group, R of 1, 8
      and 16 and off its tiles, rows of one thread or one warp that disagree,
      S = 0, P = 0, a key set of 12, unbound joins, a deep
-     stack; K1: R off its 8 reviews a thread), and K1 once more at the main
+     stack; K1: R off its 8 reviews a thread; K10: R off a byte, C of 0,
+     1 and 3, masks all true, all false and random, unaligned row slices
+     and buffers), and K1 once more at the main
      path's shape and at R = 4099 on a corpus whose label and namespace
      selectors are live
   5. the sweep's [C, 1+K] reduction against the same state evaluated and
@@ -50,7 +56,12 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      delta path's widths.  Then the device-stage split: the same paths
      with the op-by-op IR (OpByOp: vexpr.eval_program with K2 and K3, the
      path before K9) and with K9, in turns, in this run: forced full
-     sweeps, churn sweeps for each d, and unique one-pod reviews
+     sweeps, churn sweeps for each d, and unique one-pod reviews.  Then
+     the admission review's time split (review_split): one-pod reviews
+     and batches of 8, 64 and 256 pods, driven step by step with a
+     synchronise after each (pack, side placement, upload, K1, binding,
+     K9, K10, download, unpack, render), the bool download of the same
+     masks beside it, and reviews that intern a fresh string
   7. parity at a small size: audit and review results on the card against
      the port's own InterpDriver oracle, and the uncapped audit after 16
      changed pods, through the delta path
@@ -88,8 +99,10 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      last slab, each d closed by a forced full sweep (K6 on the owning
      shards) that must equal it.  Every K4 call (row_offset) and K7 merge
      call of that run is held against its plain version and timed at its
-     largest call.  Then sharded_masks and sharded_violation_counts of
-     4,096 stored pods against compute_masks and its sums, and the
+     largest call.  Then reviews under the mesh: compute_masks of 4,096
+     stored pods bit-equal and review_batch of 64 unique pods byte-equal
+     to width 1, K10 launched once a shard, sharded_violation_counts
+     against the mask sums, and the
      multi-process sweep: two processes of this script on gloo over
      loopback, each with a 2-slot virtual mesh of the card, each equal to
      its one-process sweep bit for bit
@@ -157,6 +170,11 @@ PATH1_KERNELS = ("match", "program", "reduction")
 # (OpByOp) and with K9, in turns, and unique reviews in each
 SPLIT_ROUNDS = 4
 SPLIT_REVIEWS = 64
+# the admission review's time split: (pods a batch, batches) for one-pod
+# reviews and batches of 8, 64 and 256 pods; reviews that each intern a
+# fresh string (the constraint side re-packs and re-uploads)
+REVIEW_SPLIT = ((1, 64), (8, 16), (64, 16), (256, 16))
+FRESH_REVIEWS = 5
 # the referential audit's churn: objects changed before each delta sweep,
 # sweeps of each churn kind for each, and the oracle parity's size
 # (templates, objects)
@@ -164,11 +182,13 @@ REF_CHURN_D = (1, 16)
 REF_CHURN_SWEEPS = 5
 REF_PARITY = (6, 240)
 # the sharded sweep: mesh widths on the virtual mesh of the one card, churn
-# on its delta path, reviews of the sharded masks, and the time the two
-# processes of the multi-process sweep get
+# on its delta path, reviews of the sharded masks and unique admission
+# pods under the mesh, and the time the two processes of the
+# multi-process sweep get
 MESH_WIDTHS = (2, 4)
 MESH_CHURN_D = (1, 16)
 MESH_REVIEWS = 4096
+MESH_ADMISSIONS = 64
 MULTIHOST_TIMEOUT_S = 420
 
 
@@ -293,7 +313,7 @@ def _tensors(x):
 class Capture:
     """Record the arguments and result of every call of the kernel
     wrappers that the driver and the evaluator call, for one run: of all
-    seven the main path launches (K2 and K3 run inside K9 there), or of
+    eight the main path launches (K2 and K3 run inside K9 there), or of
     the kernels in ``names``.  The arguments are copied before
     the call and the result after it: the row scatter (K6) updates the
     resident inputs in place, which a later sweep would otherwise change
@@ -308,6 +328,7 @@ class Capture:
         ("joinkeys", "join_keys", "joinkeys"),
         ("joinkeys", "merge_key_tables", "joinkeys_merge"),
         ("vexpr", "join_lookup", "joinlookup"),
+        ("driver", "pack_review_masks", "packbits"),
     )
 
     def __init__(self, names=None):
@@ -709,10 +730,19 @@ def _joinlookup_work(p):
             lambda: uc[torch.searchsorted(uk, q).clamp_(max=T - 1)])
 
 
+def _packbits_work(p):
+    (mask, autoreject), _kw = p
+    C, R = mask.shape
+    # each mask byte read once, each packed byte written once; one test a
+    # cell
+    return (2 * C * R + 2 * C * -(-R // 8), 2 * C * R,
+            {"C": C, "R": R, "packed": [2 * C, -(-R // 8)]}, None)
+
+
 def kernel_specs() -> dict:
     from gatekeeper_tpu_torch.ops import delta, joinkeys, joinlookup
-    from gatekeeper_tpu_torch.ops import matchkernel, program, reduction
-    from gatekeeper_tpu_torch.ops import setcount, strpred
+    from gatekeeper_tpu_torch.ops import matchkernel, packbits, program
+    from gatekeeper_tpu_torch.ops import reduction, setcount, strpred
 
     def rows_of(a):
         return len(a[1])
@@ -780,6 +810,13 @@ def kernel_specs() -> dict:
             lambda p: joinlookup.join_lookup_cuda(*p[0], **p[1]),
             lambda p: joinlookup.join_lookup_plain(*p[0], **p[1]),
             _joinlookup_work, size=lambda a: a[2].numel()),
+        # no single PyTorch call packs bits: library none
+        "packbits": Kernel(
+            "gatekeeper_tpu_torch/kernels/packbits.cu",
+            "gatekeeper_tpu/ops/driver.py:1451",
+            lambda p: packbits.pack_review_masks_cuda(*p[0], **p[1]),
+            lambda p: packbits.pack_review_masks_plain(*p[0], **p[1]),
+            _packbits_work, size=lambda a: a[0].numel()),
     }
 
 
@@ -944,7 +981,7 @@ def check_edges():
     dev = torch.device(DEVICE)
     checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
                "delta": 0, "scatter": 0, "joinkeys": 0, "joinlookup": 0,
-               "program": 0}
+               "program": 0, "packbits": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -1057,8 +1094,52 @@ def check_edges():
         same("scatter", tuple(_tensors(a)), tuple(_tensors(b)))
     check_join_edges(rng, dev, same)
     check_program_edges(rng, dev, same)
+    check_packbits_edges(rng, dev, same)
     torch.cuda.synchronize()
     return checked
+
+
+def check_packbits_edges(rng, dev, same):
+    """K10 on inputs the main path does not reach (a review's call has R a
+    multiple of 8 and aligned inputs): R of 1, 7, 9, 13 and 4,099, whose
+    last byte has pad bits, with C of 0, 1 and 3, masks all true, all
+    false and random, each once from the start of its tensor and once as
+    a row slice one row into a larger one (a pointer R bytes in; no R
+    here is a multiple of 8, so none is 8-byte aligned); then R of 8 and
+    16 from a buffer one byte in, where the 64-bit word path must be
+    refused.  Each
+    also against numpy's packbits of the same masks on the host."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ops import packbits
+
+    def check(mask, rej):
+        got = packbits.pack_review_masks_cuda(mask, rej)
+        same("packbits", got, packbits.pack_review_masks_plain(mask, rej))
+        host = np.packbits(np.concatenate(
+            [mask.cpu().numpy(), rej.cpu().numpy()]), axis=1)
+        if not np.array_equal(got.cpu().numpy(), host):
+            raise AssertionError("packbits: kernel != numpy packbits")
+
+    for R in (1, 7, 9, 13, 4099):
+        for C in (0, 1, 3):
+            for fill in ("all_true", "all_false", "random"):
+                if fill == "random":
+                    m = rng.random((C + 1, R)) < 0.5
+                    a = rng.random((C + 1, R)) < 0.3
+                else:
+                    m = np.full((C + 1, R), fill == "all_true")
+                    a = ~m
+                big_m = torch.from_numpy(m).to(dev)
+                big_a = torch.from_numpy(a).to(dev)
+                check(big_m[:C], big_a[:C])
+                check(big_m[1:], big_a[1:])
+    for R in (8, 16):
+        for C in (1, 3):
+            buf = torch.from_numpy(rng.random(2 * C * R + 1) < 0.5).to(dev)
+            check(buf[1:1 + C * R].view(C, R),
+                  buf[1 + C * R:].view(C, R))
 
 
 def check_join_edges(rng, dev, same):
@@ -2048,37 +2129,74 @@ def _dev():
     return device
 
 
-def mesh_masks(driver, width: int) -> dict:
-    """sharded_masks and sharded_violation_counts of MESH_REVIEWS stored
-    objects at ``width`` against compute_masks on one device and its
-    mask sums."""
+def _review_bytes(responses) -> list:
+    """Every result of every review, in order, as bytes: constraint,
+    message, enforcement action and metadata."""
+    return [[json.dumps([r.constraint["kind"],
+                         r.constraint["metadata"]["name"], r.msg,
+                         r.enforcement_action, r.metadata],
+                        sort_keys=True, default=str)
+             for r in resp.results()]
+            for resp in responses]
+
+
+def mesh_masks(client, driver, width: int) -> dict:
+    """Reviews under the mesh (compute_masks' mesh branch: K1, K9 and K10
+    on each shard's row slab, each shard's packed download unpacked to
+    its own slab): compute_masks of MESH_REVIEWS stored objects bit-equal
+    to width 1's, review_batch of MESH_ADMISSIONS unique pods byte-equal
+    to width 1's, K10 launched once a shard for each; then
+    sharded_violation_counts against the width-1 mask sums."""
+    import copy
     import itertools
 
     import numpy as np
 
     from gatekeeper_tpu_torch.engine.value import thaw
     from gatekeeper_tpu_torch.parallel import mesh as pm
+    from gatekeeper_tpu_torch.util import synthetic as syn
 
     reviews = [
         driver.target.make_audit_review(thaw(o), api, k, n, ns)
         for o, api, k, n, ns in itertools.islice(
             driver.store.iter_objects(), MESH_REVIEWS)
     ]
-    mesh = pm.audit_mesh(width, driver.device)
+    pods = syn.make_pods(MESH_ADMISSIONS, seed=SEED + 95,
+                         violation_rate=0.5)
+    for i, p in enumerate(pods):
+        p["metadata"]["name"] = f"mesh-admission-{i}"
+    driver.set_mesh(True, width=1)
     _o, mask, rej = driver.compute_masks(reviews)
-    _o2, smask, srej = pm.sharded_masks(driver, reviews, mesh)
-    _o3, counts, rejects = pm.sharded_violation_counts(driver, reviews,
-                                                       mesh)
+    want = _review_bytes(client.review_batch(copy.deepcopy(pods)))
+    driver.set_mesh(True, width=width)
+    k10 = _dev().launches["packbits"]
+    _o2, smask, srej = driver.compute_masks(reviews)
+    k10_masks = _dev().launches["packbits"] - k10
+    t0 = time.perf_counter()
+    got = _review_bytes(client.review_batch(copy.deepcopy(pods)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    k10_reviews = _dev().launches["packbits"] - k10 - k10_masks
+    _o3, counts, rejects = pm.sharded_violation_counts(
+        driver, reviews, pm.audit_mesh(width, driver.device))
+    driver.set_mesh(True, width=1)
     equal = {
         "mask": bool(np.array_equal(mask, smask)),
         "autoreject": bool(np.array_equal(rej, srej)),
+        "reviews": got == want,
         "counts": bool(np.array_equal(counts, mask.sum(axis=1))),
         "autoreject_counts": bool(np.array_equal(rejects, rej.sum(axis=1))),
     }
-    if not all(equal.values()) or not mask.any():
-        raise AssertionError(f"sharded masks at width {width}: {equal}")
-    return {"width": width, "reviews": len(reviews), "equal": equal,
-            "candidates": int(mask.sum())}
+    rec = {"width": width, "reviews": len(reviews),
+           "admissions": len(pods), "equal_to_width_1": equal,
+           "candidates": int(mask.sum()),
+           "denied": sum(1 for r in got if r),
+           "k10_launches": {"compute_masks": k10_masks,
+                            "review_batch": k10_reviews},
+           "review_batch_ms": batch_ms}
+    if not all(equal.values()) or not mask.any() or not any(want) \
+            or k10_masks != width or k10_reviews != width:
+        raise AssertionError(f"reviews under the mesh: {rec}")
+    return rec
 
 
 def multihost_worker(args) -> int:
@@ -2222,7 +2340,7 @@ def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
                          phase="kernel_mesh")
     del cap
     for width in MESH_WIDTHS:
-        log("mesh_masks", **mesh_masks(driver, width))
+        log("mesh_masks", **mesh_masks(client, driver, width))
     log("multihost", **multihost_phase(args))
     del os.environ[pm.VIRTUAL_DEVICES_ENV]
     driver.set_mesh(False)
@@ -2305,6 +2423,142 @@ def device_split(client, driver, churn: Churn) -> dict:
             "p99_ms": percentile(lat[mode], 99),
             "without_side_p50_ms": statistics.median(rest[mode]),
             "without_side_p99_ms": percentile(rest[mode], 99)}
+    return out
+
+
+def review_split(client, driver) -> dict:
+    """The admission review's time, step by step: TorchDriver.review_batch
+    driven from here one step at a time, with a synchronise after each
+    (nothing of it is in the package).  The steps: _review_pack (the pods
+    packed and their columns extracted, the cached constraint side
+    checked twice), _constraint_device (the side's placement, cached),
+    the upload of the review arrays (state_from_numpy), then _eval with
+    match_kernel (K1) and program_eval (K9) each wrapped in synchronises
+    (the rest of _eval, binding the groups, is "bind"), K10, the
+    download of the packed array, the unpack, and _render_masked with
+    the inventory.  Beside it, the bool download of the same two masks
+    (torch.cat and .cpu(), the download before K10), which must unpack
+    to the same masks; the first batch of each size must render what
+    client.review_batch does.  Median and p99 (nearest rank) of each
+    step over REVIEW_SPLIT.  Then FRESH_REVIEWS reviews that each intern
+    a fresh image string: each must re-pack the constraint side."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.convert import state_from_numpy
+    from gatekeeper_tpu_torch.ops import driver as driver_mod
+    from gatekeeper_tpu_torch.ops.packbits import (
+        pack_review_masks, unpack_review_masks)
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    dev = driver.device
+    kernel_ms = {}
+
+    def synced(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            kernel_ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def sig(resps):
+        return [[(r.constraint["metadata"]["name"], r.msg) for r in x[0]]
+                for x in resps]
+
+    steps = ("review_pack", "side_device", "upload", "match", "bind",
+             "program", "packbits", "download", "unpack", "render")
+    saved = (driver_mod.match_kernel, driver_mod.program_eval)
+    driver_mod.match_kernel = synced("match", saved[0])
+    driver_mod.program_eval = synced("program", saved[1])
+    out = {}
+    try:
+        for size, n in REVIEW_SPLIT:
+            pods = syn.make_pods(size * n, seed=SEED + 200 + size,
+                                 violation_rate=0.5)
+            rec = {k: [] for k in steps + ("total", "bool_download")}
+            for i in range(n):
+                batch = pods[i * size:(i + 1) * size]
+                for j, p in enumerate(batch):
+                    p["metadata"]["name"] = f"split-{size}-{i}-{j}"
+                reviews = [client.target.handle_review(p)[1] for p in batch]
+                torch.cuda.synchronize(dev)
+                t = [time.perf_counter()]
+
+                def mark(name):
+                    t.append(time.perf_counter())
+                    rec[name].append((t[-1] - t[-2]) * 1e3)
+
+                side, rv, cols, rows = driver._review_pack(reviews)
+                mark("review_pack")
+                placed = driver._constraint_device(side)
+                torch.cuda.synchronize(dev)
+                mark("side_device")
+                rv_d = state_from_numpy(rv, dev)
+                cols_d = state_from_numpy(cols, dev)
+                torch.cuda.synchronize(dev)
+                mark("upload")
+                mask, rej = driver._eval(side, rv_d, cols_d, placed)
+                t.append(time.perf_counter())
+                eval_ms = (t[-1] - t[-2]) * 1e3
+                rec["match"].append(kernel_ms["match"])
+                rec["program"].append(kernel_ms["program"])
+                rec["bind"].append(eval_ms - kernel_ms["match"]
+                                   - kernel_ms["program"])
+                packed_d = pack_review_masks(mask, rej)
+                torch.cuda.synchronize(dev)
+                mark("packbits")
+                packed = packed_d.cpu().numpy()
+                mark("download")
+                ordered, crow = side[0], side[4]
+                m_np, r_np = unpack_review_masks([packed], rows, crow, rows)
+                mark("unpack")
+                resps = driver._render_masked(
+                    reviews, ordered, m_np, r_np,
+                    driver._inventory_for_render())
+                mark("render")
+                rec["total"].append((t[-1] - t[0]) * 1e3)
+                t0 = time.perf_counter()
+                both = torch.cat([mask, rej], dim=0).cpu().numpy()
+                rec["bool_download"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                c = mask.shape[0]
+                if not (np.array_equal(both[:c][crow][:, :rows], m_np)
+                        and np.array_equal(both[c:][crow][:, :rows], r_np)):
+                    raise AssertionError("review split: the packed masks "
+                                         "differ from the bool download")
+                if i == 0 and sig(resps) != sig(
+                        driver.review_batch(reviews)):
+                    raise AssertionError("review split: the steps render "
+                                         "other results than review_batch")
+            out[f"batch_{size}"] = {
+                "n": n, "rows": rows, "C": int(mask.shape[0]),
+                "packed_bytes": int(packed.nbytes),
+                "bool_bytes": int(both.nbytes),
+                **{k: {"p50_ms": statistics.median(v),
+                       "p99_ms": percentile(v, 99)}
+                   for k, v in rec.items()}}
+    finally:
+        driver_mod.match_kernel, driver_mod.program_eval = saved
+    fresh = []
+    for i in range(FRESH_REVIEWS):
+        pod = syn.make_pods(1, seed=SEED + 300 + i, violation_rate=0.5)[0]
+        pod["metadata"]["name"] = f"fresh-{i}"
+        pod["spec"]["containers"][0]["image"] = f"fresh-{i}.example/app:1"
+        side0 = dict(driver.side_stats)
+        t0 = time.perf_counter()
+        client.review(pod)
+        wall = (time.perf_counter() - t0) * 1e3
+        side = driver.side_stats
+        rec = {"wall_ms": wall,
+               **{k: side[k] - side0[k]
+                  for k in ("repacks", "pack_ms", "uploads", "upload_ms")}}
+        if rec["repacks"] < 1 or rec["uploads"] < 1:
+            raise AssertionError(f"a fresh string did not re-pack: {rec}")
+        fresh.append(rec)
+    out["fresh_string_reviews"] = fresh
     return out
 
 
@@ -2422,9 +2676,9 @@ def main(argv=None) -> int:
         resp, totals = client.audit_capped(CAP)
         cold_s = time.perf_counter() - t0
     per_sweep = dict(gdev.launches)
-    if per_sweep["program"] != 1:
-        raise AssertionError(f"K9 launched {per_sweep['program']} times in "
-                             f"one full sweep")
+    if per_sweep["program"] != 1 or per_sweep["packbits"] != 0:
+        raise AssertionError(f"K9 launched {per_sweep['program']} times and "
+                             f"K10 {per_sweep['packbits']} in one full sweep")
     results = resp.results()
     stats = dict(driver.last_sweep_stats)
     n_constraints = sum(len(v) for v in driver.constraints.values())
@@ -2508,6 +2762,9 @@ def main(argv=None) -> int:
             launches["program"] != launches["match"]:
         raise AssertionError(f"K9 is not one launch per evaluation: "
                              f"{review_launches}, {launches}")
+    if review_launches["packbits"] != len(pods):
+        raise AssertionError(f"K10 is not one launch per review: "
+                             f"{review_launches}")
     rest = [t - s for t, s in zip(lat, side_ms)]
     log("reviews", n=len(pods), p50_ms=statistics.median(lat),
         p99_ms=percentile(lat, 99), max_ms=max(lat), denied=denied,
@@ -2518,7 +2775,7 @@ def main(argv=None) -> int:
         without_side_p99_ms=percentile(rest, 99),
         gc_pause_ms_total=sum(gc_ms), gc_pause_ms_max=max(gc_ms),
         launches=review_launches)
-    missing = [k for k in PATH1_KERNELS if launches[k] == 0]
+    missing = [k for k in PATH1_KERNELS + ("packbits",) if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -2555,6 +2812,20 @@ def main(argv=None) -> int:
     pod["metadata"]["name"] = "admission-recorded"
     with Capture(names=("match", "program")) as review_cap:
         client.review(pod)
+    # K10 on every call of phase 3's reviews: the same pods again, recorded
+    # (the counted loop is not, so its latencies carry no copies), then
+    # one batch of REVIEWS pods (R = 256)
+    with Capture(names=("packbits",)) as k10_cap:
+        for p in pods:
+            client.review(p)
+    batch = syn.make_pods(REVIEWS, seed=SEED + 96, violation_rate=0.5)
+    for i, p in enumerate(batch):
+        p["metadata"]["name"] = f"admission-batch-{i}"
+    with Capture(names=("packbits",)) as k10_batch_cap:
+        client.review_batch(batch)
+    if len(k10_cap.calls["packbits"]) != len(pods) or \
+            len(k10_batch_cap.calls["packbits"]) != 1:
+        raise AssertionError("K10 is not one call per review evaluation")
 
     # 4. each kernel against its plain version, on the main path's inputs;
     # K2 and K3 on the cells K9 ran them in (cell_calls)
@@ -2568,6 +2839,14 @@ def main(argv=None) -> int:
     merge_rows(kernel_rows, check_kernels(cell_calls(review_cap), REPS,
                                           timed=()))
     del review_cap
+    # K10 on every recorded review call, timed at a review's call (C = 1024
+    # group rows, R = 8), and at the batch's (R = 256)
+    merge_rows(kernel_rows, check_kernels(k10_cap, REPS, timed=("packbits",),
+                                          phase="kernel_review"))
+    merge_rows(kernel_rows, check_kernels(k10_batch_cap, REPS,
+                                          timed=("packbits",),
+                                          phase="kernel_batch"))
+    del k10_cap, k10_batch_cap
 
     log("edges", checked=check_edges())
     log("match_live_selectors",
@@ -2635,6 +2914,7 @@ def main(argv=None) -> int:
     del cap2
     merge_rows(kernel_rows, churn_rows)
     log("device_split", **device_split(client, driver, churn))
+    log("review_split", **review_split(client, driver))
 
     # 7. parity at a small size against the interpreter oracle
     t0 = time.perf_counter()

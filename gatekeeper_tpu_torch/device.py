@@ -38,7 +38,7 @@ from typing import Dict, Optional
 import torch
 
 KERNEL_NAMES = ("match", "strpred", "setcount", "reduction", "delta",
-                "scatter", "joinkeys", "joinlookup", "program")
+                "scatter", "joinkeys", "joinlookup", "program", "packbits")
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_PKG_DIR, "kernels")
@@ -62,6 +62,7 @@ _SIGNATURES = {
     "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiipppp"),
     "joinlookup": ("joinlookup", "gk_joinlookup_launch", "ppipiipppiipp"),
     "program": ("program", "gk_program_launch", "piipiiiip"),
+    "packbits": ("packbits", "gk_packbits_launch", "ppiiipp"),
 }
 LAUNCHERS = tuple(_SIGNATURES)
 

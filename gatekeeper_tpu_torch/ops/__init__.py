@@ -1,5 +1,5 @@
 """Device backend: columnar packing, the vectorized match and violation
-evaluation in PyTorch (CUDA kernels K1-K8 on the card), and TorchDriver.
+evaluation in PyTorch (CUDA kernels K1-K10 on the card), and TorchDriver.
 
 - The audit sweep constraints x resources is one batched boolean-tensor
   evaluation on the device; admission reviews batch onto the same path.

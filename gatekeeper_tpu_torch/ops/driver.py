@@ -8,7 +8,9 @@ Pipeline per review batch or audit sweep:
      group's violation program, as bytecode (ops/progcode.py), ANDed into
      its static row block by one launch of the program kernel (K9, with
      K2's and K3's cell functions inside, ops/program.py); for capped
-     audits the packed [C, 1+K] reduction (K4)
+     audits the packed [C, 1+K] reduction (K4); for reviews the mask and
+     the autoreject mask bit-packed into one uint8 array (K10,
+     ops/packbits.py), the one array downloaded
   3. host: for each positive cell, the exact native match re-check and the
      violation render — through the compiled render plan (ops/renderplan.py)
      where the template has one, else the interpreter
@@ -48,8 +50,10 @@ patched by K6 on the owning shards only; each shard runs K1 -> K9 -> K4
 (K4 writing global rows) on its slab, each join plan's table is K7 per
 shard and K7's merge, and the host merges the [W, C, 1+K'] reductions.  A
 delta sweep evaluates its dirty rows on the mesh's first device and K5
-gathers their before-columns on their owning shards.  compute_masks and
-review_batch stay on one device, as in TpuDriver.  Left out: the mesh's
+gathers their before-columns on their owning shards.  compute_masks, and
+so review_batch, evaluates the review batch in row slabs too, as
+TpuDriver's _dispatch does: K1 -> K9 -> K10 on each shard, each shard's
+packed mask unpacked to its own slab.  Left out: the mesh's
 metrics and flight-recorder events, and the circuit breaker that a stalled
 dispatch trips there (a stall degrades the mesh and raises).
 """
@@ -87,6 +91,7 @@ from ..parallel.mesh import (
     owning_shards,
     replicate_tree,
     shard_review_side,
+    sharded_masks,
     slab_rows,
     visible_devices,
 )
@@ -100,6 +105,7 @@ from .deltasweep import DeltaState, MaskSource, NeedsFullSweep
 from .interning import Interner, PredicateTable
 from .matchkernel import constraint_records, match_kernel
 from .pack import _bucket as _bucket_pow2, pack_constraints, pack_reviews
+from .packbits import pack_review_masks, unpack_review_masks
 from .params import pack_params
 from .reduction import packed_reduction
 from .scatter import scatter_rows
@@ -540,16 +546,23 @@ class TorchDriver(InterpDriver):
     def compute_masks(self, reviews: List[dict]):
         """-> (ordered constraints, candidate mask [C, rows], autoreject
         mask [C, rows]) as numpy bool arrays, rows the bucketed review
-        count, in sorted constraint order (pad block rows dropped)."""
+        count, in sorted constraint order (pad block rows dropped).
+
+        Both masks leave the device as one bit-packed uint8 array (K10),
+        unpacked on the host, as in TpuDriver.  Under a mesh the review
+        batch is evaluated in row slabs, one a shard (sharded_masks)."""
+        mesh = self._mesh()
+        if mesh is not None:
+            return sharded_masks(self, reviews, mesh)
         side, rv, cols, rows = self._review_pack(reviews)
         ordered, _cp, _groups, _specs, crow = side
         placed = self._constraint_device(side)
         rv_d = state_from_numpy(rv, self.device)
         cols_d = state_from_numpy(cols, self.device)
         mask, autoreject = self._eval(side, rv_d, cols_d, placed)
-        both = torch.cat([mask, autoreject], dim=0).cpu().numpy()
-        c = mask.shape[0]
-        return ordered, both[:c][crow][:, :rows], both[c:][crow][:, :rows]
+        packed = pack_review_masks(mask, autoreject).cpu().numpy()
+        mask_np, rej_np = unpack_review_masks([packed], rows, crow, rows)
+        return ordered, mask_np, rej_np
 
     # ---- referential policies (ops/joinkernel.py) -------------------------
 

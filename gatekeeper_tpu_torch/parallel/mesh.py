@@ -1,4 +1,5 @@
-"""Several devices: shard the resource axis of the audit sweep over a mesh.
+"""Several devices: shard the resource axis of the audit sweep, and of a
+review batch, over a mesh.
 
 The counterpart of gatekeeper_tpu/parallel/mesh.py.  The audit sweep is
 data-parallel over resources: the review-side arrays (leading dim R) are
@@ -32,6 +33,7 @@ import torch
 
 from ..convert import place
 from ..device import pinned_empty, select_device
+from ..ops.packbits import pack_review_masks, unpack_review_masks
 from ..util import join_thread
 
 #: the environment variable that asks visible_devices() for n slots of one
@@ -463,30 +465,41 @@ class ShardedMask:
         return np.concatenate([s[c].cpu().numpy() for s in self.slabs])
 
 
-def _shard_evals(driver, reviews, mesh: TorchMesh):
-    """Each shard's (mask, autoreject) of the review-mode evaluation of
-    ``reviews`` -> (ordered, crow, rows, [(mask, autoreject)])."""
+def _shard_evals(driver, reviews, mesh: TorchMesh, finish):
+    """The review-mode evaluation of ``reviews`` in row slabs, one a
+    shard: each shard's (mask, autoreject) on its device goes through
+    ``finish`` there, and every shard's launches are queued, under the
+    driver's guarded mesh dispatch, before any result is read -> (ordered,
+    crow, rows, slab, [finish's tensors on the host as numpy] one list a
+    shard)."""
     side, rv, cols, rows = driver._review_pack(reviews)
-    shards, _target = shard_review_side(mesh, rows, rv, cols)
-    out = []
-    with DISPATCH_LOCK:
-        for (rv_s, cols_s), dev in zip(shards, mesh.devices):
-            out.append(driver._eval(side, rv_s, cols_s,
-                                    driver._constraint_device(side, dev)))
-    return side[0], side[4], rows, out
+    shards, target = shard_review_side(mesh, rows, rv, cols)
+    for dev in mesh.distinct():
+        driver._constraint_device(side, dev)
+
+    def dispatch():
+        outs = [finish(*driver._eval(side, rv_s, cols_s,
+                                     driver._constraint_device(side, dev)))
+                for (rv_s, cols_s), dev in zip(shards, mesh.devices)]
+        return [[t.cpu().numpy() for t in out] for out in outs]
+
+    out = driver._guarded_mesh_dispatch(mesh, dispatch)
+    return side[0], side[4], rows, target // int(mesh.devices.size), out
 
 
 def sharded_masks(driver, reviews, mesh: TorchMesh):
     """compute_masks, sharded over the mesh: each shard evaluates its row
-    slab (match kernel + every violation-program group) on its device.
-    Returns (ordered, mask, autoreject) like TorchDriver.compute_masks,
-    the row axis trimmed back to the single-device bucket so results
-    compare bit for bit."""
-    ordered, crow, rows, evals = _shard_evals(driver, reviews, mesh)
-    mask = np.concatenate([m.cpu().numpy() for m, _a in evals], axis=1)
-    rej = np.concatenate([a.cpu().numpy() for _m, a in evals], axis=1)
+    slab (match kernel + every violation-program group) on its device and
+    bit-packs its two masks there (K10); each shard's download is
+    unpacked to its own slab before the slabs join.  Returns (ordered,
+    mask, autoreject) like TorchDriver.compute_masks, the row axis
+    trimmed back to the single-device bucket so results compare bit for
+    bit."""
+    ordered, crow, rows, slab, outs = _shard_evals(
+        driver, reviews, mesh, lambda m, a: (pack_review_masks(m, a),))
     # crow folds the group-major pad rows out (driver._constraint_side)
-    return ordered, mask[crow][:, :rows], rej[crow][:, :rows]
+    mask, rej = unpack_review_masks([p for (p,) in outs], slab, crow, rows)
+    return ordered, mask, rej
 
 
 def sharded_violation_counts(driver, reviews, mesh: TorchMesh):
@@ -496,9 +509,9 @@ def sharded_violation_counts(driver, reviews, mesh: TorchMesh):
     ints a shard cross back."""
     from ..ops.reduction import packed_reduction
 
-    ordered, crow, _rows, evals = _shard_evals(driver, reviews, mesh)
-    counts = [(packed_reduction(m, 0), packed_reduction(a, 0))
-              for m, a in evals]
-    mask_n = sum(c.cpu().numpy()[:, 0].astype(np.int64) for c, _r in counts)
-    rej_n = sum(r.cpu().numpy()[:, 0].astype(np.int64) for _c, r in counts)
+    ordered, crow, _rows, _slab, outs = _shard_evals(
+        driver, reviews, mesh,
+        lambda m, a: (packed_reduction(m, 0), packed_reduction(a, 0)))
+    mask_n = sum(c[:, 0].astype(np.int64) for c, _r in outs)
+    rej_n = sum(r[:, 0].astype(np.int64) for _c, r in outs)
     return ordered, mask_n[crow], rej_n[crow]

@@ -85,7 +85,7 @@ def test_torch_driver_defaults_to_the_card_and_raises_without_one():
 def test_every_kernel_has_a_source_with_its_note():
     from gatekeeper_tpu_torch import device
 
-    assert "program" in device.KERNEL_NAMES
+    assert {"program", "packbits"} <= set(device.KERNEL_NAMES)
     for name in device.KERNEL_NAMES:
         src = (PKG / "kernels" / f"{name}.cu").read_text()
         assert "Replaces gatekeeper_tpu/" in src, name
@@ -104,6 +104,8 @@ def test_ctypes_signatures_match_the_c_launchers():
     libraries = {lib for lib, _fn, _sig in device._SIGNATURES.values()}
     assert libraries == set(device.KERNEL_NAMES)
     assert device._SIGNATURES["program"][1] == "gk_program_launch"
+    assert device._SIGNATURES["packbits"] == (
+        "packbits", "gk_packbits_launch", "ppiiipp")
     for name, (lib, fn_name, sig) in device._SIGNATURES.items():
         src = (PKG / "kernels" / f"{lib}.cu").read_text()
         launchers = re.findall(r'extern "C" int (gk_\w+_launch)\(', src)
@@ -132,6 +134,7 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     here): the wrappers run their plain versions and count nothing."""
     from gatekeeper_tpu_torch import device
     from gatekeeper_tpu_torch.ops import progcode, vexpr
+    from gatekeeper_tpu_torch.ops.packbits import pack_review_masks
     from gatekeeper_tpu_torch.ops.program import bind_group, program_eval
     from gatekeeper_tpu_torch.ops.reduction import packed_reduction
     from gatekeeper_tpu_torch.ops.setcount import setcount
@@ -142,6 +145,10 @@ def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     mask[1, 5] = True
     assert packed_reduction(mask, 3).tolist() == [
         [0, -1, -1, -1], [1, 5, -1, -1],
+    ]
+    packed = pack_review_masks(mask[:, :10], ~mask[:, :10])
+    assert packed.dtype == torch.uint8 and packed.tolist() == [
+        [0, 0], [4, 0], [255, 192], [251, 192],
     ]
     table = torch.tensor([[0, 1], [1, 0], [1, 1]], dtype=torch.uint8)
     hit = strpred(

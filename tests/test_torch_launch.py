@@ -5,7 +5,7 @@ and a mesh shard's tensors may lie on another card than the current one.
 So ``device.launch`` takes the device of the tensors it launches on and
 calls the launcher inside ``torch.cuda.device`` of it, and every wrapper
 hands it the device of its inputs.  Both are checked here on the CPU:
-``launch`` with a stand-in library and device context, each of the ten
+``launch`` with a stand-in library and device context, each of the eleven
 launchers' wrappers with ``launch`` recording what it was handed (the
 wrappers' CUDA functions, called on CPU tensors, with the stream and the
 pinned staging buffer stood in for)."""
@@ -19,7 +19,8 @@ import torch
 from gatekeeper_tpu_torch import device as dev
 from gatekeeper_tpu_torch.ops import delta, joinkeys, joinlookup
 from gatekeeper_tpu_torch.ops import driver as driver_mod
-from gatekeeper_tpu_torch.ops import matchkernel, program, reduction
+from gatekeeper_tpu_torch.ops import matchkernel, packbits, program
+from gatekeeper_tpu_torch.ops import reduction
 from gatekeeper_tpu_torch.ops import scatter, setcount, strpred
 from gatekeeper_tpu_torch.util import synthetic as syn
 
@@ -114,5 +115,6 @@ def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
     joinkeys.merge_key_tables_cuda(_i32([0, 2, 2]), _i32([1, 1, 2]), 4)
     joinlookup.join_lookup_cuda(_i32([0, 2]), _i32([1, 2]), _i32([2, 1, 0]),
                                 (valid, kind, ns_empty, 1, True))
+    packbits.pack_review_masks_cuda(mask, ~mask)
     assert {name for name, _d in got} == set(dev.LAUNCHERS)
     assert all(d == CPU for _n, d in got), got

@@ -232,6 +232,7 @@ def test_sharded_masks_bit_parity(width):
     Equal to the port's single-device masks and to TpuDriver's on its
     8-device mesh."""
     td, reviews, jd, jreviews = _workload()
+    td.set_mesh(False)  # the single-device reference
     o1, mask1, rej1 = td.compute_masks(reviews)
     o2, mask2, rej2 = pm.sharded_masks(td, reviews, pm.audit_mesh(width,
                                                                   "cpu"))
@@ -246,12 +247,95 @@ def test_sharded_masks_bit_parity(width):
 
 def test_sharded_violation_counts_match_mask_sums():
     td, reviews, _jd, _jr = _workload()
+    td.set_mesh(False)
     _o, mask, rej = td.compute_masks(reviews)
     _o2, counts, rejects = pm.sharded_violation_counts(
         td, reviews, pm.audit_mesh(8, "cpu"))
     np.testing.assert_array_equal(counts, mask.sum(axis=1))
     np.testing.assert_array_equal(rejects, rej.sum(axis=1))
     assert counts.sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# admission reviews under the mesh (compute_masks' mesh branch)
+# ---------------------------------------------------------------------------
+
+
+def _review_pods(n):
+    pods = syn.make_pods(n, seed=7, violation_rate=0.5)
+    for i, p in enumerate(pods):
+        p["metadata"]["name"] = f"mesh-review-{i}"
+    return pods
+
+
+def _review_sig(responses):
+    """Every result of every review, in order, as bytes: constraint,
+    message, enforcement action and metadata."""
+    return [
+        [json.dumps([r.constraint["kind"], r.constraint["metadata"]["name"],
+                     r.msg, r.enforcement_action, r.metadata],
+                    sort_keys=True, default=str)
+         for r in resp.results()]
+        for resp in responses
+    ]
+
+
+@pytest.fixture(scope="module")
+def review_refs():
+    """For a batch of 1 review (8 rows) and of 9 (16 rows): the port's
+    masks on one device, equal to TpuDriver's on the conftest's 8-device
+    mesh, and the oracle's review results, equal to the port's."""
+    port = syn.build_driver(8, 40, device="cpu")
+    assert port.driver._mesh() is None
+    tpu = jsyn.build_driver(8, 40)
+    oracle = jsyn.build_oracle(8, 40)
+    out = {}
+    for n in (1, 9):
+        pods = _review_pods(n)
+        reviews = [port.driver.target.handle_review(p)[1] for p in pods]
+        masks = port.driver.compute_masks(reviews)
+        _o, jmask, jrej = tpu.driver.compute_masks(copy.deepcopy(reviews))
+        np.testing.assert_array_equal(masks[1], jmask)
+        np.testing.assert_array_equal(masks[2], jrej)
+        want = _review_sig(oracle.review_batch(copy.deepcopy(pods)))
+        assert _review_sig(port.review_batch(copy.deepcopy(pods))) == want
+        assert any(want)
+        out[n] = (pods, reviews, masks, want)
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 9])
+@pytest.mark.parametrize("width", [2, 3, 4, 8])
+def test_reviews_under_the_mesh_equal_width_1(width, n, review_refs,
+                                              monkeypatch):
+    """compute_masks and review_batch at every width: each shard packs
+    its slab (K10's plain version, once a shard) and the host unpacks
+    each slab on its own.  R = 8 at width 4 is a slab of 2 rows, and
+    widths 3 and 8 give slabs of 3, 6, 1 and 2 rows: none a multiple of
+    8, so the pad bits of each slab's last byte must drop out."""
+    from gatekeeper_tpu_torch.ops import packbits
+
+    pods, reviews, (o1, mask1, rej1), want = review_refs[n]
+    client = _port(8, 40, width)
+    driver = client.driver
+    assert driver.mesh_layout() == width
+    calls = []
+    orig = packbits.pack_review_masks_plain
+    monkeypatch.setattr(
+        packbits, "pack_review_masks_plain",
+        lambda m, a: calls.append(tuple(m.shape)) or orig(m, a))
+    o2, mask2, rej2 = driver.compute_masks(reviews)
+    rows = mask1.shape[1]
+    slab = pm.slab_rows(rows, width)[1]
+    C = driver._constraint_side()[1].arrays["valid"].shape[0]
+    assert calls == [(C, slab)] * width
+    assert [o[:2] for o in o2] == [o[:2] for o in o1]
+    assert mask2.shape == mask1.shape
+    np.testing.assert_array_equal(mask2, mask1)
+    np.testing.assert_array_equal(rej2, rej1)
+    calls.clear()
+    assert _review_sig(client.review_batch(copy.deepcopy(pods))) == want
+    assert len(calls) == width
 
 
 # ---------------------------------------------------------------------------
@@ -589,6 +673,31 @@ class TestDispatchWatchdog:
         assert driver._guarded_mesh_dispatch(driver._mesh(), lambda: 7) == 7
         assert [driver.degrade_mesh() for _ in range(3)] == [2, 1, 1]
         assert driver._mesh() is None
+
+    def test_a_stalled_review_degrades_the_mesh(self):
+        """A review batch's shard evaluations run under the same guarded
+        dispatch as the sweeps."""
+        client = _port(4, 16, 4)
+        driver = client.driver
+        driver.mesh_watchdog_s = 0.2
+        release = threading.Event()
+
+        def wedged(*_a, **_kw):
+            release.wait(10)
+            raise RuntimeError("the abandoned dispatch")
+
+        driver._eval = wedged
+        try:
+            with pytest.raises(pm.MeshDispatchStall):
+                client.review(_review_pods(1)[0])
+        finally:
+            release.set()
+            del driver._eval
+        assert driver.mesh_layout() == 2
+        oracle = jsyn.build_oracle(4, 16)
+        pod = _review_pods(1)[0]
+        assert _review_sig([client.review(copy.deepcopy(pod))]) == \
+            _review_sig([oracle.review(pod)])
 
     def test_a_stalled_sweep_degrades_then_sweeps_narrower(self):
         pair = _pair(4, 16, 4)

@@ -147,6 +147,7 @@ def test_sharded_masks_on_cards(cards):
     driver = client.driver
     reviews = [driver.target.make_audit_review(thaw(o), api, k, n, ns)
                for o, api, k, n, ns in driver.store.iter_objects()]
+    driver.set_mesh(False)  # the one-card reference
     _o, mask, rej = driver.compute_masks(reviews)
     mesh = pm.audit_mesh(cards, driver.device)
     _o2, smask, srej = pm.sharded_masks(driver, reviews, mesh)
