@@ -10,7 +10,8 @@ hand-written kernels against their plain PyTorch versions.
 
 Phases (one line each; any failure exits non-zero, nothing is caught):
   1. the card: nvidia-smi's name and power limit, torch's device name
-  2. the kernels' build (kernels/*.cu, one nvcc each, in parallel)
+  2. the kernels' build (kernels/*.cu, one nvcc each, in parallel), and
+     K7's grids (at least one block a SM)
   3. the main path through gatekeeper_tpu_torch.client.Client(TorchDriver()):
      the synthetic corpus at 500 ConstraintTemplates x 100,000 Pods, a cold
      audit_capped(20), warm sweeps (each one's stages and garbage-collector
@@ -36,9 +37,13 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      S = 0, P = 0, a key set of 12, unbound joins, a deep
      stack; K1: R off its 8 reviews a thread; K10: R off a byte, C of 0,
      1 and 3, masks all true, all false and random, unaligned row slices
-     and buffers), and K1 once more at the main
-     path's shape and at R = 4099 on a corpus whose label and namespace
-     selectors are live
+     and buffers; K7 and its merge at vocabularies around their grid's
+     chunks, with keys in a few chunks only, on every id and on none, the
+     merge of 2, 3, 4 and 8 shard tables; K8 in both modes on the same
+     queries), and K1 once more at the main path's shape and at R = 4099
+     on a corpus whose label and namespace selectors are live; B6's least
+     time (the sweep as one function, its mask kept inside) is logged
+     beside the sum of K1's, K9's and K4's times
   5. the sweep's [C, 1+K] reduction against the same state evaluated and
      reduced through the plain versions on the card
   6. the incremental audit, the second path, at the same size: churn
@@ -80,8 +85,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      K1, K9, K4, K5 and K6 must have launched on that run, K9 as often as
      K1, and vexpr.eval_program never.  Every K7, K8 and K9 call of the
      cold sweep and K8's and K9's of one key-moving delta sweep for each
-     d are held against the plain versions, K7 and K8 timed at their
-     largest call; seeded edge cases are in phase 4.  The device-stage
+     d are held against the plain versions, K7 and K8 (its dense mode)
+     timed at their largest call, K8's table mode at the delta sweeps'
+     largest; seeded edge cases are in phase 4.  The device-stage
      split of forced full and key-moving churn sweeps, op-by-op against
      K9.  Then parity against the oracle at 6 x 240 under
      GK_JOIN_ASSERT=1, capped, uncapped, and uncapped after churn through
@@ -471,8 +477,8 @@ class Kernel:
     the call's arguments on the card once; ``kernel(p)`` and ``plain(p)``
     run the kernel and its plain version on them (checked and timed
     alike); ``work(p)`` -> (bytes, operations, shapes, the library call or
-    None); ``size(a)`` ranks the calls, and the largest (the first of
-    equals) is timed; ``reset(p, which)``, where given, restores the
+    None[, {key: a call timed as a note under key}]); ``size(a)`` ranks
+    the calls, and the largest (the first of equals) is timed; ``reset(p, which)``, where given, restores the
     kernel's ('kernel') or the plain version's ('plain') in-place output
     before each timed call."""
 
@@ -687,10 +693,12 @@ def _joinkeys_work(p):
             sid, mask & (sid >= 0) & part[:, None], torch)
         flat = flat[flat != int(joinkernel.KEY_INVALID)]
     # bytes: three review fields a row, each key id and mask byte, the two
-    # [N] outputs; operations: the participation test of a row, three
-    # tests of a slot, an earlier-slot compare for each pair of slots of a
-    # participating row, one atomic a distinct key, one test a vocabulary id
-    nbytes = 6 * R + 4 * N + (0 if mask is None else N) + 8 * N
+    # [N] outputs and the [V] dense counts; operations: the participation
+    # test of a row, three tests of a slot, an earlier-slot compare for
+    # each pair of slots of a participating row, one atomic a distinct key,
+    # one test a vocabulary id
+    nbytes = (6 * R + 4 * N + (0 if mask is None else N) + 8 * N
+              + 4 * max(vocab, 1))
     ops = 3 * R + 3 * N + rows * S * (S - 1) // 2 + int(flat.numel()) + vocab
     return (nbytes, ops,
             {"R": R, "S": S, "N": N, "vocab": vocab, "rows_taking_part": rows,
@@ -706,27 +714,41 @@ def _merge_work(p):
     ok = (uk >= 0) & (uk < vocab) & (uc != 0)
     keys, weights = uk[ok].long(), uc[ok]
     counts = torch.zeros(max(vocab, 1), dtype=torch.int32, device=uk.device)
-    # bytes: the [N] tables read, the [N] merged table written;
-    # operations: the test and the atomic of an entry, one test a
-    # vocabulary id
-    return (16 * N, 2 * N + vocab,
+    # bytes: the [N] tables read, the [N] merged table and the [V] dense
+    # counts written; operations: the test and the atomic of an entry, one
+    # test a vocabulary id.  No single PyTorch call merges and compacts:
+    # index_add_ of the weights, the scatter alone, is timed as a note
+    return (16 * N + 4 * max(vocab, 1), 2 * N + vocab,
             {"N": N, "vocab": vocab, "valid_entries": int(keys.numel())},
-            lambda: counts.index_add_(0, keys, weights))
+            None, {"scatter_only_ms": lambda: counts.index_add_(0, keys,
+                                                                weights)})
 
 
 def _joinlookup_work(p):
     import torch
 
-    (uk, uc, q, scope), _kw = p
+    (uk, uc, q, scope), kw = p
+    dense = kw.get("dense")
     N, T, R = q.numel(), uk.numel(), q.shape[0]
-    # bytes: each query read and its count written, the table read once,
-    # three review fields a row when the self-exclusion runs; operations:
-    # the compares of one binary search a query, and the self test
+    # bytes: each query read and its count written, three review fields a
+    # row when the self-exclusion runs, and what the mode reads once: the
+    # (uk, uc) table in table mode, the [V] dense counts in dense mode;
+    # operations: the compares of one binary search a query (table mode)
+    # or its range test and read (dense mode), and the self test
     steps = max(1, math.ceil(math.log2(T + 1)))
-    nbytes = 8 * N + 8 * T + (0 if scope is None else 6 * R)
-    ops = N * (steps + 2) + (0 if scope is None else 4 * N)
-    return (nbytes, ops,
-            {"N": N, "R": R, "T": T, "self_exclusion": scope is not None},
+    rows = 0 if scope is None else 6 * R
+    self_ops = 0 if scope is None else 4 * N
+    table = (8 * N + 8 * T + rows, N * (steps + 2) + self_ops)
+    shapes = {"N": N, "R": R, "T": T, "self_exclusion": scope is not None,
+              "mode": "table" if dense is None else "dense"}
+    if dense is None:
+        nbytes, ops = table
+    else:
+        V = dense.numel()
+        nbytes, ops = 8 * N + 4 * V + rows, 2 * N + self_ops
+        # the table-mode bound of the same queries, beside dense mode's
+        shapes.update(V=V, table_mode_bound_ms=bound(*table)["bound_ms"])
+    return (nbytes, ops, shapes,
             lambda: uc[torch.searchsorted(uk, q).clamp_(max=T - 1)])
 
 
@@ -865,7 +887,7 @@ def check_kernels(cap: Capture, reps: int, timed, phase: str = "kernel"):
             continue
         a, kw, _out = max(calls, key=lambda c: spec.size(c[0]))
         p = spec.prep(a, kw)
-        nbytes, ops, shapes, library = spec.work(p)
+        nbytes, ops, shapes, library, *notes = spec.work(p)
         sizes = sorted({spec.size(c[0]) for c in calls})
         if len(sizes) > 1:
             shapes["sizes_by_call"] = sizes
@@ -879,9 +901,28 @@ def check_kernels(cap: Capture, reps: int, timed, phase: str = "kernel"):
             "library_ms": None if library is None else cuda_ms(library, reps),
             "shapes": shapes,
         })
+        for key, fn in (notes[0] if notes else {}).items():
+            row[key] = cuda_ms(fn, reps)
         log(phase, **row)
         del p
     return rows
+
+
+def fused_audit_bound(rows: dict) -> dict:
+    """B6, gatekeeper_tpu/ops/driver.py _fused_audit_fn: the capped sweep
+    as one function, which keeps the [C, R] mask inside.  Its least time
+    at the cold sweep's call: K1's and K9's inputs read once (their mask
+    traffic left out), [C, 1+K] written, and the operations of K1, K9
+    and K4; beside the sum of the three kernels' times."""
+    m, g, r = rows["match"], rows["program"], rows["reduction"]
+    masks = 2 * m["shapes"]["C"] * m["shapes"]["R"]  # K1's two outputs
+    group_mask = 2 * g["shapes"]["group_rows"] * g["shapes"]["R"]
+    out = r["shapes"]["C"] * (1 + r["shapes"]["K"]) * 4
+    nbytes = m["bytes"] - masks + g["bytes"] - group_mask + out
+    return {**bound(nbytes, m["ops"] + g["ops"] + r["ops"]),
+            "kernels_ms": m["ms"] + g["ms"] + r["ms"],
+            "mask_bytes_left_out": masks + group_mask + r["shapes"]["C"]
+            * r["shapes"]["R"]}
 
 
 def match_work(rv: dict, cs: dict, crec):
@@ -967,7 +1008,9 @@ def check_edges():
     keys within a row, S = 1 and S > 32, R off the block size, int/str
     twin keys (K7), queries at UNKNOWN_KEY, -1, the largest id and past
     it, host tables of width TABLE_MIN and the self-exclusion on rows of
-    the wrong kind and scope (K8).  Exact."""
+    the wrong kind and scope (K8, dense mode too on every table K7
+    built), and K7 and its merge at vocabulary sizes around their grid
+    (check_join_vocab_edges).  Exact."""
     import numpy as np
     import torch
 
@@ -980,8 +1023,8 @@ def check_edges():
 
     dev = torch.device(DEVICE)
     checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
-               "delta": 0, "scatter": 0, "joinkeys": 0, "joinlookup": 0,
-               "program": 0, "packbits": 0}
+               "delta": 0, "scatter": 0, "joinkeys": 0, "joinkeys_merge": 0,
+               "joinlookup": 0, "program": 0, "packbits": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -1143,8 +1186,10 @@ def check_packbits_edges(rng, dev, same):
 
 
 def check_join_edges(rng, dev, same):
-    """K7 and K8 against their plain versions on seeded edge cases (see
-    check_edges)."""
+    """K7 (its table and dense counts) and K8 in both modes against their
+    plain versions on seeded edge cases (see check_edges), then K7 and its
+    merge at vocabulary sizes around their grid's chunks
+    (check_join_vocab_edges)."""
     import numpy as np
     import torch
 
@@ -1182,8 +1227,9 @@ def check_join_edges(rng, dev, same):
             rv = (t(valid), t(kind), t(ns_empty))
             for namespaced in (True, False):
                 args = (*rv, t(sid), mask, 1, namespaced, V)
-                uk, uc = joinkeys.join_keys_cuda(*args)
-                same("joinkeys", (uk, uc), joinkeys.join_keys_plain(*args))
+                uk, uc, dense = joinkeys.join_keys_cuda(*args)
+                same("joinkeys", (uk, uc, dense),
+                     joinkeys.join_keys_plain(*args))
                 if scope == "none":
                     assert not bool((uk != int(joinkernel.KEY_INVALID)).any())
                 q_np = rng.integers(-6, V + 3, shape).astype(np.int32)
@@ -1191,9 +1237,7 @@ def check_join_edges(rng, dev, same):
                                         twins[1])
                 q = t(q_np)
                 for sc in (None, (*rv, 1, namespaced), (*rv, 2, namespaced)):
-                    same("joinlookup",
-                         joinlookup.join_lookup_cuda(uk, uc, q, sc),
-                         joinlookup.join_lookup_plain(uk, uc, q, sc))
+                    lookup_both_modes(same, uk, uc, dense, q, sc)
     # the host index's power-of-two tables, TABLE_MIN wide and wider
     for n_keys in (0, 3, joinkernel.TABLE_MIN, 40):
         keys = np.sort(rng.choice(V, n_keys, replace=False)).astype(np.int32)
@@ -1215,6 +1259,124 @@ def check_join_edges(rng, dev, same):
                 same("joinlookup",
                      joinlookup.join_lookup_cuda(t(uk), t(uc), q, sc),
                      joinlookup.join_lookup_plain(t(uk), t(uc), q, sc))
+    check_join_vocab_edges(rng, dev, same)
+
+
+def lookup_both_modes(same, uk, uc, dense, q, scope):
+    """K8 in table mode and in dense mode on the same queries, each
+    against the plain version (and so against each other); the queries'
+    second slot column too where q is [R, 2] (unaligned: the dense mode's
+    one-query-a-thread path)."""
+    from gatekeeper_tpu_torch.ops import joinlookup
+
+    qs = [q]
+    if q.dim() == 2 and q.shape[1] == 2 and q.shape[0] > 1:
+        # rows 1.. of a [R, 2] tensor offset by one int: 4-byte aligned
+        flat = q.reshape(-1)[1:1 + 2 * (q.shape[0] - 1)]
+        qs.append(flat.view(q.shape[0] - 1, 2))
+    for qq in qs:
+        sc = scope
+        if sc is not None and qq.shape[0] != q.shape[0]:
+            sc = tuple(a[1:] for a in sc[:3]) + tuple(sc[3:])
+        plain = joinlookup.join_lookup_plain(uk, uc, qq, sc)
+        same("joinlookup", joinlookup.join_lookup_cuda(uk, uc, qq, sc),
+             plain)
+        same("joinlookup",
+             joinlookup.join_lookup_cuda(uk, uc, qq, sc, dense=dense), plain)
+
+
+def check_join_vocab_edges(rng, dev, same):
+    """K7 at vocabulary sizes V around its grid (G blocks, block b taking
+    the b-th chunk of ceil(V / G) ids in passes of P threads): V = 1, 2,
+    one pass and one more or less, G and one more or less, G passes and
+    one more or less, and past them; at each, rows whose keys are random,
+    fall in a few chunks only (runs of chunks with no key between keyed
+    ones), cover every id (u = V), or are absent; K8 in both modes on
+    queries at -1, UNKNOWN_KEY, V - 1, V and V + 2.  Then the merge of W
+    = 2, 3, 4 and 8 shard tables whose keys sit on chunk boundaries,
+    against the plain merge and the whole row axis's table.  Exact."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch.ops import joinkernel, joinkeys
+
+    invalid = int(joinkernel.KEY_INVALID)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    G = joinkeys.grid_size(dev)
+    P = joinkeys.block_size()
+    vocabs = sorted({1, 2, P - 1, P, P + 1, G - 1, G, G + 1, G * P - 1,
+                     G * P, G * P + 1, 3 * G * P + 5})
+    for V in vocabs:
+        chunk = -(-V // G)
+        keyed = sorted({0, G // 3, G - 1})  # chunks that hold keys
+        for layout in ("random", "chunks", "every", "none"):
+            if layout == "every":
+                R = V
+                sid = np.stack([rng.permutation(V),
+                                rng.integers(0, V, V)], 1).astype(np.int32)
+            else:
+                R = min(4 * V + 7, 60_000)
+                if layout == "random":
+                    sid = rng.integers(-2, V, (R, 2))
+                elif layout == "chunks":
+                    b = rng.choice(keyed, (R, 2))
+                    sid = np.minimum(b * chunk + rng.integers(0, chunk,
+                                                              (R, 2)), V - 1)
+                else:
+                    sid = np.full((R, 2), -1)
+                sid = sid.astype(np.int32)
+            valid = t(np.ones(R, bool) if layout == "every"
+                      else rng.random(R) < 0.9)
+            kind = t(np.ones(R, np.int32))
+            ns_empty = t(np.zeros(R, bool))
+            mask = t(np.ones((R, 2), bool) if layout == "every"
+                     else rng.random((R, 2)) < 0.9)
+            args = (valid, kind, ns_empty, t(sid), mask, 1, True, V)
+            uk, uc, dense = joinkeys.join_keys_cuda(*args)
+            same("joinkeys", (uk, uc, dense), joinkeys.join_keys_plain(*args))
+            u = int((uk != invalid).sum().item())
+            if layout == "every" and u != V:
+                raise AssertionError(f"joinkeys: {u} keys at V = {V}, not V")
+            if layout == "none" and u:
+                raise AssertionError(f"joinkeys: {u} keys with none held")
+            q = rng.integers(-6, V + 3, (R, 2)).astype(np.int32)
+            odd = np.array([-1, joinkernel.UNKNOWN_KEY, V - 1, V, V + 2])
+            q.reshape(-1)[:min(5, q.size)] = odd[:q.size]
+            lookup_both_modes(same, uk, uc, dense, t(q),
+                              (valid, kind, ns_empty, 1, True))
+    # the merge: keys on the merge grid's chunk boundaries, in W slabs
+    GM = joinkeys.grid_size(dev, merge=True)
+    for V in (GM * P + 1, 3 * GM * P + 5):
+        chunk = -(-V // GM)
+        edges = np.arange(1, GM) * chunk
+        near = np.concatenate([edges - 1, edges, edges + 1])
+        near = near[(near >= 0) & (near < V)].astype(np.int32)
+        R = 20_000
+        sid = rng.choice(near, (R, 2)).astype(np.int32)
+        valid, kind = t(rng.random(R) < 0.9), t(np.ones(R, np.int32))
+        ns_empty, mask = t(np.zeros(R, bool)), t(rng.random((R, 2)) < 0.9)
+        whole = joinkeys.join_keys_plain(valid, kind, ns_empty, t(sid), mask,
+                                         1, True, V)
+        u = int((whole[0] != invalid).sum().item())
+        for W in (2, 3, 4, 8):
+            cuts = np.linspace(0, R, W + 1).astype(int)
+            uks, ucs = [], []
+            for a, b in zip(cuts, cuts[1:]):
+                args = (valid[a:b], kind[a:b], ns_empty[a:b], t(sid[a:b]),
+                        mask[a:b], 1, True, V)
+                got = joinkeys.join_keys_cuda(*args)
+                same("joinkeys", got, joinkeys.join_keys_plain(*args))
+                uks.append(got[0])
+                ucs.append(got[1])
+            cat = (torch.cat(uks), torch.cat(ucs), V)
+            merged = joinkeys.merge_key_tables_cuda(*cat)
+            same("joinkeys_merge", merged,
+                 joinkeys.merge_key_tables_plain(*cat))
+            same("joinkeys_merge", (merged[0][:u], merged[1][:u], merged[2]),
+                 (whole[0][:u], whole[1][:u], whole[2]))
 
 
 def _edge_env(rng, dev, B, R, S, P, K=4):
@@ -1760,7 +1922,7 @@ def check_ref_tables(driver, cap: Capture) -> list:
     """Each plan's device key table (K7's output in the captured sweep)
     against the host join index's delta_tables() from the same sweep,
     over the index's valid prefix; beyond it the device table must hold
-    no key."""
+    no key; K7's dense counts must be the index's table scattered."""
     import torch
 
     from gatekeeper_tpu_torch.ops import joinkernel
@@ -1778,13 +1940,17 @@ def check_ref_tables(driver, cap: Capture) -> list:
         raise AssertionError(f"{len(dev_tables)} K7 calls, {len(plans)} plans")
     rows = []
     for plan, host in zip(plans, js.delta_tables()):
-        uk, uc = dev_tables[(driver.interner.intern(plan.remote_kind),
-                             plan.remote_scope == "namespace")]
+        uk, uc, dense = dev_tables[(driver.interner.intern(plan.remote_kind),
+                                    plan.remote_scope == "namespace")]
         n = int((host["uk"] != invalid).sum())
+        want_dense = joinkernel.dense_counts(
+            torch.from_numpy(host["uk"]), torch.from_numpy(host["uc"]),
+            dense.numel())
         equal = (
             torch.equal(uk[:n].cpu(), torch.from_numpy(host["uk"][:n]))
             and torch.equal(uc[:n].cpu(), torch.from_numpy(host["uc"][:n]))
             and (uk.numel() == n or int(uk[n].item()) == invalid)
+            and torch.equal(dense.cpu(), want_dense)
         )
         if not equal:
             raise AssertionError(f"{plan.agg} plan: device table != host index")
@@ -2657,8 +2823,17 @@ def main(argv=None) -> int:
                if "registers" in ln or "spill" in ln]
         for name in gdev.KERNEL_NAMES
     }
+    # K7's two launchers compact on a grid of at least one block a SM
+    from gatekeeper_tpu_torch.ops import joinkeys
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grids = {"joinkeys": joinkeys.grid_size(torch.device(DEVICE, 0)),
+             "joinkeys_merge": joinkeys.grid_size(torch.device(DEVICE, 0),
+                                                  merge=True)}
+    if min(grids.values()) < sms:
+        raise AssertionError(f"K7's grids {grids} below {sms} SMs")
     log("build", seconds=build_s, libraries=sorted(paths),
-        ptxas=ptxas)
+        ptxas=ptxas, sms=sms, grids=grids)
 
     # 3. the main path
     t0 = time.perf_counter()
@@ -2830,6 +3005,7 @@ def main(argv=None) -> int:
     # 4. each kernel against its plain version, on the main path's inputs;
     # K2 and K3 on the cells K9 ran them in (cell_calls)
     kernel_rows = check_kernels(cap, REPS, timed=PATH1_KERNELS)
+    log("fused_audit_bound", **fused_audit_bound(kernel_rows))
     merge_rows(kernel_rows, check_kernels(
         cell_calls(cap), REPS, timed=("strpred", "setcount")))
     # admission is the latency path: K1 and K9 timed at a review's call too
@@ -2987,7 +3163,10 @@ def main(argv=None) -> int:
     log("ref_launches", main_path=ref_launches,
         plans=rdriver.join_plan_shapes())
     ref_rows = check_kernels(cold_cap, REPS, timed=("joinkeys", "joinlookup"))
-    merge_rows(ref_rows, check_kernels(delta_cap, REPS, timed=()))
+    # K8's table mode, at the delta sweeps' shapes (the full sweep's row
+    # above is its dense mode)
+    merge_rows(ref_rows, check_kernels(delta_cap, REPS, timed=("joinlookup",),
+                                       phase="kernel_table_mode"))
     merge_rows(kernel_rows, ref_rows)
     del cold_cap, delta_cap
     log("ref_device_split", **ref_device_split(rclient, rdriver, ref_churn))

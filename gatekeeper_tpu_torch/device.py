@@ -58,9 +58,10 @@ _SIGNATURES = {
     "reduction": ("reduction", "gk_packed_reduction_launch", "piiiiipp"),
     "delta": ("delta", "gk_delta_launch", "piipippp"),
     "scatter": ("scatter", "gk_scatter_launch", "pppiip"),
-    "joinkeys": ("joinkeys", "gk_joinkeys_launch", "pppiippiiipppp"),
-    "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiipppp"),
-    "joinlookup": ("joinlookup", "gk_joinlookup_launch", "ppipiipppiipp"),
+    "joinkeys": ("joinkeys", "gk_joinkeys_launch", "pppiippiiippippp"),
+    "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiippippp"),
+    "joinlookup": ("joinlookup", "gk_joinlookup_launch",
+                   "ppipiipiipppiipp"),
     "program": ("program", "gk_program_launch", "piipiiiip"),
     "packbits": ("packbits", "gk_packbits_launch", "ppiiipp"),
 }

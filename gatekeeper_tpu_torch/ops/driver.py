@@ -1080,19 +1080,20 @@ class TorchDriver(InterpDriver):
         """Each join plan's key table of the whole row axis, from the
         shards' slabs: K7 on every shard, K7's merge on the first shard's
         device (joinkernel.provider_key_table under a mesh), then placed
-        once on each distinct device -> one 'tables'-mode ``joins`` tuple
-        a shard."""
+        with the merge's dense counts, which K8 reads, once on each
+        distinct device -> one 'tables'-mode ``joins`` tuple a shard."""
         from .joinkernel import provider_key_table
 
         per_shard: List[list] = [[] for _ in shards]
         rvs = [rv for rv, _cols in shards]
         colss = [cols for _rv, cols in shards]
         for plan, arg in zip(self._active_join_plans(), jargs):
-            uk, uc = provider_key_table(
+            uk, uc, dense = provider_key_table(
                 plan, arg["kind_id"], rvs, colss, torch, axis_name="data",
                 vocab=arg["vocab"],
             )
-            placed = replicate_tree(mesh, {"uk": uk, "uc": uc})
+            placed = replicate_tree(mesh,
+                                    {"uk": uk, "uc": uc, "dense": dense})
             for mine, tab in zip(per_shard, placed):
                 mine.append({**tab, "kind_id": arg["kind_id"]})
         return [tuple(mine) for mine in per_shard]

@@ -22,9 +22,11 @@ This module keeps referential templates inside the vectorized sweep:
   ``values_equal`` is type-strict; the packed path must be too).
 - the per-key table is built on the card inside the full audit sweep by
   kernel K7 (ops/joinkeys.py: in-row dedup of slot keys and a count per
-  interned key id, no sort), and each JoinCmp's per-cell count is one
-  binary search into it minus the row's own contribution, kernel K8
-  (ops/joinlookup.py), then the engine's exact total-order comparison.
+  interned key id, no sort, kept as a dense [vocab] array beside the
+  table), and each JoinCmp's per-cell count is one load from those dense
+  counts minus the row's own contribution, kernel K8 (ops/joinlookup.py;
+  a binary search into the host index's tables in a delta sweep), then
+  the engine's exact total-order comparison.
   The plain torch and numpy versions of both live here.  Under a mesh
   each shard's slab builds its own table and K7's merge sums the shards'
   counts per key (``provider_key_table`` with ``axis_name``).
@@ -294,7 +296,8 @@ def provider_key_table(plan: JoinPlan, kind_id, rv, cols, xp,
     their counts (K7's merge) — the JAX package's ``all_gather`` and
     second ``compact_key_table``, so a key whose providers span shards
     counts every provider row once.  ``vocab`` must then exceed every
-    key id (the interner's size when the columns were packed)."""
+    key id (the interner's size when the columns were packed), and the
+    merge's dense counts come with the table: (uk, uc, dense)."""
     if axis_name is not None:
         from .joinkeys import join_keys, merge_key_tables
 
@@ -304,7 +307,7 @@ def provider_key_table(plan: JoinPlan, kind_id, rv, cols, xp,
         uks, ucs = [], []
         for srv, scols in zip(rv, cols):
             rcol = scols[plan.remote_colkey]
-            uk, uc = join_keys(
+            uk, uc, _dense = join_keys(
                 srv["valid"], srv["kind"], srv["ns_empty"], rcol["sid"],
                 rcol["mask"] if plan.remote_slot else None, int(kind_id),
                 plan.remote_scope == "namespace", int(vocab),
@@ -326,7 +329,8 @@ def lookup_counts(uk, uc, q, xp):
     """Gather per-key counts at query ids ``q`` (any shape): one
     ``searchsorted`` into the compact table; absent or invalid keys
     answer 0.  On the card, kernel K8 (ops/joinlookup.py) does this
-    lookup with a binary search per query."""
+    lookup with a binary search per query, or with one load from K7's
+    dense counts where the table has them."""
     n = uk.shape[0]
     if xp is np:
         i = np.clip(np.searchsorted(uk, q), 0, n - 1)
@@ -339,6 +343,17 @@ def lookup_counts(uk, uc, q, xp):
     return torch.where(found, uc[i], torch.zeros_like(uc[i]))
 
 
+def dense_counts(uk, uc, vocab: int):
+    """The dense counts of a key table: ``uc`` scattered at ``uk``'s valid
+    keys into int32 zeros [max(vocab, 1)] (torch).  The plain version of
+    the array kernel K7 returns beside its table; every key must lie
+    below ``vocab``."""
+    dense = torch.zeros(max(vocab, 1), dtype=torch.int32, device=uk.device)
+    keep = uk != int(KEY_INVALID)
+    dense[uk[keep].long()] = uc[keep]
+    return dense
+
+
 class JoinBinding:
     """Per-evaluation join context attached to an EvalEnv (vexpr).
 
@@ -349,8 +364,12 @@ class JoinBinding:
                    key id lies below it).
     mode 'tables': tables arrive as tensors (delta sweeps — the
                    dispatched rows are a churn slice, so the global
-                   aggregate must come from the host join index);
-                   ``plan_args[i]`` holds ``uk``, ``uc`` and ``kind_id``.
+                   aggregate must come from the host join index; and a
+                   mesh's full sweep, its shards' tables merged);
+                   ``plan_args[i]`` holds ``uk``, ``uc`` and ``kind_id``,
+                   and ``dense`` where K7's merge built the table.
+    ``table`` returns (uk, uc, dense): dense the table's dense counts
+    (ops/joinkeys.py) where K7 built it, None for the host index's.
     ``cache`` is shared across the sweep's program groups: 500 template
     clones of one referential family cost ONE table build."""
 
@@ -370,7 +389,7 @@ class JoinBinding:
         if hit is None:
             arg = self.plan_args[plan_id]
             if self.mode == "tables":
-                hit = (arg["uk"], arg["uc"])
+                hit = (arg["uk"], arg["uc"], arg.get("dense"))
             else:
                 from .joinkeys import join_keys
 

@@ -11,6 +11,10 @@ self-exclusion of gatekeeper_tpu/ops/vexpr.py ``_eval_joincmp``.
 ``join_lookup`` launches the hand-written CUDA kernel K8
 (kernels/joinlookup.cu) on CUDA tensors and runs ``join_lookup_plain`` on
 CPU ones.  ``uk`` must be ascending: K7's table or the host join index's.
+Given ``dense``, K7's dense counts of the same table (a full sweep's), K8
+reads each count there in place of searching ``uk`` (its dense mode); the
+host index's tables come without it (table mode).  Both give the same
+counts; the plain version searches ``uk`` either way.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from .. import device as _dev
 from .joinkernel import lookup_counts, participation
 
 
-def join_lookup_plain(uk, uc, q, scope=None):
+def join_lookup_plain(uk, uc, q, scope=None, dense=None):
+    """``lookup_counts`` and the self-exclusion; ``dense`` is not read."""
     counts = lookup_counts(uk, uc, q, torch)
     if scope is None:
         return counts
@@ -31,8 +36,8 @@ def join_lookup_plain(uk, uc, q, scope=None):
     return counts - part
 
 
-def join_lookup_cuda(uk, uc, q, scope=None):
-    """K8."""
+def join_lookup_cuda(uk, uc, q, scope=None, dense=None):
+    """K8: dense mode with ``dense``, table mode without."""
     dev = q.device
     _dev.check(uk, "uk", torch.int32, 1, dev)
     _dev.check(uc, "uc", torch.int32, 1, dev)
@@ -43,6 +48,13 @@ def join_lookup_cuda(uk, uc, q, scope=None):
     _dev.check(q, "q", torch.int32, q.dim(), dev)
     R = q.shape[0]
     S = q.shape[1] if q.dim() == 2 else 1
+    if dense is None:
+        mode, dense_ptr, V = 0, 0, 0
+    else:
+        _dev.check(dense, "dense", torch.int32, 1, dev)
+        if dense.shape[0] == 0:
+            raise ValueError("dense: empty")
+        mode, dense_ptr, V = 1, _dev.ptr(dense), dense.shape[0]
     out = torch.empty(q.shape, dtype=torch.int32, device=dev)
     if R * S == 0:
         return out
@@ -59,14 +71,14 @@ def join_lookup_cuda(uk, uc, q, scope=None):
         code = int(bool(namespaced))
     _dev.launch(
         "joinlookup", dev, _dev.ptr(uk), _dev.ptr(uc), uk.shape[0],
-        _dev.ptr(q), R, S, *rows, int(kind_id), code, _dev.ptr(out),
-        _dev.stream(q),
+        dense_ptr, V, mode, _dev.ptr(q), R, S, *rows, int(kind_id), code,
+        _dev.ptr(out), _dev.stream(q),
     )
     return out
 
 
-def join_lookup(uk, uc, q, scope=None):
+def join_lookup(uk, uc, q, scope=None, dense=None):
     """K8 on CUDA tensors, the plain version on CPU ones."""
     if q.device.type == "cpu":
-        return join_lookup_plain(uk, uc, q, scope)
-    return join_lookup_cuda(uk, uc, q, scope)
+        return join_lookup_plain(uk, uc, q, scope, dense)
+    return join_lookup_cuda(uk, uc, q, scope, dense)

@@ -488,7 +488,8 @@ def _eval_joincmp(node: JoinCmp, env: EvalEnv, axes: str, pidx=None):
 
 def join_counts(env: EvalEnv, plan_id: int, exclude_self: bool):
     """int32 counts in the shape of the plan's local key column ([R] or
-    [R, S]): the table lookup (kernel K8), less the row's own contribution
+    [R, S]): the table lookup (kernel K8, reading the table's dense
+    counts where K7 built them), less the row's own contribution
     with ``exclude_self``.  A count depends on the row, not the
     constraint, so it is looked up once per (plan, exclude_self) and
     evaluation, in the binding's cache that every group shares."""
@@ -497,10 +498,10 @@ def join_counts(env: EvalEnv, plan_id: int, exclude_self: bool):
     key = ("counts", plan, bool(exclude_self))
     hit = jb.cache.get(key)
     if hit is None:
-        uk, uc = jb.table(plan_id, env)
+        uk, uc, dense = jb.table(plan_id, env)
         sid = env.cols[plan.local_colkey]["sid"]
         scope = jb.self_scope(plan_id) if exclude_self else None
-        hit = jb.cache[key] = join_lookup(uk, uc, sid, scope)
+        hit = jb.cache[key] = join_lookup(uk, uc, sid, scope, dense=dense)
     return hit
 
 

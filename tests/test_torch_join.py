@@ -132,9 +132,9 @@ def test_provider_key_table_bit_equal(slot, scope):
     _same(uk, juk)
     _same(uc, juc)
     col = tcols[("joinkey", "k")]
-    kuk, kuc = join_keys_plain(trv["valid"], trv["kind"], trv["ns_empty"],
-                               col["sid"], col.get("mask"), 1,
-                               scope == "namespace", vocab)
+    kuk, kuc, kdense = join_keys_plain(
+        trv["valid"], trv["kind"], trv["ns_empty"], col["sid"],
+        col.get("mask"), 1, scope == "namespace", vocab)
     assert torch.equal(kuk, uk) and torch.equal(kuc, uc)
     assert int((uk != INVALID).sum()) > 0  # the table is not empty
     # under a mesh: the shards' slabs (their rows sum to R, so the merged
@@ -143,10 +143,11 @@ def test_provider_key_table_bit_equal(slot, scope):
     shards = [({k: v[a:b] for k, v in trv.items()},
                {ck: {k: v[a:b] for k, v in c.items()}
                 for ck, c in tcols.items()}) for a, b in zip(cuts, cuts[1:])]
-    muk, muc = tjk.provider_key_table(
+    muk, muc, mdense = tjk.provider_key_table(
         plan, 1, [r for r, _c in shards], [c for _r, c in shards], torch,
         axis_name="data", vocab=vocab)
     assert torch.equal(muk, uk) and torch.equal(muc, uc)
+    assert torch.equal(mdense, kdense)
     with pytest.raises(ValueError, match="vocab"):
         tjk.provider_key_table(plan, 1, [trv], [tcols], torch,
                                axis_name="data")
@@ -177,7 +178,7 @@ def test_weighted_merge_bit_equal_to_jax_compact_over_shard_tables(slot, W):
     cu = np.concatenate([np.asarray(t[1]) for t in tabs])
     juk, juc = jjk.compact_key_table(jnp.asarray(ku), jnp.asarray(cu), jnp)
     for fn in (merge_key_tables, merge_key_tables_plain):
-        uk, uc = fn(_t(ku), _t(cu), vocab)
+        uk, uc, _dense = fn(_t(ku), _t(cu), vocab)
         _same(uk, juk)
         _same(uc, juc)
     whole_uk, whole_uc = jtable(0, R)
@@ -189,13 +190,150 @@ def test_weighted_merge_bit_equal_to_jax_compact_over_shard_tables(slot, W):
     assert (np.asarray(juk)[n:] == INVALID).all() and n > 0
 
 
+def _jax_table(plan, rv, cols, a=0, b=None):
+    """The JAX package's provider_key_table over rows [a, b)."""
+    return jjk.provider_key_table(
+        plan, jnp.int32(1),
+        {k: jnp.asarray(v[a:b]) for k, v in rv.items()},
+        {ck: {k: jnp.asarray(v[a:b]) for k, v in c.items()}
+         for ck, c in cols.items()}, jnp)
+
+
+def _scatter_np(uk, uc, vocab):
+    """numpy: uc scattered at uk's valid keys into zeros [max(vocab, 1)]."""
+    uk, uc = np.asarray(uk), np.asarray(uc)
+    want = np.zeros(max(vocab, 1), np.int32)
+    keep = uk != INVALID
+    want[uk[keep]] = uc[keep]
+    return want
+
+
+@pytest.mark.parametrize("slot", [False, True])
+@pytest.mark.parametrize("scope", ["namespace", "cluster"])
+@pytest.mark.parametrize("vocab", [1, 7, 8, 4097])
+def test_plain_dense_counts_scatter_the_jax_table(slot, scope, vocab):
+    """K7's third output in its plain version: the JAX package's
+    provider_key_table (uk, uc) scattered into zeros [max(V, 1)]."""
+    rng = np.random.default_rng(vocab + 2 * slot + 4 * (scope == "cluster"))
+    R, S = 300, 3
+    rv, cols = _rows(rng, R, S, vocab, slot)
+    plan = _plan(slot, scope)
+    juk, juc = _jax_table(plan, rv, cols)
+    col = cols[("joinkey", "k")]
+    uk, uc, dense = join_keys_plain(
+        _t(rv["valid"]), _t(rv["kind"]), _t(rv["ns_empty"]), _t(col["sid"]),
+        _t(col["mask"]) if slot else None, 1, scope == "namespace", vocab)
+    _same(uk, juk)
+    _same(uc, juc)
+    assert dense.dtype == torch.int32
+    np.testing.assert_array_equal(dense.numpy(),
+                                  _scatter_np(juk, juc, vocab))
+    assert int(dense.sum()) == int(np.asarray(juc).sum()) > 0
+
+
+def _lookup_dense(dense, q):
+    """What K8's dense mode computes: ``dense[q]`` where ``0 <= q <
+    len(dense)``, else 0."""
+    V = dense.shape[0]
+    inside = (q >= 0) & (q < V)
+    got = dense[torch.where(inside, q, torch.zeros_like(q)).long()]
+    return torch.where(inside, got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("vocab", [1, 7, 8, 4097])
+@pytest.mark.parametrize("table", ["sweep", "empty"])
+def test_lookup_through_dense_equals_lookup_counts(vocab, table):
+    """K8's two modes in their plain forms: a count read from the dense
+    counts equals the searchsorted lookup of the same table, on queries
+    that include -1, UNKNOWN_KEY, V - 1, V and V + 2."""
+    rng = np.random.default_rng(vocab)
+    if table == "sweep":
+        rv, cols = _rows(rng, 200, 2, vocab, True)
+        col = cols[("joinkey", "k")]
+        uk, uc, dense = join_keys_plain(
+            _t(rv["valid"]), _t(rv["kind"]), _t(rv["ns_empty"]),
+            _t(col["sid"]), _t(col["mask"]), 1, True, vocab)
+        assert int((uk != INVALID).sum()) > 0
+    else:
+        uk = _t(np.full(16, INVALID, np.int32))
+        uc = _t(np.zeros(16, np.int32))
+        dense = tjk.dense_counts(uk, uc, vocab)
+    q = rng.integers(-6, vocab + 3, (64, 2)).astype(np.int32)
+    q.reshape(-1)[:6] = (-1, tjk.UNKNOWN_KEY, vocab - 1, vocab, vocab + 2, 0)
+    want = jjk.lookup_counts(np.asarray(uk), np.asarray(uc), q, np)
+    for qq in (_t(q), _t(q[:, 0].copy())):
+        got = _lookup_dense(dense, qq)
+        assert torch.equal(got, tjk.lookup_counts(uk, uc, qq, torch))
+    np.testing.assert_array_equal(
+        _lookup_dense(dense, _t(q)).numpy(), want)
+
+
+@pytest.mark.parametrize("slot", [False, True])
+@pytest.mark.parametrize("W", [1, 2, 3, 8])
+def test_merged_dense_equals_the_whole_row_axis(slot, W):
+    """The dense counts of the merge of W shard tables equal those of the
+    whole row axis's table, and the JAX table scattered."""
+    rng = np.random.default_rng(5 * W + slot)
+    R, S, vocab = 96, 3, 20
+    rv, cols = _rows(rng, R, S, vocab, slot)
+    plan = _plan(slot, "cluster")
+    trv = {k: _t(v) for k, v in rv.items()}
+    tcols = {ck: {k: _t(v) for k, v in c.items()} for ck, c in cols.items()}
+    slab = -(-R // W)
+    cuts = [min(R, s * slab) for s in range(W + 1)]
+    shards = [({k: v[a:b] for k, v in trv.items()},
+               {ck: {k: v[a:b] for k, v in c.items()}
+                for ck, c in tcols.items()}) for a, b in zip(cuts, cuts[1:])]
+    muk, muc, mdense = tjk.provider_key_table(
+        plan, 1, [r for r, _c in shards], [c for _r, c in shards], torch,
+        axis_name="data", vocab=vocab)
+    col = tcols[("joinkey", "k")]
+    _uk, _uc, whole = join_keys(trv["valid"], trv["kind"], trv["ns_empty"],
+                                col["sid"], col.get("mask"), 1, False, vocab)
+    assert torch.equal(mdense, whole)
+    juk, juc = _jax_table(plan, rv, cols)
+    np.testing.assert_array_equal(mdense.numpy(),
+                                  _scatter_np(juk, juc, vocab))
+    assert torch.equal(tjk.dense_counts(muk, muc, vocab), mdense)
+
+
+def test_join_binding_carries_dense_in_trace_mode_only():
+    """'trace' mode: the table K7 builds, with its dense counts; 'tables'
+    mode: the host index's table, dense None, unless the arguments carry
+    one (a mesh's merged table)."""
+    rng = np.random.default_rng(9)
+    vocab = 30
+    rv, cols = _rows(rng, 64, 2, vocab, True)
+    trv = {k: _t(v) for k, v in rv.items()}
+    tcols = {ck: {k: _t(v) for k, v in c.items()} for ck, c in cols.items()}
+    plan = _plan(True, "namespace")
+    env = type("Env", (), {"cols": tcols})()
+    jb = tjk.JoinBinding("trace", (plan,), [{"kind_id": 1, "vocab": vocab}],
+                         rv=trv)
+    uk, uc, dense = jb.table(0, env)
+    col = tcols[("joinkey", "k")]
+    want = join_keys_plain(trv["valid"], trv["kind"], trv["ns_empty"],
+                           col["sid"], col["mask"], 1, True, vocab)
+    for got, w in zip((uk, uc, dense), want):
+        assert torch.equal(got, w)
+    assert jb.table(0, env)[2] is dense  # cached
+    host = {"uk": uk, "uc": uc, "kind_id": 1}
+    tb = tjk.JoinBinding("tables", (plan,), [host], rv=trv)
+    assert tb.table(0, env)[2] is None
+    mb = tjk.JoinBinding("tables", (plan,), [{**host, "dense": dense}],
+                         rv=trv)
+    assert mb.table(0, env)[2] is dense
+
+
 def test_merge_of_empty_and_invalid_tables():
     empty = _t(np.zeros(0, np.int32))
-    uk, uc = merge_key_tables(empty, empty, 5)
+    uk, uc, dense = merge_key_tables(empty, empty, 5)
     assert uk.numel() == uc.numel() == 0
+    assert dense.tolist() == [0] * 5
     keys = _t(np.full(6, INVALID, np.int32))
-    uk, uc = merge_key_tables(keys, _t(np.zeros(6, np.int32)), 5)
+    uk, uc, dense = merge_key_tables(keys, _t(np.zeros(6, np.int32)), 5)
     assert (uk == INVALID).all() and (uc == 0).all()
+    assert dense.tolist() == [0] * 5
 
 
 def _tables():
@@ -258,10 +396,11 @@ def test_int_and_str_twins_never_share_a_key():
           "kind": _t(np.zeros(5, np.int32)),
           "ns_empty": _t(np.zeros(5, bool))}
     sid = _t(np.array(ids, np.int32))
-    uk, uc = join_keys(rv["valid"], rv["kind"], rv["ns_empty"], sid, None,
-                       0, True, len(it))
+    uk, uc, dense = join_keys(rv["valid"], rv["kind"], rv["ns_empty"], sid,
+                              None, 0, True, len(it))
     got = {int(k): int(c) for k, c in zip(uk, uc) if int(k) != INVALID}
     assert got == {ids[0]: 3, ids[1]: 2}
+    assert {k: int(c) for k, c in enumerate(dense) if c} == got
 
 
 def test_wrappers_on_cpu_tensors_run_the_plain_versions():
@@ -271,11 +410,12 @@ def test_wrappers_on_cpu_tensors_run_the_plain_versions():
     col = cols[("joinkey", "k")]
     args = (_t(rv["valid"]), _t(rv["kind"]), _t(rv["ns_empty"]),
             _t(col["sid"]), _t(col["mask"]), 1, False, 12)
-    uk, uc = join_keys(*args)
-    puk, puc = join_keys_plain(*args)
+    uk, uc, dense = join_keys(*args)
+    puk, puc, pdense = join_keys_plain(*args)
     assert torch.equal(uk, puk) and torch.equal(uc, puc)
+    assert torch.equal(dense, pdense)
     scope = (args[0], args[1], args[2], 1, False)
-    assert torch.equal(join_lookup(uk, uc, args[3], scope),
+    assert torch.equal(join_lookup(uk, uc, args[3], scope, dense=dense),
                        join_lookup_plain(uk, uc, args[3], scope))
     assert tdev.launches["joinkeys"] == tdev.launches["joinlookup"] == 0
 

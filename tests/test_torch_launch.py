@@ -110,11 +110,53 @@ def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
     valid = torch.ones(3, dtype=torch.bool)
     kind = _i32([1, 1, 0])
     ns_empty = torch.zeros(3, dtype=torch.bool)
-    uk, uc = joinkeys.join_keys_cuda(valid, kind, ns_empty, _i32([2, 0, 1]),
-                                     None, 1, True, 4)
+    uk, uc, dense = joinkeys.join_keys_cuda(
+        valid, kind, ns_empty, _i32([2, 0, 1]), None, 1, True, 4)
     joinkeys.merge_key_tables_cuda(_i32([0, 2, 2]), _i32([1, 1, 2]), 4)
     joinlookup.join_lookup_cuda(_i32([0, 2]), _i32([1, 2]), _i32([2, 1, 0]),
                                 (valid, kind, ns_empty, 1, True))
     packbits.pack_review_masks_cuda(mask, ~mask)
     assert {name for name, _d in got} == set(dev.LAUNCHERS)
     assert all(d == CPU for _n, d in got), got
+
+
+def test_join_launchers_get_their_modes_and_scratch(monkeypatch):
+    """K8's launcher takes (uk, uc, T, dense, V, mode, q, R, S, ...): mode
+    0 and no dense array without ``dense``, mode 1 with it; K7's two
+    launchers get the dense counts and the block totals after them, and
+    the totals' length."""
+    got = []
+    monkeypatch.setattr(dev, "launch",
+                        lambda name, device, *args: got.append((name, args)))
+    monkeypatch.setattr(dev, "stream", lambda t: 0)
+    uk, uc = _i32([0, 2, 2**31 - 1]), _i32([1, 2, 0])
+    dense = _i32([1, 0, 2, 0])
+    q = _i32([[2, 1], [0, 3], [-1, 5]])
+    joinlookup.join_lookup_cuda(uk, uc, q)
+    joinlookup.join_lookup_cuda(uk, uc, q, dense=dense)
+    sig = dev._SIGNATURES["joinlookup"][2]
+    (_n0, table), (_n1, dense_mode) = got
+    assert len(table) == len(dense_mode) == len(sig)
+    assert table[2:9] == (3, 0, 0, 0, q.data_ptr(), 3, 2)
+    assert dense_mode[2:9] == (3, dense.data_ptr(), 4, 1, q.data_ptr(), 3, 2)
+    with pytest.raises(ValueError, match="dense"):
+        joinlookup.join_lookup_cuda(uk, uc, q, dense=_i32([]))
+    with pytest.raises(TypeError, match="dense"):
+        joinlookup.join_lookup_cuda(uk, uc, q, dense=dense.long())
+    got.clear()
+    valid = torch.ones(3, dtype=torch.bool)
+    kind = _i32([1, 1, 0])
+    ns_empty = torch.zeros(3, dtype=torch.bool)
+    _uk, _uc, kdense = joinkeys.join_keys_cuda(
+        valid, kind, ns_empty, _i32([2, 0, 1]), None, 1, True, 6)
+    _uk, _uc, mdense = joinkeys.merge_key_tables_cuda(
+        _i32([0, 2, 2]), _i32([1, 1, 2]), 0)
+    (name, kargs), (mname, margs) = got
+    assert (name, mname) == ("joinkeys", "joinkeys_merge")
+    assert len(kargs) == len(dev._SIGNATURES["joinkeys"][2])
+    assert len(margs) == len(dev._SIGNATURES["joinkeys_merge"][2])
+    assert kargs[10:13] == (kdense.data_ptr(), kdense.data_ptr() + 4 * 6,
+                            joinkeys.GRID_SLOTS)
+    assert kdense.shape == (6,) and mdense.shape == (1,)
+    assert margs[4:7] == (mdense.data_ptr(), mdense.data_ptr() + 4,
+                          joinkeys.GRID_SLOTS)

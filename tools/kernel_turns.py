@@ -4,6 +4,7 @@ that two checkouts can be compared in turns on one card.
 
     python3 tools/kernel_turns.py --root DIR [--kernels match,program]
                                   [--per-group]
+    python3 tools/kernel_turns.py --root DIR --corpus referential
 
 DIR holds a checkout's gatekeeper_tpu_torch/ (this tree, or an earlier
 commit unpacked with git archive into a git-ignored directory).  The script
@@ -26,6 +27,16 @@ Run it old, new, new, old in one command to compare:
 
     for r in build/parent . . build/parent; do
         python3 tools/kernel_turns.py --root $r; done
+
+With --corpus referential it drives chip_smoke.py's referential path
+instead (24 referential templates x 100,000 objects, REF_r14's templates)
+and times the join kernels (default --kernels
+joinkeys,joinkeys_merge,joinlookup): a full device sweep (the driver's
+_audit_sweep, no render) records K7 and K8 ("full_"; K8 in the mode the
+full sweep takes), one key-moving delta sweep of 16 objects records K8
+on the host index's tables ("delta_", table mode), and a full sweep on a
+width-2 mesh of the one card (GK_VIRTUAL_DEVICES) records K7's merge
+("mesh_").
 """
 
 from __future__ import annotations
@@ -48,12 +59,64 @@ def _chip_smoke():
     return mod
 
 
+def synthetic_runs(cs, syn, args, names) -> list:
+    """A cold capped sweep and a one-pod review -> [(label, Capture)]."""
+    client = syn.build_driver(args.templates, args.pods, cs.SEED)
+    with cs.Capture(names=names) as sweep:
+        client.audit_capped(cs.CAP)
+    pod = syn.make_pods(1, seed=cs.SEED + 98, violation_rate=1.0)[0]
+    pod["metadata"]["name"] = "admission-timed"
+    with cs.Capture(names=names) as review:
+        client.review(pod)
+    return [("sweep", sweep), ("review", review)]
+
+
+def referential_runs(cs, syn, args, names) -> list:
+    """A full device sweep, a key-moving delta sweep of 16 objects, and a
+    full sweep on a width-2 mesh of the one card, each without its render
+    -> [(label, Capture)]."""
+    from gatekeeper_tpu_torch.parallel import mesh as pm
+
+    client = syn.build_referential_driver(args.templates, args.pods,
+                                          cs.SEED)
+    driver = client.driver
+    churn = cs.RefChurn(client,
+                        syn.make_referential_objects(args.pods, cs.SEED + 1),
+                        cs.SEED + 11)
+    K = driver._audit_topk(cs.CAP)
+    with cs.Capture(names=names) as full:
+        if driver._audit_sweep(K) is None:
+            raise AssertionError("referential sweep: empty inventory")
+    churn.moving(16)
+    with cs.Capture(names=names) as delta:
+        if driver._try_delta(K) is None:
+            raise AssertionError("the key-moving churn took no delta sweep")
+    os.environ[pm.VIRTUAL_DEVICES_ENV] = "2"
+    driver.set_mesh(True, width=2)
+    try:
+        cs.force_full(driver)
+        with cs.Capture(names=names) as mesh:
+            driver._audit_sweep(K)
+        if driver.last_sweep_stats.get("shards") != 2.0:
+            raise AssertionError(f"mesh sweep: {driver.last_sweep_stats}")
+    finally:
+        driver.set_mesh(False)
+        del os.environ[pm.VIRTUAL_DEVICES_ENV]
+    return [("full", full), ("delta", delta), ("mesh", mesh)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--kernels", default="match,program")
-    ap.add_argument("--templates", type=int, default=500)
-    ap.add_argument("--pods", type=int, default=100_000)
+    ap.add_argument("--corpus", choices=("synthetic", "referential"),
+                    default="synthetic")
+    ap.add_argument("--kernels", default=None,
+                    help="default match,program (synthetic) or "
+                    "joinkeys,joinkeys_merge,joinlookup (referential)")
+    ap.add_argument("--templates", type=int, default=None,
+                    help="default 500 (synthetic) or 24 (referential)")
+    ap.add_argument("--pods", type=int, default=100_000,
+                    help="pods, or the referential corpus's objects")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--per-group", action="store_true",
                     help="also time K9 on each group of the sweep alone")
@@ -66,6 +129,12 @@ def main(argv=None) -> int:
         print("kernel_turns: no CUDA card visible", file=sys.stderr)
         return 1
     cs = _chip_smoke()
+    ref = args.corpus == "referential"
+    if args.kernels is None:
+        args.kernels = ("joinkeys,joinkeys_merge,joinlookup" if ref
+                        else "match,program")
+    if args.templates is None:
+        args.templates = 24 if ref else 500
     names = tuple(args.kernels.split(","))
     specs = cs.kernel_specs()
     recorded = {name for _m, _f, name in cs.Capture.SITES}
@@ -84,21 +153,20 @@ def main(argv=None) -> int:
     out = {"root": args.root, "card": cs.nvidia_smi_line(),
            "torch_name": torch.cuda.get_device_name(0),
            "ptxas": {n: [ln.strip() for ln in
-                         gdev.build_log.get(n, "").splitlines()
+                         gdev.build_log.get(gdev._SIGNATURES[n][0],
+                                            "").splitlines()
                          if "registers" in ln or "spill" in ln]
                      for n in names},
            "shapes": {}, "ms": {}}
-    client = syn.build_driver(args.templates, args.pods, cs.SEED)
-    with cs.Capture(names=names) as sweep:
-        client.audit_capped(cs.CAP)
-    pod = syn.make_pods(1, seed=cs.SEED + 98, violation_rate=1.0)[0]
-    pod["metadata"]["name"] = "admission-timed"
-    with cs.Capture(names=names) as review:
-        client.review(pod)
+    out["corpus"] = args.corpus
+    runs = (referential_runs if ref else synthetic_runs)(cs, syn, args,
+                                                         names)
     for name in names:
-        if not sweep.calls[name] and not review.calls[name]:
-            raise AssertionError(f"{name}: no call on the sweep or review")
-    for label, cap in (("sweep", sweep), ("review", review)):
+        if not any(cap.calls[name] for _label, cap in runs):
+            raise AssertionError(f"{name}: no call on the "
+                                 f"{'/'.join(lb for lb, _c in runs)} runs")
+    sweep = runs[0][1]
+    for label, cap in runs:
         for name in names:
             if not cap.calls[name]:
                 continue
