@@ -15,8 +15,9 @@ loaded.
 Every wrapper counts its launches in ``launches`` (one per kernel launch,
 nowhere else), so a run can show that its path went through the kernels.
 A library may hold more than one launcher (K7's library holds its key
-table and the weighted merge of per-shard tables); each is counted under
-its own name.
+table and the weighted merge of per-shard tables), and a launcher may be
+called in two modes (K9 in a sweep, and in a review where it packs the
+masks too, ``program_pack``); each is counted under its own name.
 
 A launch runs inside ``torch.cuda.device`` of its tensors' device: the C
 launchers start their kernels on the CUDA runtime's current device, and on
@@ -57,12 +58,15 @@ _SIGNATURES = {
     "setcount": ("setcount", "gk_setcount_launch", "ppiipiiiiiipp"),
     "reduction": ("reduction", "gk_packed_reduction_launch", "piiiiipp"),
     "delta": ("delta", "gk_delta_launch", "piipippp"),
-    "scatter": ("scatter", "gk_scatter_launch", "pppiip"),
+    "scatter": ("scatter", "gk_scatter_launch", "piiillllp"),
     "joinkeys": ("joinkeys", "gk_joinkeys_launch", "pppiippiiippippp"),
     "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiippippp"),
     "joinlookup": ("joinlookup", "gk_joinlookup_launch",
                    "ppipiipiipppiipp"),
-    "program": ("program", "gk_program_launch", "piipiiiip"),
+    "program": ("program", "gk_program_launch", "piipiiiippip"),
+    # K9's review mode: the same launcher with a packed output, which
+    # packs the review masks in the launch (K10's work); counted apart
+    "program_pack": ("program", "gk_program_launch", "piipiiiippip"),
     "packbits": ("packbits", "gk_packbits_launch", "ppiiipp"),
 }
 LAUNCHERS = tuple(_SIGNATURES)

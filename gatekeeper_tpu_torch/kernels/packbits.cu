@@ -18,14 +18,20 @@
 // launch, not the work, sets its time.  The test a cell costs one integer
 // operation, far below the bytes.
 //
-// Design: one thread per output byte.  Where both inputs are 8-byte
-// aligned and R is a multiple of 8, a thread loads its 8 columns as one
-// 64-bit word (little-endian: column 8j + b is byte b of the word) and
-// tests each byte; otherwise it reads the up to 8 bytes one by one.
+// Design: one thread per output byte (packbits.cuh's pack_byte, which K9
+// runs too in its review mode).  Where both inputs are 8-byte aligned and
+// R is a multiple of 8, a thread loads its 8 columns as one 64-bit word
+// and tests each byte; otherwise it reads the up to 8 bytes one by one.
 // Neighbouring threads read neighbouring 8-byte groups, so a warp's loads
 // coalesce along a row.  A grid-stride loop covers any 2C * ceil(R/8).
+//
+// A review's pack runs inside K9's launch (program.cu, review mode); this
+// launch packs only a review whose side has no program group with rows,
+// where K9 is not launched.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "packbits.cuh"
 
 namespace {
 
@@ -36,29 +42,10 @@ __global__ void packbits_kernel(const uint8_t* __restrict__ mask,
                                 const uint8_t* __restrict__ autoreject,
                                 int C, int R, int vec,
                                 uint8_t* __restrict__ out) {
-  const long long RB = (R + 7) / 8;
-  const long long total = 2LL * C * RB;
+  const long long total = 2LL * C * ((R + 7) / 8);
   for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-       t < total; t += (long long)gridDim.x * THREADS) {
-    const long long row = t / RB;
-    const int j = (int)(t - row * RB);
-    const uint8_t* src = row < C ? mask + row * R
-                                 : autoreject + (row - C) * R;
-    const int col = 8 * j;
-    unsigned byte = 0;
-    if (vec) {
-      const unsigned long long w =
-          *reinterpret_cast<const unsigned long long*>(src + col);
-#pragma unroll
-      for (int b = 0; b < 8; ++b)
-        if ((w >> (8 * b)) & 0xffull) byte |= 0x80u >> b;
-    } else {
-      const int n = R - col < 8 ? R - col : 8;
-      for (int b = 0; b < n; ++b)
-        if (src[col + b]) byte |= 0x80u >> b;
-    }
-    out[t] = (uint8_t)byte;
-  }
+       t < total; t += (long long)gridDim.x * THREADS)
+    out[t] = gk::pack_byte(mask, autoreject, C, R, vec, t);
 }
 
 }  // namespace

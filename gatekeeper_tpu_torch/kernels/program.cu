@@ -52,9 +52,23 @@
 // operands in shared memory once; each thread walks up to ITEMS items,
 // loading the next item's mask while the current one runs, and a thread
 // whose rows are all match-False skips the program (pad rows are).
+//
+// Review mode (a packed output given): the review's two masks leave the
+// card bit-packed, as gatekeeper_tpu/ops/driver.py _packed_variant packs
+// them inside the review's one jitted dispatch, so K9 packs them in its
+// own launch and the review launches no K10.  No block waits for another:
+// the thread that finishes an item packs its rows' bytes from its
+// registers (V = 8 consecutive rows are one packed byte; in the STEP-32
+// layout a warp's 256 rows are 32 bytes, gathered by 8 shuffles), and
+// their autoreject bytes from memory with K10's body (packbits.cuh), K1
+// having written the autoreject mask in an earlier launch; every block
+// first packs a share of the rows of no group (ranges after the code in
+// the blob), which K9 does not write.  Without an output (a sweep) none
+// of this runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packbits.cuh"
 #include "setcount.cuh"
 #include "strpred.cuh"
 
@@ -553,6 +567,73 @@ __device__ __forceinline__ unsigned run(const int* __restrict__ code,
   }
 }
 
+// Review mode, before the walk: the packed bytes of the mask rows no
+// group covers, and of their autoreject rows, spread over every thread of
+// the launch.  ``tail`` is the word after the code (ops/program.py
+// pack_launch): U, then U (begin, end) ranges of such rows.
+__device__ void pack_rows_of_no_group(const long long* tail,
+                                      const uint8_t* mask,
+                                      const uint8_t* autoreject,
+                                      uint8_t* out, int C, int R, int vec) {
+  const long long U = tail[0];
+  const long long* ranges = tail + 1;
+  long long n = 0;
+  for (long long u = 0; u < U; ++u) n += ranges[2 * u + 1] - ranges[2 * u];
+  const long long RB = (R + 7) / 8;
+  for (long long f = (long long)blockIdx.x * THREADS + threadIdx.x;
+       f < 2 * n * RB; f += (long long)gridDim.x * THREADS) {
+    long long q = f / RB;
+    const long long j = f - q * RB;
+    const bool rej = q >= n;
+    if (rej) q -= n;
+    long long row = 0;
+    for (long long u = 0; u < U; ++u) {
+      const long long len = ranges[2 * u + 1] - ranges[2 * u];
+      if (q < len) {
+        row = ranges[2 * u] + q;
+        break;
+      }
+      q -= len;
+    }
+    const long long t = (rej ? C + row : row) * RB + j;
+    out[t] = gk::pack_byte(mask, autoreject, C, R, vec, t);
+  }
+}
+
+// Review mode, after an item: its rows' packed mask byte, from the final
+// mask bits ``fin`` of the thread's V rows (bit i: row r0 + STEP * i), and
+// the same columns' autoreject byte, from memory.  STEP 1: the V = 8 rows
+// r0 .. r0 + 7 are one byte.  STEP 32: the warp's 32 items are rows
+// base .. base + 255 of one constraint row, lane t holding rows base +
+// 32 i + t; lane b packs rows base + 8b .. + 7, gathered by shuffles from
+// lanes 8 (b % 4) + k, bit b / 4.  ``valid``: the item is one of the
+// group's (warp-uniform for STEP 32, where every lane shuffles).
+template <int V, int STEP>
+__device__ __forceinline__ void pack_item(unsigned fin, const Rows& w,
+                                          bool valid, long long row,
+                                          const uint8_t* mask,
+                                          const uint8_t* autoreject,
+                                          uint8_t* out, int C, int R,
+                                          int vec) {
+  static_assert(V == 8, "an item's V rows are one packed byte");
+  const int lane = threadIdx.x & 31;
+  uint8_t bits[8];
+  if (STEP == 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) bits[i] = on(fin, i);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      bits[k] = on(__shfl_sync(FULL, fin, 8 * (lane & 3) + k), lane >> 2);
+  }
+  const long long col = STEP == 1 ? w.r0 : w.r0 - lane + 8 * lane;
+  if (!valid || col >= R) return;
+  const long long RB = (R + 7) / 8;
+  out[row * RB + col / 8] = gk::pack8(bits);
+  const long long t = (C + row) * RB + col / 8;
+  out[t] = gk::pack_byte(mask, autoreject, C, R, vec, t);
+}
+
 // Lane i of an item is row r0 + STEP * i.  STEP 1: an item is V
 // consecutive rows (a review's 8 rows fill threads on several constraint
 // rows, and 1-D columns and the mask move V bytes an access); STEP 32: a
@@ -562,7 +643,9 @@ __device__ __forceinline__ unsigned run(const int* __restrict__ code,
 template <int V, int STEP>
 __global__ void __launch_bounds__(THREADS)
     program_kernel(const long long* __restrict__ blob, int G, int NOP,
-                   uint8_t* __restrict__ mask, int R, int max_ops) {
+                   uint8_t* __restrict__ mask, int R, int max_ops,
+                   const uint8_t* __restrict__ autoreject,
+                   uint8_t* __restrict__ pout, int C, int vec) {
   extern __shared__ long long sh[];
   long long* ops = sh;                                // [max_ops * OPW]
   int* code = reinterpret_cast<int*>(sh + (long long)max_ops * OPW);
@@ -581,6 +664,15 @@ __global__ void __launch_bounds__(THREADS)
                       h[3];
   for (int i = threadIdx.x; i < n_op * OPW; i += THREADS) ops[i] = g_ops[i];
   for (int i = threadIdx.x; i < n_code; i += THREADS) code[i] = g_code[i];
+  if (pout != nullptr) {
+    // the word after the code: the last group's code ends it, padded to
+    // whole words
+    const long long* hl = blob + (long long)(G - 1) * HDRW;
+    pack_rows_of_no_group(
+        blob + (long long)G * HDRW + (long long)NOP * OPW +
+            (hl[3] + hl[4] + 1) / 2,
+        mask, autoreject, pout, C, R, vec);
+  }
   __syncthreads();
 
   // the group's items, per_row to a constraint row, walked by the group's
@@ -623,16 +715,21 @@ __global__ void __launch_bounds__(THREADS)
     uint8_t* row_n;
     fetch(item + stride, wn, row_n, next);
     const unsigned active = __ballot_sync(FULL, w.live != 0);
+    unsigned fin = 0;  // the V rows' final mask bits
     if (w.live) {
       const unsigned res =
           packed ? run<V, STEP, PackedStack<V>>(code, ops, w, active)
                  : run<V, STEP, LaneStack<V>>(code, ops, w, active);
+      fin = w.live & res;
       if (w.live & ~res) {  // only rows that turn False are written
 #pragma unroll
-        for (int i = 0; i < V; ++i) m[i] = on(w.live & res, i) ? 1 : 0;
+        for (int i = 0; i < V; ++i) m[i] = on(fin, i) ? 1 : 0;
         store_bytes<V, STEP>(row, w.n, m);
       }
     }
+    if (pout != nullptr)
+      pack_item<V, STEP>(fin, w, item < items, h[0] + w.c, mask, autoreject,
+                         pout, C, R, vec);
     item += stride;
     w = wn;
     row = row_n;
@@ -641,9 +738,16 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+struct Pack {
+  const uint8_t* autoreject;
+  uint8_t* out;
+  int C, vec;
+};
+
 template <int V, int STEP>
 int launch_step(const long long* blob, int G, int NOP, uint8_t* mask, int R,
-                int blocks, size_t smem, int max_ops, cudaStream_t stream) {
+                int blocks, size_t smem, int max_ops, const Pack& pk,
+                cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         program_kernel<V, STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -651,17 +755,18 @@ int launch_step(const long long* blob, int G, int NOP, uint8_t* mask, int R,
     if (e != cudaSuccess) return e;
   }
   program_kernel<V, STEP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      blob, G, NOP, mask, R, max_ops);
+      blob, G, NOP, mask, R, max_ops, pk.autoreject, pk.out, pk.C, pk.vec);
   return cudaGetLastError();
 }
 
 int launch(const long long* blob, int G, int NOP, uint8_t* mask, int R,
-           int blocks, size_t smem, int max_ops, cudaStream_t stream) {
+           int blocks, size_t smem, int max_ops, const Pack& pk,
+           cudaStream_t stream) {
   return R >= 32 * ROWS
              ? launch_step<ROWS, 32>(blob, G, NOP, mask, R, blocks, smem,
-                                     max_ops, stream)
+                                     max_ops, pk, stream)
              : launch_step<ROWS, 1>(blob, G, NOP, mask, R, blocks, smem,
-                                    max_ops, stream);
+                                    max_ops, pk, stream);
 }
 
 }  // namespace
@@ -672,16 +777,25 @@ extern "C" const char* gk_error_string(int code) {
 
 // blob: G headers of HDRW words (mask row start, B, the group's first
 // block, code offset and length in int32 words, operand offset and count,
-// stack depth), then NOP operands of OPW words, then the code.  blocks:
-// the sum over the groups of ops/program.py group_blocks(B, R);
+// stack depth), then NOP operands of OPW words, then the code, then U and
+// U (begin, end) ranges of the mask rows no group covers (review mode).
+// blocks: the sum over the groups of ops/program.py group_blocks(B, R);
 // max_code / max_ops: the largest group's code words and operands (the
 // shared memory a block takes).
+// out: null for a sweep; for a review the uint8[2C, ceil(R/8)] packed
+// masks, the mask [C, R] and autoreject [C, R] packed into it.
 extern "C" int gk_program_launch(const long long* blob, int G, int NOP,
                                  uint8_t* mask, int R, int blocks,
-                                 int max_code, int max_ops, void* stream) {
+                                 int max_code, int max_ops,
+                                 const uint8_t* autoreject, uint8_t* out,
+                                 int C, void* stream) {
   if (G <= 0 || blocks <= 0 || R <= 0) return 0;
   const size_t smem =
       (size_t)max_ops * OPW * sizeof(long long) + (size_t)max_code * 4;
+  const int vec = R % 8 == 0 &&
+                  ((reinterpret_cast<uintptr_t>(mask) |
+                    reinterpret_cast<uintptr_t>(autoreject)) & 7) == 0;
   return launch(blob, G, NOP, mask, R, blocks, smem, max_ops,
+                Pack{autoreject, out, C, vec},
                 static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,8 @@ Pipeline per review batch or audit sweep:
      its static row block by one launch of the program kernel (K9, with
      K2's and K3's cell functions inside, ops/program.py); for capped
      audits the packed [C, 1+K] reduction (K4); for reviews the mask and
-     the autoreject mask bit-packed into one uint8 array (K10,
-     ops/packbits.py), the one array downloaded
+     the autoreject mask bit-packed into one uint8 array at the end of
+     K9's launch (K10's pack, ops/packbits.py), the one array downloaded
   3. host: for each positive cell, the exact native match re-check and the
      violation render — through the compiled render plan (ops/renderplan.py)
      where the template has one, else the interpreter
@@ -52,8 +52,8 @@ shard and K7's merge, and the host merges the [W, C, 1+K'] reductions.  A
 delta sweep evaluates its dirty rows on the mesh's first device and K5
 gathers their before-columns on their owning shards.  compute_masks, and
 so review_batch, evaluates the review batch in row slabs too, as
-TpuDriver's _dispatch does: K1 -> K9 -> K10 on each shard, each shard's
-packed mask unpacked to its own slab.  Left out: the mesh's
+TpuDriver's _dispatch does: K1 -> K9 (packing) on each shard, each
+shard's packed mask unpacked to its own slab.  Left out: the mesh's
 metrics and flight-recorder events, and the circuit breaker that a stalled
 dispatch trips there (a stall degrades the mesh and raises).
 """
@@ -105,7 +105,7 @@ from .deltasweep import DeltaState, MaskSource, NeedsFullSweep
 from .interning import Interner, PredicateTable
 from .matchkernel import constraint_records, match_kernel
 from .pack import _bucket as _bucket_pow2, pack_constraints, pack_reviews
-from .packbits import pack_review_masks, unpack_review_masks
+from .packbits import packed_empty, unpack_review_masks
 from .params import pack_params
 from .reduction import packed_reduction
 from .scatter import scatter_rows
@@ -479,9 +479,13 @@ class TorchDriver(InterpDriver):
     # ---- device evaluation ------------------------------------------------
 
     def _eval(self, side, rv, cols, placed, join_mode: Optional[str] = None,
-              joins=None):
+              joins=None, pack_out=None):
         """The match kernel plus every violation-program group ->
         (candidate mask bool[C, R], autoreject bool[C, R]) on the device.
+
+        ``pack_out`` (a review's uint8[2C, ceil(R/8)], ops/packbits.py
+        packed_empty): both masks are also packed into it, by K9's launch
+        (program_eval's ``pack``).
 
         ``join_mode`` (ops/joinkernel.py): None on the review path (every
         JoinCmp resolves to its polarity default); 'trace' for full audit
@@ -528,8 +532,12 @@ class TorchDriver(InterpDriver):
                 )
             bound.append(bind_group(encode(prog), env, start))
         # every group's program ANDed into its static slice of the fresh
-        # match mask, one launch (K9): pad rows are match-False and stay so
-        program_eval(mask, bound)
+        # match mask, one launch (K9): pad rows are match-False and stay so;
+        # a review's launch packs both masks too
+        if pack_out is None:
+            program_eval(mask, bound)
+        else:
+            program_eval(mask, bound, pack=(autoreject, pack_out))
         return mask, autoreject
 
     def _review_pack(self, reviews: List[dict]):
@@ -548,19 +556,21 @@ class TorchDriver(InterpDriver):
         mask [C, rows]) as numpy bool arrays, rows the bucketed review
         count, in sorted constraint order (pad block rows dropped).
 
-        Both masks leave the device as one bit-packed uint8 array (K10),
-        unpacked on the host, as in TpuDriver.  Under a mesh the review
-        batch is evaluated in row slabs, one a shard (sharded_masks)."""
+        Both masks leave the device as one bit-packed uint8 array, packed
+        by K9's launch and unpacked on the host, as in TpuDriver.  Under a
+        mesh the review batch is evaluated in row slabs, one a shard
+        (sharded_masks)."""
         mesh = self._mesh()
         if mesh is not None:
             return sharded_masks(self, reviews, mesh)
         side, rv, cols, rows = self._review_pack(reviews)
-        ordered, _cp, _groups, _specs, crow = side
+        ordered, cp, _groups, _specs, crow = side
         placed = self._constraint_device(side)
         rv_d = state_from_numpy(rv, self.device)
         cols_d = state_from_numpy(cols, self.device)
-        mask, autoreject = self._eval(side, rv_d, cols_d, placed)
-        packed = pack_review_masks(mask, autoreject).cpu().numpy()
+        out = packed_empty(cp.arrays["valid"].shape[0], rows, self.device)
+        self._eval(side, rv_d, cols_d, placed, pack_out=out)
+        packed = out.cpu().numpy()
         mask_np, rej_np = unpack_review_masks([packed], rows, crow, rows)
         return ordered, mask_np, rej_np
 

@@ -10,13 +10,16 @@ gatekeeper_tpu/ops/driver.py _packed_variant returns,
 
 ``pack_review_masks`` launches the hand-written CUDA kernel K10
 (kernels/packbits.cu) on CUDA masks and runs ``pack_review_masks_plain``
-on CPU masks.  ``unpack_review_masks`` is the host side of the download,
-for one device or a mesh's row slabs.
+on CPU masks.  On a review K9 runs the same pack (kernels/packbits.cuh)
+at the end of its own launch (ops/program.py ``program_eval``'s
+``pack``), and K10 launches only where K9 does not pack.
+``unpack_review_masks`` is the host side of the download, for one device or a
+mesh's row slabs.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -40,16 +43,21 @@ def pack_review_masks_plain(mask: torch.Tensor,
     return (padded.view(rows, R8, 8) * weights).sum(dim=2).to(torch.uint8)
 
 
-def pack_review_masks_cuda(mask: torch.Tensor,
-                           autoreject: torch.Tensor) -> torch.Tensor:
+def pack_review_masks_cuda(mask: torch.Tensor, autoreject: torch.Tensor,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """K10, into ``out`` where given (else a new array)."""
     _dev.check(mask, "mask", torch.bool, 2, mask.device)
     _dev.check(autoreject, "autoreject", torch.bool, 2, mask.device)
     if autoreject.shape != mask.shape:
         raise ValueError(f"autoreject {tuple(autoreject.shape)} != mask "
                          f"{tuple(mask.shape)}")
     C, R = mask.shape
-    out = torch.empty((2 * C, -(-R // 8)), dtype=torch.uint8,
-                      device=mask.device)
+    if out is None:
+        out = packed_empty(C, R, mask.device)
+    _dev.check(out, "out", torch.uint8, 2, mask.device)
+    if tuple(out.shape) != (2 * C, -(-R // 8)):
+        raise ValueError(f"out {tuple(out.shape)} != {(2 * C, -(-R // 8))}")
     if C == 0 or R == 0:
         return out
     vec = int(mask.data_ptr() % 8 == 0 and autoreject.data_ptr() % 8 == 0
@@ -59,6 +67,11 @@ def pack_review_masks_cuda(mask: torch.Tensor,
         vec, _dev.ptr(out), _dev.stream(mask),
     )
     return out
+
+
+def packed_empty(C: int, R: int, device) -> torch.Tensor:
+    """The packed array of two [C, R] masks, uninitialised."""
+    return torch.empty((2 * C, -(-R // 8)), dtype=torch.uint8, device=device)
 
 
 def pack_review_masks(mask: torch.Tensor,

@@ -13,6 +13,14 @@ of gatekeeper_tpu/ops/vexpr.py ``eval_program``, and the version K9 is
 held against.  ``vexpr.eval_program`` computes the same masks from the IR
 directly; the tests hold the two together.
 
+A review passes ``pack=(autoreject, out)``: the candidate mask and the
+autoreject mask leave the card bit-packed (ops/packbits.py's layout, as
+gatekeeper_tpu/ops/driver.py _packed_variant packs them inside the
+review's one jitted dispatch), and K9 packs them into ``out`` in its own
+launch, so the review launches no K10.  Where no group has rows K9 is not
+launched, and past PACK_IN_K9_MAX_ROWS rows the fold costs more than
+K10's own launch: K10 packs in both cases.
+
 A bound group is a plain dict (``start``, ``B``, ``code``, ``stack``,
 ``operands``), each operand a dict of its kind and tensors, so a run can
 record and copy a call like any tensor tree.
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from . import packbits as _packbits
 from . import progcode as pc
 from .columns import T_FALSE, T_NUM, T_STR, T_UNDEF
 from .interning import Interner
@@ -447,13 +456,26 @@ def group_blocks(B: int, R: int) -> int:
     return -(-items // (THREADS * ITEMS))
 
 
+def rows_of_no_group(groups: List[dict], C: int) -> List[tuple]:
+    """The (begin, end) ranges of the rows of a [C, R] mask that no group
+    of B > 0 covers, in order."""
+    covered = np.zeros(C + 1, bool)
+    for g in groups:
+        covered[g["start"]:g["start"] + g["B"]] = True
+    covered[C] = True
+    edges = np.flatnonzero(np.diff(np.concatenate([[True], covered])))
+    return [(int(b), int(e)) for b, e in zip(edges[::2], edges[1::2])]
+
+
 def pack_launch(groups: List[dict], C: int, R: int, dev) -> dict:
     """The launch of K9 for the groups over a [C, R] mask, checked: one
     int64 blob of G headers (mask row start, B, the group's first block,
     code offset and length in int32 words, operand offset and count,
     stack depth), then the operands (OPW words each, pointers of tensors
-    on ``dev``), then every group's code, padded to whole words; with the
-    counts the launcher takes.  Groups with B = 0 are dropped."""
+    on ``dev``), then every group's code, padded to whole words, then U
+    and U (begin, end) ranges of the mask rows no group covers, which a
+    review's launch packs from memory (program.cu pack_rows_of_no_group);
+    with the counts the launcher takes.  Groups with B = 0 are dropped."""
     groups = [g for g in groups if g["B"] > 0]
     headers, table, code = [], [], []
     blocks = code_words = 0
@@ -475,10 +497,12 @@ def pack_launch(groups: List[dict], C: int, R: int, dev) -> dict:
     code = np.concatenate(code) if code else np.zeros(0, np.int32)
     if len(code) % 2:
         code = np.append(code, np.int32(0))
+    free = rows_of_no_group(groups, C)
     blob = np.concatenate([
         np.asarray(headers, np.int64).reshape(-1),
         np.asarray(table, np.int64).reshape(-1),
         code.view(np.int64),
+        np.asarray([len(free)] + [x for r in free for x in r], np.int64),
     ])
     return {"blob": blob, "G": len(headers), "NOP": len(table),
             "blocks": blocks,
@@ -486,31 +510,77 @@ def pack_launch(groups: List[dict], C: int, R: int, dev) -> dict:
             "max_ops": max((h[6] for h in headers), default=0)}
 
 
-def program_eval_cuda(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
-    """K9: one launch for every group."""
+# The largest review row count R whose pack K9 runs in its own launch;
+# past it K9 runs alone and K10 packs.  Times of the review's device chain
+# on one NVIDIA H100 80GB HBM3 (700.00 W), 500 templates (C = 1024), ms,
+# the fused launch against K9 then K10 on the same inputs, each in two
+# turns (tools/kernel_turns.py --kernels review_chain; PERF.md): R = 8
+# 0.0248-0.0282 / 0.0293-0.0297; 16 0.0376-0.0377 / 0.0313-0.0387;
+# 32 0.0541-0.0544 / 0.0545-0.0552; 64 0.0756-0.0757 / 0.0745-0.0746;
+# 256 0.1218 / 0.1165-0.1168.  Each item's thread packs its own
+# rows, so the fold's work grows with the items a thread walks, while
+# K10's launch costs the same at every R.
+PACK_IN_K9_MAX_ROWS = 32
+
+
+def _check_pack(pack, mask: torch.Tensor):
+    autoreject, out = pack
+    dev = mask.device
+    C, R = mask.shape
+    _dev.check(autoreject, "autoreject", torch.bool, 2, dev)
+    _dev.check(out, "out", torch.uint8, 2, dev)
+    if autoreject.shape != mask.shape:
+        raise ValueError(f"autoreject {tuple(autoreject.shape)} != mask "
+                         f"{tuple(mask.shape)}")
+    if tuple(out.shape) != (2 * C, -(-R // 8)):
+        raise ValueError(f"out {tuple(out.shape)} != {(2 * C, -(-R // 8))}")
+    return autoreject, out
+
+
+def program_eval_cuda(mask: torch.Tensor, groups: List[dict],
+                      pack=None) -> torch.Tensor:
+    """K9: one launch for every group.  With ``pack=(autoreject, out)``
+    the same launch packs ``mask`` (after the groups) and ``autoreject``
+    into ``out``; K10 packs instead where K9 is not launched (no group
+    has rows) or R is past PACK_IN_K9_MAX_ROWS."""
     dev = mask.device
     _dev.check(mask, "mask", torch.bool, 2, dev)
+    if pack is not None:
+        pack = _check_pack(pack, mask)
     C, R = mask.shape
     if R == 0:
         return mask
     lp = pack_launch(groups, C, R, dev)
-    if not lp["G"]:
-        return mask
-    # a fresh device buffer every evaluation (the table holds this
-    # evaluation's pointers), copied from pinned memory without waiting:
-    # the launch queues behind the copy, and the caching host allocator
-    # keeps the pinned block until the copy is done
-    blob_d = _dev.upload(lp["blob"], dev)
-    _dev.launch(
-        "program", dev, _dev.ptr(blob_d), lp["G"], lp["NOP"],
-        _dev.ptr(mask), R, lp["blocks"], lp["max_code"], lp["max_ops"],
-        _dev.stream(mask),
-    )
+    fold = pack is not None and lp["G"] > 0 and R <= PACK_IN_K9_MAX_ROWS
+    if lp["G"]:
+        # a fresh device buffer every evaluation (the table holds this
+        # evaluation's pointers, and the counter starts at 0), copied from
+        # pinned memory without waiting: the launch queues behind the
+        # copy, and the caching host allocator keeps the pinned block until
+        # the copy is done
+        blob_d = _dev.upload(lp["blob"], dev)
+        autoreject, out = pack if fold else (None, None)
+        _dev.launch(
+            "program_pack" if fold else "program", dev, _dev.ptr(blob_d),
+            lp["G"], lp["NOP"], _dev.ptr(mask), R, lp["blocks"],
+            lp["max_code"], lp["max_ops"],
+            _dev.ptr(autoreject) if fold else None,
+            _dev.ptr(out) if fold else None, C if fold else 0,
+            _dev.stream(mask),
+        )
+    if pack is not None and not fold:
+        _packbits.pack_review_masks_cuda(mask, pack[0], out=pack[1])
     return mask
 
 
-def program_eval(mask: torch.Tensor, groups: List[dict]) -> torch.Tensor:
-    """K9 on a CUDA mask, the plain version on a CPU one."""
+def program_eval(mask: torch.Tensor, groups: List[dict],
+                 pack=None) -> torch.Tensor:
+    """K9 on a CUDA mask, the plain version on a CPU one; ``pack`` as in
+    program_eval_cuda (on the CPU, the plain pack after the groups)."""
     if mask.device.type == "cpu":
-        return program_eval_plain(mask, groups)
-    return program_eval_cuda(mask, groups)
+        program_eval_plain(mask, groups)
+        if pack is not None:
+            autoreject, out = _check_pack(pack, mask)
+            out.copy_(_packbits.pack_review_masks_plain(mask, autoreject))
+        return mask
+    return program_eval_cuda(mask, groups, pack)

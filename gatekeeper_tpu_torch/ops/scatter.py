@@ -8,12 +8,25 @@ version returns new arrays; this one updates the resident tensors in place,
 so a caller that still needs the old contents (a base mask computed lazily
 from them, say) must have computed it first.
 
-For CUDA leaves, ``stage_rows`` gathers every leaf's rows, a table of
-(destination pointer, source offset, row bytes) per leaf and the indices
-into one pinned host buffer and copies it to the card at once;
-``scatter_staged_cuda`` then launches the hand-written kernel K6
-(kernels/scatter.cu) once for all leaves.  CPU leaves take
-``scatter_rows_plain``, one ``index_copy_`` per leaf.
+For CUDA leaves, ``stage_rows`` stages everything the hand-written kernel
+K6 (kernels/scatter.cu) reads into one pinned host buffer and copies it to
+the card at once; ``scatter_staged_cuda`` then launches K6 once for all
+leaves.  The buffer (``staging_layout`` its geometry, ``stage_buffer`` its
+bytes; plain numpy, no pinned memory) holds:
+
+- the leaf table, int64 [L, 4]: destination pointer, the leaf's offset in
+  a staged row, its row bytes, and its unit: the widest of 16, 8, 4, 2
+  and 1 bytes that divides the row bytes and the destination pointer;
+- the indices, int64 [n];
+- the unit table, int32 [U, 2]: for each unit of a staged row, its leaf
+  and its byte offset in the leaf's row;
+- the rows, row-major: row j holds every leaf's bytes of host row j, each
+  leaf at an offset aligned to its unit, the row padded to 16 bytes.
+
+K6 gives a warp one row, a lane one unit at a time.  ``scatter_staged_plain``
+applies a staged buffer to CPU tensors the way K6 does (the CPU tests hold
+the layout with it).  CPU leaves take ``scatter_rows_plain``, one
+``index_copy_`` per leaf.
 """
 
 from __future__ import annotations
@@ -27,8 +40,10 @@ import torch
 from .. import device as _dev
 
 _ALIGN = 16
-# gridDim.y of the kernel is the leaf count
-_MAX_LEAVES = 65535
+_WIDTHS = (16, 8, 4, 2, 1)
+# the shared memory a K6 block may take (the H100's 227 KB): the leaf
+# table and the unit table are staged there
+_MAX_SHARED = 232448
 
 
 def leaf_pairs(dev, host, path=()):
@@ -95,64 +110,152 @@ def scatter_rows_plain(dev_tree, idx, host_rows):
     return dev_tree
 
 
+class Layout:
+    """The staged buffer's geometry: byte offsets of the indices, the unit
+    table and the rows, the stride of a staged row, the total bytes, the
+    leaf table (int64 [L, 4]) and the unit table (int32 [U, 2])."""
+
+    __slots__ = ("idx_off", "unit_off", "rows_off", "stride", "nbytes",
+                 "table", "units", "n_rows", "row_bytes")
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.table)
+
+    @property
+    def n_units(self) -> int:
+        return len(self.units)
+
+    @property
+    def shared_bytes(self) -> int:
+        """K6's shared memory: both tables."""
+        return 32 * self.n_leaves + 8 * self.n_units
+
+
+def _align(n: int, a: int = _ALIGN) -> int:
+    return (n + a - 1) // a * a
+
+
+def staging_layout(dst_ptrs, row_bytes, n: int) -> Layout:
+    """The layout for n rows of leaves at ``dst_ptrs`` (their device
+    addresses) with ``row_bytes`` bytes a row."""
+    lay = Layout()
+    L = len(dst_ptrs)
+    table = np.zeros((L, 4), np.int64)
+    units, off = [], 0
+    for i, (ptr, rb) in enumerate(zip(dst_ptrs, row_bytes)):
+        w = next(w for w in _WIDTHS if rb % w == 0 and ptr % w == 0)
+        off = _align(off, w)
+        table[i] = (ptr, off, rb, w)
+        units.append(np.stack([np.full(rb // w, i), np.arange(0, rb, w)], 1))
+        off += rb
+    lay.table = table
+    lay.units = (np.concatenate(units) if units
+                 else np.zeros((0, 2))).astype(np.int32).reshape(-1, 2)
+    if lay.shared_bytes > _MAX_SHARED:
+        raise ValueError(f"scatter: {L} leaves and {lay.n_units} units a "
+                         f"row take {lay.shared_bytes} bytes of K6's shared "
+                         f"memory, more than {_MAX_SHARED}")
+    lay.stride = _align(off)
+    lay.idx_off = _align(32 * L)
+    lay.unit_off = _align(lay.idx_off + 8 * n)
+    lay.rows_off = _align(lay.unit_off + 8 * lay.n_units)
+    lay.nbytes = lay.rows_off + n * lay.stride
+    lay.n_rows = n
+    lay.row_bytes = list(row_bytes)
+    return lay
+
+
+def stage_buffer(lay: Layout, idx, rows: List[np.ndarray],
+                 out: np.ndarray) -> np.ndarray:
+    """Write the staged buffer of ``lay`` into ``out`` (uint8, at least
+    lay.nbytes): the tables, the indices and the rows, leaf i's host rows
+    ``rows[i]`` ([n, ...] numpy) at its offset in every staged row."""
+    n = lay.n_rows
+    out[:32 * lay.n_leaves] = lay.table.reshape(-1).view(np.uint8)
+    out[lay.idx_off:lay.idx_off + 8 * n] = np.asarray(
+        idx, np.int64).view(np.uint8)
+    out[lay.unit_off:lay.unit_off + 8 * lay.n_units] = lay.units.reshape(
+        -1).view(np.uint8)
+    if n == 0:
+        return out
+    staged = out[lay.rows_off:lay.nbytes].reshape(n, lay.stride)
+    for (_ptr, off, rb, _w), r in zip(lay.table.tolist(), rows):
+        staged[:, off:off + rb] = np.ascontiguousarray(r).reshape(
+            n, -1).view(np.uint8)
+    return out
+
+
+def scatter_staged_plain(buf: np.ndarray, n_leaves: int, n_units: int,
+                         n_rows: int, idx_off: int, unit_off: int,
+                         rows_off: int, stride: int, leaves) -> None:
+    """Apply a staged buffer the way K6 does, to CPU tensors: read the
+    tables, the indices and the rows from ``buf`` alone, and copy each
+    unit of each row to its leaf's destination, found by the table's
+    pointer among ``leaves``.  Raises where K6's word access would be
+    misaligned."""
+    table = buf[:32 * n_leaves].view(np.int64).reshape(n_leaves, 4)
+    idx = buf[idx_off:idx_off + 8 * n_rows].view(np.int64)
+    units = buf[unit_off:unit_off + 8 * n_units].view(np.int32).reshape(
+        n_units, 2)
+    rows = buf[rows_off:rows_off + n_rows * stride].reshape(n_rows, stride)
+    by_ptr = {t.data_ptr(): t for t in leaves}
+    for leaf, byte in units.tolist():
+        ptr, off, rb, w = table[leaf].tolist()
+        if ptr % w or (rows_off + off + byte) % w or stride % w or rb % w:
+            raise AssertionError(f"scatter: unit of {w} bytes misaligned")
+        dst = by_ptr[ptr].reshape(-1).view(torch.uint8).numpy()
+        cols = np.arange(byte, byte + w)
+        dst[idx[:, None] * rb + cols] = rows[:, off + cols]
+
+
 class Staged:
-    """The staged scatter on the card: ``buf`` holds the leaf table
-    (int64 [n_leaves, 3]: destination pointer, source offset, row bytes),
-    the int64 indices at ``idx_off``, then each leaf's rows.  ``leaves``
-    keeps the destinations alive while the launch may run."""
+    """The staged scatter on the card: ``buf`` holds the staged buffer of
+    ``lay``; ``leaves`` keeps the destinations alive while the launch may
+    run."""
 
-    __slots__ = ("buf", "idx_off", "n_leaves", "n_rows", "leaves",
-                 "row_bytes")
+    __slots__ = ("buf", "lay", "leaves")
 
-    def __init__(self, buf, idx_off, leaves, n_rows, row_bytes):
-        self.buf = buf
-        self.idx_off = idx_off
-        self.leaves = leaves
-        self.n_leaves = len(leaves)
-        self.n_rows = n_rows
-        self.row_bytes = row_bytes
+    def __init__(self, buf, lay, leaves):
+        self.buf, self.lay, self.leaves = buf, lay, leaves
 
+    @property
+    def n_leaves(self) -> int:
+        return self.lay.n_leaves
 
-def _align(n: int) -> int:
-    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+    @property
+    def n_rows(self) -> int:
+        return self.lay.n_rows
+
+    @property
+    def row_bytes(self) -> list:
+        return self.lay.row_bytes
 
 
 def stage_rows(dev_tree, idx, host_rows) -> Staged:
-    """Gather every leaf's rows, the leaf table and the indices into one
+    """Stage every leaf's rows, the tables and the indices into one
     pinned buffer and start its copy to the card (on the current
     stream).  ``host_rows`` leaves are numpy arrays."""
     idx, pairs = _checked(dev_tree, idx, host_rows)
-    if len(pairs) > _MAX_LEAVES:
-        raise ValueError(f"scatter: {len(pairs)} leaves, at most {_MAX_LEAVES}")
-    n = len(idx)
-    idx_off = 8 * 3 * len(pairs)
-    off = _align(idx_off + 8 * n)
-    offsets, row_bytes = [], []
-    for _path, dst, _rows in pairs:
-        rb = math.prod(dst.shape[1:]) * dst.element_size()
-        offsets.append(off)
-        row_bytes.append(rb)
-        off = _align(off + n * rb)
-    host = _dev.pinned_empty(off)
-    hv = host.numpy()
-    table = hv[:idx_off].view(np.int64).reshape(len(pairs), 3)
-    for i, (_path, dst, rows) in enumerate(pairs):
-        table[i] = (dst.data_ptr(), offsets[i], row_bytes[i])
-        flat = np.ascontiguousarray(rows).reshape(-1).view(np.uint8)
-        hv[offsets[i]:offsets[i] + flat.size] = flat
-    hv[idx_off:idx_off + 8 * n].view(np.int64)[:] = idx
+    lay = staging_layout(
+        [dst.data_ptr() for _p, dst, _r in pairs],
+        [math.prod(dst.shape[1:]) * dst.element_size()
+         for _p, dst, _r in pairs], len(idx))
+    host = _dev.pinned_empty(lay.nbytes)
+    stage_buffer(lay, idx, [r for _p, _d, r in pairs], host.numpy())
     buf = host.to(pairs[0][1].device, non_blocking=True)
-    return Staged(buf, idx_off, [dst for _p, dst, _r in pairs], n, row_bytes)
+    return Staged(buf, lay, [dst for _p, dst, _r in pairs])
 
 
 def scatter_staged_cuda(st: Staged) -> None:
     """K6: one launch writes every staged row of every leaf."""
-    if st.n_leaves == 0 or st.n_rows == 0:
+    lay = st.lay
+    if lay.n_leaves == 0 or lay.n_rows == 0 or lay.n_units == 0:
         return
-    base = _dev.ptr(st.buf)
     _dev.launch(
-        "scatter", st.buf.device, base, base + st.idx_off, base,
-        st.n_leaves, st.n_rows, _dev.stream(st.buf),
+        "scatter", st.buf.device, _dev.ptr(st.buf), lay.n_leaves,
+        lay.n_units, lay.n_rows, lay.idx_off, lay.unit_off, lay.rows_off,
+        lay.stride, _dev.stream(st.buf),
     )
 
 

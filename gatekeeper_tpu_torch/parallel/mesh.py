@@ -33,7 +33,7 @@ import torch
 
 from ..convert import place
 from ..device import pinned_empty, select_device
-from ..ops.packbits import pack_review_masks, unpack_review_masks
+from ..ops.packbits import packed_empty, unpack_review_masks
 from ..util import join_thread
 
 #: the environment variable that asks visible_devices() for n slots of one
@@ -465,38 +465,47 @@ class ShardedMask:
         return np.concatenate([s[c].cpu().numpy() for s in self.slabs])
 
 
-def _shard_evals(driver, reviews, mesh: TorchMesh, finish):
+def _shard_evals(driver, reviews, mesh: TorchMesh, finish, pack=False):
     """The review-mode evaluation of ``reviews`` in row slabs, one a
-    shard: each shard's (mask, autoreject) on its device goes through
-    ``finish`` there, and every shard's launches are queued, under the
-    driver's guarded mesh dispatch, before any result is read -> (ordered,
-    crow, rows, slab, [finish's tensors on the host as numpy] one list a
-    shard)."""
+    shard: each shard's (mask, autoreject, packed) on its device goes
+    through ``finish`` there (packed: both masks packed by K9's launch
+    where ``pack``, else None), and every shard's launches are queued,
+    under the driver's guarded mesh dispatch, before any result is read
+    -> (ordered, crow, rows, slab, [finish's tensors on the host as
+    numpy] one list a shard)."""
     side, rv, cols, rows = driver._review_pack(reviews)
     shards, target = shard_review_side(mesh, rows, rv, cols)
+    slab = target // int(mesh.devices.size)
+    C = side[1].arrays["valid"].shape[0]
     for dev in mesh.distinct():
         driver._constraint_device(side, dev)
 
+    def one(rv_s, cols_s, dev):
+        out = packed_empty(C, slab, dev) if pack else None
+        mask, autoreject = driver._eval(
+            side, rv_s, cols_s, driver._constraint_device(side, dev),
+            pack_out=out)
+        return finish(mask, autoreject, out)
+
     def dispatch():
-        outs = [finish(*driver._eval(side, rv_s, cols_s,
-                                     driver._constraint_device(side, dev)))
+        outs = [one(rv_s, cols_s, dev)
                 for (rv_s, cols_s), dev in zip(shards, mesh.devices)]
         return [[t.cpu().numpy() for t in out] for out in outs]
 
     out = driver._guarded_mesh_dispatch(mesh, dispatch)
-    return side[0], side[4], rows, target // int(mesh.devices.size), out
+    return side[0], side[4], rows, slab, out
 
 
 def sharded_masks(driver, reviews, mesh: TorchMesh):
     """compute_masks, sharded over the mesh: each shard evaluates its row
-    slab (match kernel + every violation-program group) on its device and
-    bit-packs its two masks there (K10); each shard's download is
+    slab (match kernel + every violation-program group) on its device, and
+    its K9 launch bit-packs its two masks there; each shard's download is
     unpacked to its own slab before the slabs join.  Returns (ordered,
     mask, autoreject) like TorchDriver.compute_masks, the row axis
     trimmed back to the single-device bucket so results compare bit for
     bit."""
     ordered, crow, rows, slab, outs = _shard_evals(
-        driver, reviews, mesh, lambda m, a: (pack_review_masks(m, a),))
+        driver, reviews, mesh, lambda m, a, p: (p,), pack=True)
     # crow folds the group-major pad rows out (driver._constraint_side)
     mask, rej = unpack_review_masks([p for (p,) in outs], slab, crow, rows)
     return ordered, mask, rej
@@ -511,7 +520,7 @@ def sharded_violation_counts(driver, reviews, mesh: TorchMesh):
 
     ordered, crow, _rows, _slab, outs = _shard_evals(
         driver, reviews, mesh,
-        lambda m, a: (packed_reduction(m, 0), packed_reduction(a, 0)))
+        lambda m, a, _p: (packed_reduction(m, 0), packed_reduction(a, 0)))
     mask_n = sum(c[:, 0].astype(np.int64) for c, _r in outs)
     rej_n = sum(r[:, 0].astype(np.int64) for _c, r in outs)
     return ordered, mask_n[crow], rej_n[crow]

@@ -199,3 +199,25 @@ def test_a_changed_header_changes_the_library_path(tmp_path, monkeypatch):
     again = {n: device._lib_path(n) for n in device.KERNEL_NAMES}
     assert {n for n in device.KERNEL_NAMES
             if again[n] != after[n]} == {"setcount", "program"}
+
+
+def test_the_pack_header_rebuilds_k9_and_k10(tmp_path, monkeypatch):
+    """packbits.cuh is K10's body and K9's review-mode pack: an edit of it
+    rebuilds both libraries, and only those."""
+    import shutil
+
+    from gatekeeper_tpu_torch import device
+
+    src = tmp_path / "kernels"
+    shutil.copytree(PKG / "kernels", src)
+    monkeypatch.setattr(device, "_SRC_DIR", str(src))
+    before = {n: device._lib_path(n) for n in device.KERNEL_NAMES}
+    header = src / "packbits.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    changed = {n for n in device.KERNEL_NAMES
+               if device._lib_path(n) != before[n]}
+    assert changed == {"packbits", "program"}
+    # K9's two modes are one C launcher, counted apart
+    assert device._SIGNATURES["program_pack"] == device._SIGNATURES[
+        "program"]
+    assert {"program", "program_pack"} <= set(device.launches)

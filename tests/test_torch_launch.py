@@ -5,7 +5,7 @@ and a mesh shard's tensors may lie on another card than the current one.
 So ``device.launch`` takes the device of the tensors it launches on and
 calls the launcher inside ``torch.cuda.device`` of it, and every wrapper
 hands it the device of its inputs.  Both are checked here on the CPU:
-``launch`` with a stand-in library and device context, each of the eleven
+``launch`` with a stand-in library and device context, each of the twelve
 launchers' wrappers with ``launch`` recording what it was handed (the
 wrappers' CUDA functions, called on CPU tensors, with the stream and the
 pinned staging buffer stood in for)."""
@@ -94,6 +94,8 @@ def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
                         lambda n: torch.empty(n, dtype=torch.uint8))
     matchkernel.match_kernel_cuda(rv, cs, matchkernel.constraint_records(cs))
     program.program_eval_cuda(mask.clone(), groups)
+    program.program_eval_cuda(mask.clone(), groups, pack=(
+        ~mask, packbits.packed_empty(*mask.shape, CPU)))
     reduction.packed_reduction_cuda(mask, 8, row_offset=64)
     strpred.strpred_cuda(
         torch.tensor([[0, 1], [1, 0]], dtype=torch.uint8), _i32([0, 1]),

@@ -218,3 +218,88 @@ def test_compute_masks_downloads_the_packed_array(drivers, monkeypatch):
     td.compute_masks(_reviews("synthetic", 3, td))
     C = td._constraint_side()[1].arrays["valid"].shape[0]
     assert calls == [((C, 8), torch.uint8)]
+
+
+# ---------------------------------------------------------------------------
+# K9's review mode on the CPU: program_eval(..., pack=...) against the JAX
+# package's fused output, jnp.packbits of TpuDriver's fused masks inside its
+# one dispatch (_packed_variant)
+# ---------------------------------------------------------------------------
+
+
+def _jax_fused(jd, reviews, lo, hi):
+    """TpuDriver's packed array of review rows [lo, hi), its group-major
+    rows picked by crow -> (C, crow, packed)."""
+    from gatekeeper_tpu_torch.convert import take_rows
+
+    jd.mesh_enabled = False
+    jd._mesh_cache = None
+    fn, _ordered, rp, cp, cols, gp, crow = jd._device_inputs(
+        copy.deepcopy(reviews))
+    rows = np.arange(lo, hi)
+    packed = np.asarray(jd._dispatch(
+        jd._packed_variant(fn), take_rows(rp.arrays, rows), cp.arrays,
+        take_rows(cols, rows), gp, hi - lo))
+    C = cp.arrays["valid"].shape[0]
+    return packed[np.concatenate([crow, C + np.asarray(crow)])]
+
+
+def _port_fused(td, reviews, lo, hi):
+    """The port's review evaluation of rows [lo, hi) with the pack asked
+    of program_eval (on the CPU its plain version), its group-major rows
+    picked by crow."""
+    from gatekeeper_tpu_torch.convert import state_from_numpy, take_rows
+
+    side, rv, cols, _rows = td._review_pack(reviews)
+    rows = np.arange(lo, hi)
+    C = side[1].arrays["valid"].shape[0]
+    out = packbits.packed_empty(C, hi - lo, "cpu")
+    out.fill_(0xA5)  # every byte must be written
+    td._eval(side, state_from_numpy(take_rows(rv, rows), "cpu"),
+             state_from_numpy(take_rows(cols, rows), "cpu"),
+             td._constraint_device(side), pack_out=out)
+    crow = np.asarray(side[4])
+    return out.numpy()[np.concatenate([crow, C + crow])]
+
+
+@pytest.mark.parametrize("source", ["synthetic", "render_corpus"])
+@pytest.mark.parametrize("R", [1, 7, 8, 9, 256])
+def test_fused_pack_bit_equal_to_the_jax_fused_output(drivers, source, R):
+    td, jd = drivers[source]
+    reviews = _reviews(source, R, td)
+    want = _jax_fused(jd, reviews, 0, R)
+    got = _port_fused(td, reviews, 0, R)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert want.shape[1] == -(-R // 8)
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
+    # mesh slabs: a shard's rows of the padded batch, packed on their own
+    if R in (9, 256):
+        for width in (2, 4):
+            slab = -(-R // width)
+            for s in range(width):
+                lo, hi = s * slab, (s + 1) * slab
+                np.testing.assert_array_equal(
+                    _port_fused(td, reviews, lo, hi),
+                    _jax_fused(jd, reviews, lo, hi))
+
+
+def test_compute_masks_packs_in_the_program_call(drivers, monkeypatch):
+    """compute_masks asks program_eval for the pack (K9's review mode),
+    with an output of [2C, ceil(R/8)], and downloads that output."""
+    from gatekeeper_tpu_torch.ops import driver as driver_mod
+
+    td, _jd = drivers["synthetic"]
+    seen = []
+    orig = driver_mod.program_eval
+
+    def spy(mask, groups, pack=None):
+        seen.append(None if pack is None else
+                    (tuple(pack[0].shape), tuple(pack[1].shape)))
+        return orig(mask, groups, pack=pack)
+
+    monkeypatch.setattr(driver_mod, "program_eval", spy)
+    _o, mask, rej = td.compute_masks(_reviews("synthetic", 3, td))
+    C = td._constraint_side()[1].arrays["valid"].shape[0]
+    assert seen == [((C, 8), (2 * C, 1))]
+    assert mask.shape[1] == 8 and mask[:, :3].any()

@@ -775,7 +775,8 @@ def test_executed_instruction_count_is_unchanged_by_the_loop_arguments():
 
 def test_pack_launch_offsets_and_alignment():
     """The blob K9 reads: G headers and NOP operand rows of 8 int64 words,
-    then the code, whole words; each group's first block follows the
+    then the code, whole words, then the ranges of rows no group covers;
+    each group's first block follows the
     blocks of the groups before it, so no block holds two groups; a group
     of B = 0 is dropped; rows outside the mask are refused."""
     groups, C, _rng = _edge_groups(1025, 3, 3, 5)
@@ -788,7 +789,11 @@ def test_pack_launch_offsets_and_alignment():
     blob = lp["blob"]
     n_code = sum(len(g["code"]) for g in live)
     assert blob.dtype == np.int64
-    assert len(blob) == 8 * G + 8 * NOP + -(-n_code // 2)
+    # the code, whole words, then the rows of no group: U and U ranges
+    free = tprogram.rows_of_no_group(live, C)
+    tail = 8 * G + 8 * NOP + -(-n_code // 2)
+    assert len(blob) == tail + 1 + 2 * len(free)
+    assert blob[tail:].tolist() == [len(free)] + [x for r in free for x in r]
     hdr = blob[:8 * G].reshape(G, 8)
     blocks = code = ops = 0
     for h, g in zip(hdr.tolist(), live):
@@ -805,7 +810,7 @@ def test_pack_launch_offsets_and_alignment():
     assert lp["blocks"] == blocks
     assert lp["max_code"] == max(len(g["code"]) for g in live)
     assert lp["max_ops"] == max(len(g["operands"]) for g in live)
-    words = blob[8 * G + 8 * NOP:].view(np.int32)
+    words = blob[8 * G + 8 * NOP:tail].view(np.int32)
     np.testing.assert_array_equal(
         words[:n_code], np.concatenate([g["code"] for g in live]))
     assert (words[n_code:] == 0).all()
@@ -840,6 +845,150 @@ def test_k9_geometry_matches_the_kernel_source():
         str(tprogram.ITEMS)
     assert re.search(r"constexpr int WIDTH = (\d+);", src).group(1) == \
         str(progcode.WIDTH)
+
+
+@pytest.mark.parametrize("R", [1, 17, 1025])
+def test_rows_of_no_group_sit_where_the_kernel_reads_them(R):
+    """K9's review mode packs the rows no group covers from the ranges
+    after the code: program.cu finds them from the last header (G
+    headers, NOP operands, then the code up to the last group's end,
+    padded to whole words).  They are the blob's last words: U, then U
+    (begin, end) ranges, which cover exactly the rows outside every group
+    of B > 0."""
+    groups, C, _rng = _edge_groups(R, 3, 3, R)
+    C += 3  # rows of no group after the last group
+    for live in (groups, groups[:1], groups[1:3],
+                 [groups[0], dict(groups[1], B=0), groups[4]]):
+        lp = tprogram.pack_launch(live, C, R, torch.device("cpu"))
+        blob, G, NOP = lp["blob"], lp["G"], lp["NOP"]
+        last = blob[8 * (G - 1):8 * G]
+        at = 8 * G + 8 * NOP + (last[3] + last[4] + 1) // 2
+        U = blob[at]
+        assert len(blob) == at + 1 + 2 * U
+        ranges = blob[at + 1:].reshape(U, 2)
+        free = np.zeros(C, bool)
+        for b, e in ranges.tolist():
+            assert 0 <= b < e <= C
+            free[b:e] = True
+        covered = np.zeros(C, bool)
+        for g in live:
+            covered[g["start"]:g["start"] + g["B"]] = True
+        np.testing.assert_array_equal(free, ~covered)
+
+
+def test_k9_review_mode_matches_the_kernel_source():
+    """program.cu finds the rows of no group as pack_launch lays them out,
+    and packs from memory with packbits.cuh, the body K10 runs."""
+    import re
+
+    kdir = pathlib.Path(tdev.__file__).parent / "kernels"
+    src = (kdir / "program.cu").read_text()
+    assert '#include "packbits.cuh"' in src
+    assert re.search(r"blob \+ \(long long\)G \* HDRW \+\s*"
+                     r"\(long long\)NOP \* OPW \+\s*\(hl\[3\] \+ hl\[4\] "
+                     r"\+ 1\) / 2", src)
+    assert re.search(r"constexpr int HDRW = (\d+);", src).group(1) == "8"
+    assert re.search(r"constexpr int OPW = (\d+);", src).group(1) == "8"
+    assert "gk::pack_byte(mask, autoreject, C, R, vec, t)" in src
+    k10 = (kdir / "packbits.cu").read_text()
+    assert '#include "packbits.cuh"' in k10
+    assert "gk::pack_byte(mask, autoreject, C, R, vec, t)" in k10
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """device.launch recording its arguments, on CPU tensors."""
+    calls = []
+    monkeypatch.setattr(tdev, "launch",
+                        lambda name, device, *args: calls.append(
+                            (name, args)))
+    monkeypatch.setattr(tdev, "stream", lambda t: 0)
+    monkeypatch.setattr(tdev, "upload",
+                        lambda a, dev: torch.from_numpy(np.array(a)))
+    return calls
+
+
+def _review_call(R=8, C_extra=2):
+    groups, C, rng = _edge_groups(R, 3, 3, 11)
+    C += C_extra  # rows of no group
+    mask = torch.from_numpy(rng.random((C, R)) < 0.7)
+    rej = torch.from_numpy(rng.random((C, R)) < 0.3)
+    return groups, mask, rej
+
+
+def test_review_launches_k9_once_with_the_pack(launched):
+    groups, mask, rej = _review_call()
+    out = torch.empty((2 * mask.shape[0], 1), dtype=torch.uint8)
+    tprogram.program_eval_cuda(mask, groups, pack=(rej, out))
+    [(name, args)] = launched
+    assert name == "program_pack"
+    lp = tprogram.pack_launch(groups, *mask.shape, torch.device("cpu"))
+    assert args[1:] == (lp["G"], lp["NOP"], mask.data_ptr(), 8,
+                        lp["blocks"], lp["max_code"], lp["max_ops"],
+                        rej.data_ptr(), out.data_ptr(), mask.shape[0], 0)
+
+
+def test_sweep_passes_no_pack_output(launched):
+    groups, mask, _rej = _review_call(R=1025)
+    tprogram.program_eval_cuda(mask, groups)
+    [(name, args)] = launched
+    assert name == "program" and args[-4:] == (None, None, 0, 0)
+
+
+@pytest.mark.parametrize("groups_of", [lambda g: [], lambda g: [
+    dict(g[0], B=0)]])
+def test_a_side_without_group_rows_launches_k10_alone(launched, groups_of):
+    groups, mask, rej = _review_call()
+    out = torch.empty((2 * mask.shape[0], 1), dtype=torch.uint8)
+    tprogram.program_eval_cuda(mask, groups_of(groups), pack=(rej, out))
+    [(name, args)] = launched
+    assert name == "packbits"
+    assert args == (mask.data_ptr(), rej.data_ptr(), *mask.shape, 1,
+                    out.data_ptr(), 0)
+
+
+def test_past_the_row_limit_k10_packs_after_k9(launched, monkeypatch):
+    monkeypatch.setattr(tprogram, "PACK_IN_K9_MAX_ROWS", 16)
+    for R, want in ((16, ["program_pack"]), (17, ["program", "packbits"])):
+        launched.clear()
+        groups, mask, rej = _review_call(R=R)
+        out = torch.empty((2 * mask.shape[0], -(-R // 8)),
+                          dtype=torch.uint8)
+        tprogram.program_eval_cuda(mask, groups, pack=(rej, out))
+        assert [n for n, _a in launched] == want
+        if len(want) == 2:
+            assert launched[0][1][-4:] == (None, None, 0, 0)
+            assert launched[1][1][5] == out.data_ptr()
+
+
+def test_the_pack_arguments_are_checked(launched):
+    groups, mask, rej = _review_call()
+    C = mask.shape[0]
+    bad = [((rej, torch.empty((2 * C, 2), dtype=torch.uint8)), ValueError),
+           ((rej, torch.empty((2 * C, 1), dtype=torch.int8)), TypeError),
+           ((rej[:-1], torch.empty((2 * C, 1), dtype=torch.uint8)),
+            ValueError)]
+    for pack, err in bad:
+        with pytest.raises(err):
+            tprogram.program_eval_cuda(mask, groups, pack=pack)
+        with pytest.raises(err):
+            program_eval(mask, groups, pack=pack)
+    assert not launched
+
+
+def test_program_eval_packs_with_the_plain_versions_on_the_cpu():
+    """On the CPU the pack is program_eval_plain, then
+    pack_review_masks_plain of the result; nothing is launched."""
+    from gatekeeper_tpu_torch.ops import packbits
+
+    groups, mask, rej = _review_call(R=13)
+    out = torch.full((2 * mask.shape[0], 2), 0xA5, dtype=torch.uint8)
+    tdev.reset_launches()
+    got = program_eval(mask.clone(), groups, pack=(rej, out))
+    want = program_eval_plain(mask.clone(), groups)
+    assert torch.equal(got, want)
+    assert torch.equal(out, packbits.pack_review_masks_plain(want, rej))
+    assert all(v == 0 for v in tdev.launches.values())
 
 
 # ---- the driver ---------------------------------------------------------------------

@@ -37,6 +37,16 @@ full sweep takes), one key-moving delta sweep of 16 objects records K8
 on the host index's tables ("delta_", table mode), and a full sweep on a
 width-2 mesh of the one card (GK_VIRTUAL_DEVICES) records K7's merge
 ("mesh_").
+
+Two more names on the synthetic corpus.  ``scatter`` records K6 on a full
+sweep after 256 changed pods with the delta path off ("churn_full_").
+``review_chain`` times the review's device chain as one unit on batches
+of 1, 16, 32, 64 and 256 pods (R = 8 to 256; "review_chain_<n>_pods"):
+program_eval with the pack where the checkout's driver asks for it, else
+K9 then K10 as an earlier checkout's driver runs them (its wrappers lack
+the pack argument, so the trees compare only as chains); for the packing
+checkout, K9 then K10 on the same inputs and the fused launch with its
+row limit lifted are timed beside it.
 """
 
 from __future__ import annotations
@@ -59,8 +69,15 @@ def _chip_smoke():
     return mod
 
 
+# the review batches whose device chain review_chain times: a one-pod
+# review (R = 8) and batches of 16, 32, 64 and 256 pods
+CHAIN_PODS = (1, 16, 32, 64, 256)
+
+
 def synthetic_runs(cs, syn, args, names) -> list:
-    """A cold capped sweep and a one-pod review -> [(label, Capture)]."""
+    """A cold capped sweep, a one-pod review, with review_chain batches
+    of CHAIN_PODS pods, and with scatter a full sweep after 256 changed
+    pods with the delta path off -> [(label, Capture)]."""
     client = syn.build_driver(args.templates, args.pods, cs.SEED)
     with cs.Capture(names=names) as sweep:
         client.audit_capped(cs.CAP)
@@ -68,7 +85,81 @@ def synthetic_runs(cs, syn, args, names) -> list:
     pod["metadata"]["name"] = "admission-timed"
     with cs.Capture(names=names) as review:
         client.review(pod)
-    return [("sweep", sweep), ("review", review)]
+    runs = [("sweep", sweep), ("review", review)]
+    if "review_chain" in names:
+        for n in CHAIN_PODS:
+            pods = syn.make_pods(n, seed=cs.SEED + 500 + n,
+                                 violation_rate=0.5)
+            for i, p in enumerate(pods):
+                p["metadata"]["name"] = f"chain-{n}-{i}"
+            with cs.Capture(names=("program", "program_pack",
+                                   "packbits")) as cap:
+                client.review_batch(pods)
+            runs.append((f"chain{n}", cap))
+    if "scatter" in names:
+        driver = client.driver
+        churn = cs.Churn([client], syn.make_pods(args.pods, cs.SEED + 1),
+                         cs.SEED + 5)
+        churn.step(256)
+        driver.delta_enabled = False
+        with cs.Capture(names=("scatter",)) as full:
+            client.audit_capped(cs.CAP)
+        driver.delta_enabled = True
+        if not full.calls["scatter"]:
+            raise AssertionError("the full sweep after churn ran no K6")
+        runs.append(("churn_full", full))
+    return runs
+
+
+def review_chain(cs, cap, reps: int) -> dict:
+    """The review's device chain as one unit, on the inputs of the
+    recorded review: K9 packing in its launch where this checkout's
+    driver asks it to (program_eval with ``pack``), else K9 then K10, as
+    the checkout's driver ran them; checked against the plain versions.
+    For a checkout that packs in K9, K9 then K10 on the same inputs and
+    the fused launch with its row limit lifted are timed beside it."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import packbits, program
+
+    if cap.calls["program_pack"]:
+        [(a, kw, _out)] = cap.calls["program_pack"]
+        p = cs._program_pack_prep(a, kw)
+        reset = (lambda: cs._program_reset(p, "kernel"))
+        reset()
+        got = cs._program_pack_kernel(p)
+        want = cs._program_pack_plain(p)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("review chain: K9's pack != plain")
+        rec = {"chain": "k9_pack",
+               "ms": cs.cuda_ms(lambda: cs._program_pack_kernel(p), reps,
+                                setup=reset),
+               "k9_then_k10_ms": cs.cuda_ms(lambda: cs._k9_then_k10(p),
+                                            reps, setup=reset),
+               "fused_forced_ms": cs.cuda_ms(lambda: cs._forced_fold(p),
+                                             reps, setup=reset)}
+    else:
+        [(a, kw, _out)] = cap.calls["program"]
+        [((_after, autoreject), _kw, _packed)] = cap.calls["packbits"]
+        p = cs._program_prep(a, kw)
+
+        def chain():
+            program.program_eval_cuda(p["kernel"], p["groups"])
+            return packbits.pack_review_masks_cuda(p["kernel"], autoreject)
+
+        reset = (lambda: cs._program_reset(p, "kernel"))
+        reset()
+        got = chain()
+        program.program_eval_plain(p["plain"], p["groups"])
+        want = packbits.pack_review_masks_plain(p["plain"], autoreject)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("review chain: K9 then K10 != plain")
+        rec = {"chain": "k9_then_k10",
+               "ms": cs.cuda_ms(chain, reps, setup=reset)}
+    rec["shape"] = list(p["pre"].shape)
+    return rec
 
 
 def referential_runs(cs, syn, args, names) -> list:
@@ -112,7 +203,9 @@ def main(argv=None) -> int:
                     default="synthetic")
     ap.add_argument("--kernels", default=None,
                     help="default match,program (synthetic) or "
-                    "joinkeys,joinkeys_merge,joinlookup (referential)")
+                    "joinkeys,joinkeys_merge,joinlookup (referential); "
+                    "synthetic also takes scatter, program_pack and "
+                    "review_chain")
     ap.add_argument("--templates", type=int, default=None,
                     help="default 500 (synthetic) or 24 (referential)")
     ap.add_argument("--pods", type=int, default=100_000,
@@ -138,10 +231,14 @@ def main(argv=None) -> int:
     names = tuple(args.kernels.split(","))
     specs = cs.kernel_specs()
     recorded = {name for _m, _f, name in cs.Capture.SITES}
+    recorded |= set(cs.Capture.MODES.values())
     for name in names:
+        if name == "review_chain" and not ref:
+            continue
         if name not in specs or name not in recorded:
             ap.error(f"--kernels: {name} is not a kernel that chip_smoke "
-                     f"records (one of {sorted(recorded)})")
+                     f"records (one of {sorted(recorded)}) or "
+                     f"review_chain")
     from gatekeeper_tpu_torch import device as gdev
     from gatekeeper_tpu_torch.ops import program
     from gatekeeper_tpu_torch.util import synthetic as syn
@@ -152,23 +249,28 @@ def main(argv=None) -> int:
     gdev.kernels()
     out = {"root": args.root, "card": cs.nvidia_smi_line(),
            "torch_name": torch.cuda.get_device_name(0),
-           "ptxas": {n: [ln.strip() for ln in
-                         gdev.build_log.get(gdev._SIGNATURES[n][0],
-                                            "").splitlines()
-                         if "registers" in ln or "spill" in ln]
-                     for n in names},
+           "ptxas": {lib: [ln.strip() for ln in
+                           gdev.build_log.get(lib, "").splitlines()
+                           if "registers" in ln or "spill" in ln]
+                     for lib in {gdev._SIGNATURES.get(n, ("program",))[0]
+                                 for n in names}},
            "shapes": {}, "ms": {}}
     out["corpus"] = args.corpus
     runs = (referential_runs if ref else synthetic_runs)(cs, syn, args,
                                                          names)
     for name in names:
-        if not any(cap.calls[name] for _label, cap in runs):
+        if name != "review_chain" and not any(
+                cap.calls.get(name) for _label, cap in runs):
             raise AssertionError(f"{name}: no call on the "
                                  f"{'/'.join(lb for lb, _c in runs)} runs")
     sweep = runs[0][1]
     for label, cap in runs:
+        if label.startswith("chain"):
+            out["ms"][f"review_chain_{label[5:]}_pods"] = review_chain(
+                cs, cap, args.reps)
+            continue
         for name in names:
-            if not cap.calls[name]:
+            if not cap.calls.get(name):
                 continue
             spec = specs[name]
             reset = spec.reset or (lambda p, which: None)
