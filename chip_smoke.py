@@ -43,14 +43,19 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      stack; K9's review mode: R of 1, 7, 8, 9, 256 and 4,099, C of 1
      and 3, a group of no rows and rows of no group, masks all true, all
      false and random, grids of one block and of many, an unaligned
-     autoreject mask, and K10 alone where no group has rows; K1: R off its
+     autoreject mask, and K10 alone where no group has rows; K9's delta
+     mode: w of 8, 13, 16, 64, 256 and 512, C of 1 and 3, indices at 0,
+     at the last column and padded, rows of no group, and K5 alone where
+     no group has rows and after K9 past a row limit; K1: R off its
      8 reviews a thread; K10: R off a byte, C of 0, 1 and 3, masks all
      true, all false and random, unaligned row slices and buffers; K6:
      every leaf dtype and rank, units of every width, a leaf at an odd address,
      a unit table past 48 KB, 9,000 rows; K7 and its merge at vocabularies
      around their grid's chunks, with keys in a few chunks only, on every id
      and on none, the merge of 2, 3, 4 and 8 shard tables; K8 in both modes on
-     the same queries), and K1 once more at the main path's shape and at R =
+     the same queries, and its table mode's one launch over lookups of T = 0
+     to 2^20, of different S and scope, and an empty one), and K1 once more
+     at the main path's shape and at R =
      4099 on a corpus whose label and namespace selectors are live; B6's least
      time (the sweep as one function, its mask kept inside) is logged beside
      the sum of K1's, K9's and K4's times
@@ -58,15 +63,21 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      reduced through the plain versions on the card
   6. the incremental audit, the second path, at the same size: churn
      sweeps that change d stored pods before each (adds, modifications and
-     deletions) for d in 1, 16 and 256, each through the delta path (K5
-     gathers the before-columns, K1 and K9 evaluate the dirty rows); after each
+     deletions) for d in 1, 16 and 256, each through the delta path (K1
+     and K9 evaluate the dirty rows, and K9's delta mode writes their
+     before | after columns in the same launch: each delta sweep launches
+     it once and K5 never, up to its row limit, ops/program.py
+     DELTA_IN_K9_MAX_ROWS; past it, at d = 256, K9 and then K5); after each
      d a forced full sweep whose totals, results and counts must equal the
      delta path's; one sweep at d = 257, which must take the full path, and
      one full sweep after 256 changes with the delta path off (K6 patches
      the resident inputs); every kernel's launch count over that run must
-     be > 0 for K5 and K6 and for K1 and K9, K9's equal to K1's.  Every K5
-     and K6 call of that run is recorded and held against its plain
-     version, and each is timed at its largest call; then one recorded
+     be > 0 for K9's delta mode and K6 and for K1 and K9, K9's equal to
+     K1's.  Every call of K9's delta mode and K6 of that run is recorded
+     and held against its plain version, and each is timed at its largest
+     call (K9's delta mode at its largest width under the limit, beside
+     K9 then K5 on the same inputs; K5 at d = 256); then one
+     recorded
      delta sweep for each d holds K1, K9 (and K2, K3 on its cells) at the
      delta path's widths.  Then the device-stage split: the same paths
      with the op-by-op IR (OpByOp: vexpr.eval_program with K2 and K3, the
@@ -91,13 +102,16 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      closed by a forced full sweep that must equal it; one churn of a Pod
      of the crowded team, whose readers exceed DELTA_MAX_ROWS at this size,
      which must take the full path.  Each sweep logs its stages, rendered cells,
-     results, join-affected rows and the join index's host time.  K7, K8,
-     K1, K9, K4, K5 and K6 must have launched on that run, K9 as often as
-     K1, and vexpr.eval_program never.  Every K7, K8 and K9 call of the
-     cold sweep and K8's and K9's of one key-moving delta sweep for each
-     d are held against the plain versions, K7 and K8 (its dense mode)
-     timed at their largest call, K8's table mode at the delta sweeps'
-     largest; seeded edge cases are in phase 4.  The device-stage
+     results, join-affected rows and the join index's host time.  Each
+     delta sweep launches K8's table mode once (its lookups in one launch)
+     and K9's delta mode once, K5 never (up to the row limit).  K7, K8 in both modes,
+     K1, K9 (and its delta mode), K4 and K6 must have launched on that run,
+     K9 as often as K1, and vexpr.eval_program never.  Every K7, K8 and K9
+     call of the cold sweep and K8's and K9's of one key-moving delta sweep
+     for each d are held against the plain versions, K7 and K8 (its dense
+     mode) timed at their largest call, K8's table mode at the delta
+     sweeps' largest, beside the same lookups each in a launch of its own;
+     seeded edge cases are in phase 4.  The device-stage
      split of forced full and key-moving churn sweeps, op-by-op against
      K9.  Then parity against the oracle at 6 x 240 under
      GK_JOIN_ASSERT=1, capped, uncapped, and uncapped after churn through
@@ -111,11 +125,13 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      and its merge once a join plan; churn of d = 1 and 16 through the
      delta path, delta_rows the dirty rows (with the readers of the key
      groups they touch), delta_shards and K5's launches their owning
-     shards, the synthetic corpus's added pods in the padded tail of the
+     shards (K9's delta mode none: each slab of the resident mask is
+     gathered on its own shard), the synthetic corpus's added pods in the padded tail of the
      last slab, each d closed by a forced full sweep (K6 on the owning
      shards) that must equal it.  Every K4 call (row_offset) and K7 merge
      call of that run is held against its plain version and timed at its
-     largest call.  Then reviews under the mesh: compute_masks of 4,096
+     largest call, and K5 too, whose only launches on the counted paths
+     these are.  Then reviews under the mesh: compute_masks of 4,096
      stored pods bit-equal and review_batch of 64 unique pods byte-equal
      to width 1, K9 packing once a shard, sharded_violation_counts
      against the mask sums, and the
@@ -334,38 +350,51 @@ class Capture:
     review: K9 packs the masks in its launch) is recorded as
     "program_pack", its result the mask and the packed array.  K10 is
     recorded where it launches (packbits.pack_review_masks_cuda, which
-    program_eval calls where K9 does not pack).  The arguments are copied
-    before the call and the result after it: the row scatter (K6) updates
-    the resident inputs in place, which a later sweep would otherwise
-    change under a recorded call."""
+    program_eval calls where K9 does not pack).  A call of program_eval
+    with ``delta`` (a delta sweep on one card: K9 writes the before |
+    after columns in its launch) is recorded as "program_delta", its
+    result the mask and the int8 columns; K5 where it launches
+    (delta_columns_cuda: after K9 where K9 writes no delta columns, and
+    per owning shard under a mesh).
+    K8's table mode is recorded at join_lookup_many, one call an
+    evaluation, and its dense mode at join_lookup.  A site its checkout
+    lacks (tools/kernel_turns.py runs earlier checkouts) is skipped.  The
+    arguments are copied before the call and the result after it: the row
+    scatter (K6) updates the resident inputs in place, which a later sweep
+    would otherwise change under a recorded call."""
 
     SITES = (
         ("driver", "match_kernel", "match"),
         ("driver", "packed_reduction", "reduction"),
         ("driver", "program_eval", "program"),
-        ("driver", "delta_columns", "delta"),
+        ("delta", "delta_columns_cuda", "delta"),
         ("driver", "scatter_rows", "scatter"),
         ("joinkeys", "join_keys", "joinkeys"),
         ("joinkeys", "merge_key_tables", "joinkeys_merge"),
         ("vexpr", "join_lookup", "joinlookup"),
+        ("vexpr", "join_lookup_many", "joinlookup_table"),
         ("packbits", "pack_review_masks_cuda", "packbits"),
     )
-    # a site's second name: the calls of program_eval that pack
-    MODES = {"program": "program_pack"}
+    # a site's other names: the calls of program_eval that pack (keyword
+    # pack) and that write a delta sweep's columns (keyword delta)
+    MODES = {"program": {"pack": "program_pack", "delta": "program_delta"}}
 
     def __init__(self, names=None):
-        from gatekeeper_tpu_torch.ops import driver, joinkeys, packbits, vexpr
+        from gatekeeper_tpu_torch.ops import delta, driver, joinkeys
+        from gatekeeper_tpu_torch.ops import packbits, vexpr
 
         mods = {"driver": driver, "vexpr": vexpr, "joinkeys": joinkeys,
-                "packbits": packbits}
+                "packbits": packbits, "delta": delta}
         self.sites = [(mods[m], f, name) for m, f, name in self.SITES
-                      if names is None or name in names
-                      or self.MODES.get(name) in names]
+                      if hasattr(mods[m], f) and (
+                          names is None or name in names
+                          or set(self.MODES.get(name, {}).values())
+                          & set(names))]
         self.calls = {}
         for _m, _f, name in self.sites:
             self.calls[name] = []
-            if name in self.MODES:
-                self.calls[self.MODES[name]] = []
+            for mode in self.MODES.get(name, {}).values():
+                self.calls[mode] = []
         self._orig = {}
 
     def __enter__(self):
@@ -377,8 +406,10 @@ class Capture:
                 args, kws = _clone(a), _clone(kw)
                 out = _orig(*a, **kw)
                 name, rec = _name, out
-                if kw.get("pack") is not None:
-                    name, rec = self.MODES[_name], (out, kw["pack"][1])
+                for key, mode in self.MODES.get(_name, {}).items():
+                    if kw.get(key) is not None:
+                        # the mask, and the output the mode writes
+                        name, rec = mode, (out, kw[key][-1])
                 # a copy: the match mask is ANDed into in place (K9)
                 self.calls[name].append((args, kws, _clone(rec)))
                 return out
@@ -396,22 +427,33 @@ class PlainVersions:
     PyTorch versions, on whatever device the tensors are."""
 
     def __enter__(self):
+        from gatekeeper_tpu_torch.ops import delta as deltamod
         from gatekeeper_tpu_torch.ops import (
-            driver, joinkeys, joinlookup, matchkernel, program, reduction,
-            setcount, strpred, vexpr,
+            driver, joinkeys, joinlookup, matchkernel, packbits, program,
+            reduction, setcount, strpred, vexpr,
         )
 
         def match_plain(rv, cs, records=None):
             return matchkernel.match_kernel_plain(rv, cs)
 
+        def program_plain(mask, groups, pack=None, delta=None):
+            program.program_eval_plain(mask, groups)
+            if pack is not None:
+                pack[1].copy_(packbits.pack_review_masks_plain(mask, pack[0]))
+            if delta is not None:
+                delta[2].copy_(deltamod.delta_columns_plain(delta[0],
+                                                            delta[1], mask))
+            return mask
+
         self.patches = [
             (driver, "match_kernel", match_plain),
             (driver, "packed_reduction", reduction.packed_reduction_plain),
-            (driver, "program_eval", program.program_eval_plain),
+            (driver, "program_eval", program_plain),
             (vexpr, "strpred", strpred.strpred_plain),
             (vexpr, "setcount", setcount.setcount_plain),
             (joinkeys, "join_keys", joinkeys.join_keys_plain),
             (vexpr, "join_lookup", joinlookup.join_lookup_plain),
+            (vexpr, "join_lookup_many", joinlookup.join_lookup_many_plain),
         ]
         self.saved = [(m, f, getattr(m, f)) for m, f, _ in self.patches]
         for m, f, fn in self.patches:
@@ -425,30 +467,38 @@ class PlainVersions:
 
 class OpByOp:
     """Route TorchDriver._eval's program groups through
-    vexpr.eval_program, the IR issued op by op with K2, K3 and K8, and a
-    review's pack through K10 (the path before K9), in place of the
-    bytecode and K9: the 'before' of the device-stage split.  A switch of this
-    script only, never of the driver."""
+    vexpr.eval_program, the IR issued op by op with K2, K3 and K8 (a
+    launch a join lookup), a review's pack through K10 and a delta
+    sweep's columns through K5 (the path before K9), in place of the
+    bytecode and K9: the 'before' of the device-stage split.  A switch of
+    this script only, never of the driver."""
 
     def __enter__(self):
+        from gatekeeper_tpu_torch.ops import delta as deltamod
         from gatekeeper_tpu_torch.ops import driver, packbits, vexpr
 
         def bind(prog, env, start):
             return {"prog": prog, "env": env, "start": start, "B": env.C}
 
-        def run(mask, groups, pack=None):
+        def run(mask, groups, pack=None, delta=None):
             for g in groups:
                 mask[g["start"]:g["start"] + g["B"]] &= vexpr.eval_program(
                     g["prog"], g["env"])
             if pack is not None:  # the review's pack in K10's own launch
                 packbits.pack_review_masks_cuda(mask, pack[0], out=pack[1])
+            if delta is not None:  # the delta columns in K5's own launch
+                deltamod.delta_columns_cuda(delta[0], delta[1], mask,
+                                            out=delta[2])
             return mask
 
         self.saved = [(driver, n, getattr(driver, n))
-                      for n in ("encode", "bind_group", "program_eval")]
+                      for n in ("encode", "bind_group", "program_eval",
+                                "lookup_joins")]
         driver.encode = lambda prog: prog
         driver.bind_group = bind
         driver.program_eval = run
+        # each join lookup in its own launch, from eval_program
+        driver.lookup_joins = lambda staged: None
         return self
 
     def __exit__(self, *exc):
@@ -620,20 +670,24 @@ def _k9_then_k10(p):
 
 
 class FoldAtEveryR:
-    """K9 packs a review in its launch whatever the row count: its row
-    limit (ops/program.py PACK_IN_K9_MAX_ROWS) lifted while inside."""
+    """K9 packs a review (or, with ``limit`` DELTA_IN_K9_MAX_ROWS, writes a
+    delta sweep's columns) in its launch whatever the row count: the row
+    limit ``limit`` of ops/program.py lifted while inside."""
+
+    def __init__(self, limit: str = "PACK_IN_K9_MAX_ROWS"):
+        self.name = limit
 
     def __enter__(self):
         from gatekeeper_tpu_torch.ops import program
 
-        self.limit = program.PACK_IN_K9_MAX_ROWS
-        program.PACK_IN_K9_MAX_ROWS = 1 << 30
+        self.limit = getattr(program, self.name)
+        setattr(program, self.name, 1 << 30)
         return self
 
     def __exit__(self, *exc):
         from gatekeeper_tpu_torch.ops import program
 
-        program.PACK_IN_K9_MAX_ROWS = self.limit
+        setattr(program, self.name, self.limit)
 
 
 def _forced_fold(p):
@@ -655,6 +709,81 @@ def _program_pack_work(p):
     return (nbytes + 2 * C * R + packed, ops + 2 * C * R, shapes, None,
             {"k9_then_k10_ms": (lambda: _k9_then_k10(p), reset),
              "fused_forced_ms": (lambda: _forced_fold(p), reset)})
+
+
+def _program_delta_prep(a, kw):
+    """_program_prep, with the recorded resident mask and indices and an
+    output array each for K9's delta mode and the plain one."""
+    import torch
+
+    p = _program_prep(a, kw)
+    resident, idx, out = kw["delta"]
+    p.update(resident=resident, idx=idx,
+             out_kernel=torch.empty_like(out), out_plain=torch.empty_like(out))
+    return p
+
+
+def _program_delta_kernel(p):
+    from gatekeeper_tpu_torch.ops import program
+
+    program.program_eval_cuda(p["kernel"], p["groups"], delta=(
+        p["resident"], p["idx"], p["out_kernel"]))
+    return p["kernel"], p["out_kernel"]
+
+
+def _program_delta_plain(p):
+    from gatekeeper_tpu_torch.ops import delta, program
+
+    program.program_eval_plain(p["plain"], p["groups"])
+    p["out_plain"].copy_(delta.delta_columns_plain(p["resident"], p["idx"],
+                                                   p["plain"]))
+    return p["plain"], p["out_plain"]
+
+
+def _k9_then_k5(p):
+    """The delta sweep's device chain before the fold: K9 alone, then K5
+    on its mask into a fresh output (tools/kernel_turns.py runs it on
+    checkouts whose K5 takes no output argument) -> the columns."""
+    from gatekeeper_tpu_torch.ops import delta, program
+
+    program.program_eval_cuda(p["kernel"], p["groups"])
+    return delta.delta_columns_cuda(p["resident"], p["idx"], p["kernel"])
+
+
+def _program_delta_size(a):
+    """The calls K9's delta mode runs in (w up to its row limit) rank
+    above those past it, where program_eval runs K9 then K5: the timed
+    call is the largest of the mode's own."""
+    from gatekeeper_tpu_torch.ops import program
+
+    return a[0].shape[1] <= program.DELTA_IN_K9_MAX_ROWS, a[0].numel()
+
+
+def _program_delta_work(p):
+    """K9's bytes and operations (_program_work) and the delta columns':
+    w bytes gathered from the resident mask and the rows of no group's w
+    mask bytes read a constraint row, the [C, 2w] output written once, the
+    indices; one select a cell.  Timed beside it on the same inputs: K9
+    then K5 (the chain before the fold), and the fused launch with the
+    row limit lifted where the limit applies."""
+    from gatekeeper_tpu_torch.ops import program
+
+    nbytes, ops, shapes, _lib = _program_work(p)
+    C, w = p["pre"].shape
+    free = C - shapes["group_rows"]
+    shapes.update(C=C, w=w, resident_columns=p["resident"].shape[1],
+                  rows_of_no_group=free,
+                  gather_blocks=program.gather_blocks(C, w))
+    reset = (lambda: _program_reset(p, "kernel"))
+    notes = {"k9_then_k5_ms": (lambda: _k9_then_k5(p), reset)}
+    if w > program.DELTA_IN_K9_MAX_ROWS:
+        def forced():
+            with FoldAtEveryR("DELTA_IN_K9_MAX_ROWS"):
+                _program_delta_kernel(p)
+
+        notes["fused_forced_ms"] = (forced, reset)
+    return (nbytes + C * w + free * w + 2 * C * w + 4 * w, ops + 2 * C * w,
+            shapes, None, notes)
 
 
 def k10_calls(cap: Capture) -> Capture:
@@ -687,7 +816,8 @@ def cell_calls(cap: Capture) -> dict:
     from gatekeeper_tpu_torch.ops import strpred
 
     out = {"strpred": [], "setcount": []}
-    k9 = cap.calls.get("program", []) + cap.calls.get("program_pack", [])
+    k9 = [c for mode in ("program", "program_pack", "program_delta")
+          for c in cap.calls.get(mode, [])]
     for (_mask, groups), _kw, _out in k9:
         for g in groups:
             ops = g["operands"]
@@ -732,12 +862,14 @@ def _match_work(p):
 
 
 def _delta_prep(a, kw):
-    """(mask, the indices on the mask's card, new)."""
+    """(mask, the indices on the mask's card, new); the output K5 was
+    given, where it was, is not reused."""
     import numpy as np
     import torch
 
-    return a[0], torch.from_numpy(np.asarray(a[1], np.int32)).to(
-        a[0].device), a[2]
+    idx = a[1] if torch.is_tensor(a[1]) else \
+        torch.from_numpy(np.asarray(a[1], np.int32))
+    return a[0], idx.to(a[0].device), a[2]
 
 
 def _delta_work(p):
@@ -859,25 +991,54 @@ def _joinlookup_work(p):
     dense = kw.get("dense")
     N, T, R = q.numel(), uk.numel(), q.shape[0]
     # bytes: each query read and its count written, three review fields a
-    # row when the self-exclusion runs, and what the mode reads once: the
-    # (uk, uc) table in table mode, the [V] dense counts in dense mode;
-    # operations: the compares of one binary search a query (table mode)
-    # or its range test and read (dense mode), and the self test
+    # row when the self-exclusion runs, and what the lookups must touch:
+    # in table mode the keys of one binary search a query (the least a
+    # search reads) and the count it finds, the whole (uk, uc) table at
+    # most; in dense mode one count a query, the [V] dense counts at
+    # most; operations: the compares of one binary search a query (table
+    # mode) or its range test and read (dense mode), and the self test
     steps = max(1, math.ceil(math.log2(T + 1)))
     rows = 0 if scope is None else 6 * R
     self_ops = 0 if scope is None else 4 * N
-    table = (8 * N + 8 * T + rows, N * (steps + 2) + self_ops)
+    table = (8 * N + 4 * min(T, N * steps) + 4 * min(T, N) + rows,
+             N * (steps + 2) + self_ops)
     shapes = {"N": N, "R": R, "T": T, "self_exclusion": scope is not None,
               "mode": "table" if dense is None else "dense"}
     if dense is None:
         nbytes, ops = table
     else:
         V = dense.numel()
-        nbytes, ops = 8 * N + 4 * V + rows, 2 * N + self_ops
+        nbytes, ops = 8 * N + 4 * min(V, N) + rows, 2 * N + self_ops
         # the table-mode bound of the same queries, beside dense mode's
         shapes.update(V=V, table_mode_bound_ms=bound(*table)["bound_ms"])
     return (nbytes, ops, shapes,
             lambda: uc[torch.searchsorted(uk, q).clamp_(max=T - 1)])
+
+
+def _lookup_table_work(p):
+    """K8's table mode over one evaluation's lookups: each lookup's
+    table-mode bytes and operations (_joinlookup_work), summed.  The
+    library call: searchsorted + gather of each lookup in turn.  Timed
+    beside it: the same lookups each in a table-mode launch of its own
+    (join_lookup_cuda, the launches before the one launch), and the
+    largest lookup alone."""
+    from gatekeeper_tpu_torch.ops import joinlookup
+
+    (lookups,), _kw = p
+    nbytes = ops = 0
+    shapes = {"lookups": []}
+    for uk, uc, q, scope in lookups:
+        b, o, sh, _lib = _joinlookup_work(((uk, uc, q, scope), {}))
+        nbytes, ops = nbytes + b, ops + o
+        shapes["lookups"].append({k: sh[k] for k in ("N", "T",
+                                                     "self_exclusion")})
+    lib = [_joinlookup_work(((uk, uc, q, scope), {}))[3]
+           for uk, uc, q, scope in lookups]
+    big = max(lookups, key=lambda lk: lk[2].numel())
+    return (nbytes, ops, shapes, lambda: [f() for f in lib],
+            {"separate_launches_ms": lambda: [
+                joinlookup.join_lookup_cuda(*lk) for lk in lookups],
+             "one_lookup_ms": lambda: joinlookup.join_lookup_cuda(*big)})
 
 
 def _packbits_work(p):
@@ -931,6 +1092,14 @@ def kernel_specs() -> dict:
             _program_pack_kernel, _program_pack_plain, _program_pack_work,
             prep=_program_pack_prep, size=lambda a: a[0].numel(),
             reset=_program_reset),
+        # K9's delta mode: the groups, then the delta sweep's before |
+        # after columns in the same launch (K5's function)
+        "program_delta": Kernel(
+            "gatekeeper_tpu_torch/kernels/program.cu",
+            "gatekeeper_tpu/ops/driver.py:3709",
+            _program_delta_kernel, _program_delta_plain, _program_delta_work,
+            prep=_program_delta_prep, size=_program_delta_size,
+            reset=_program_reset),
         "reduction": Kernel(
             "gatekeeper_tpu_torch/kernels/reduction.cu",
             "gatekeeper_tpu/ops/driver.py:88",
@@ -968,6 +1137,14 @@ def kernel_specs() -> dict:
             lambda p: joinlookup.join_lookup_cuda(*p[0], **p[1]),
             lambda p: joinlookup.join_lookup_plain(*p[0], **p[1]),
             _joinlookup_work, size=lambda a: a[2].numel()),
+        # K8's table mode: one evaluation's lookups in one launch
+        "joinlookup_table": Kernel(
+            "gatekeeper_tpu_torch/kernels/joinlookup.cu",
+            "gatekeeper_tpu/ops/joinkernel.py:271",
+            lambda p: joinlookup.join_lookup_many_cuda(*p[0]),
+            lambda p: joinlookup.join_lookup_many_plain(*p[0]),
+            _lookup_table_work,
+            size=lambda a: sum(lk[2].numel() for lk in a[0])),
         # no single PyTorch call packs bits: library none
         "packbits": Kernel(
             "gatekeeper_tpu_torch/kernels/packbits.cu",
@@ -1164,8 +1341,8 @@ def check_edges():
     dev = torch.device(DEVICE)
     checked = {"match": 0, "strpred": 0, "setcount": 0, "reduction": 0,
                "delta": 0, "scatter": 0, "joinkeys": 0, "joinkeys_merge": 0,
-               "joinlookup": 0, "program": 0, "program_pack": 0,
-               "packbits": 0}
+               "joinlookup": 0, "joinlookup_table": 0, "program": 0,
+               "program_pack": 0, "program_delta": 0, "packbits": 0}
 
     def same(name, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -1301,6 +1478,7 @@ def check_edges():
     check_join_edges(rng, dev, same)
     check_program_edges(rng, dev, same)
     check_fold_edges(rng, dev, same)
+    check_delta_fold_edges(rng, dev, same)
     check_packbits_edges(rng, dev, same)
     torch.cuda.synchronize()
     return checked
@@ -1372,6 +1550,102 @@ def check_fold_edges(rng, dev, same):
         mask = torch.from_numpy(rng.random((3, 8)) < 0.5).to(dev)
         check(mask, ~mask, [], fold=False)
         check(mask, ~mask, [dict(g, B=0)], fold=False)
+
+
+def check_delta_fold_edges(rng, dev, same):
+    """K9's delta mode (the groups, and the delta sweep's before | after
+    columns in the same launch) against program_eval_plain and
+    delta_columns_plain, exactly, with the row limit lifted so the fold
+    runs at every w: w of 8, 16, 64, 256 and 512 (a power of two >= 8, as
+    the driver pads, in both of K9's layouts) and 13 (off the thread's V
+    rows); C of 1 (one group, one block), 3 (a group of two rows, a group
+    that covers no rows, a row of no group) and the ten edge programs with
+    rows of no group between them and after them; resident masks of 13
+    and 4,099 columns, one of them one byte into its buffer; indices at 0
+    and at the last column, random, and the last quarter padding (the
+    last index repeated); masks all true, all false and random.  Each call
+    launches K9 once in its delta mode and K5 never; then calls whose
+    groups have no rows, which launch K5 alone, and one past a row limit
+    of 8, which launches K9 and then K5."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.ops import delta, program, progcode
+
+    encs = [progcode.encode(pr) for pr in edge_programs()]
+    names = ("program", "program_delta", "delta")
+
+    def check(mask, resident, idx, groups, want_ran):
+        C, w = mask.shape
+        out = torch.empty((C, 2 * w), dtype=torch.int8, device=dev)
+        before = {k: gdev.launches[k] for k in names}
+        got = program.program_eval_cuda(mask.clone(), groups,
+                                        delta=(resident, idx, out))
+        plain = program.program_eval_plain(mask.clone(), groups)
+        want = delta.delta_columns_plain(resident, idx, plain)
+        torch.cuda.synchronize()
+        ran = {k: gdev.launches[k] - before[k] for k in names}
+        if ran != want_ran:
+            raise AssertionError(f"K9's delta mode: launches {ran}")
+        same("program_delta", (got, out), (plain, want))
+
+    fold = {"program": 0, "program_delta": 1, "delta": 0}
+
+    def layouts(w):
+        env = lambda B: _edge_env(rng, dev, B, w, 3, 3)  # noqa: E731
+        yield 1, [program.bind_group(encs[0], env(1), 0)]
+        two = program.bind_group(encs[1], env(2), 0)
+        yield 3, [two, dict(program.bind_group(encs[2], env(1), 2), B=0)]
+        groups, start = [], 0
+        for i, enc in enumerate(encs):
+            groups.append(program.bind_group(enc, env(4), start))
+            start += 4 + (1 if i % 3 == 0 else 0)  # a row of no group
+        yield start + 2, groups
+
+    def indices(w, Rt):
+        idx = rng.integers(0, Rt, w).astype(np.int32)
+        idx[0], idx[1] = 0, Rt - 1
+        pad = w - w // 4
+        idx[pad:] = idx[pad - 1]
+        return torch.from_numpy(idx).to(dev)
+
+    with FoldAtEveryR("DELTA_IN_K9_MAX_ROWS"):
+        for w in (8, 13, 16, 64, 256, 512):
+            for C, groups in layouts(w):
+                for Rt in (13, 4099):
+                    idx = indices(w, Rt)
+                    for fill in ("random", "all_true", "all_false"):
+                        if fill == "random":
+                            mask = torch.from_numpy(rng.random((C, w)) < 0.7)
+                            res = torch.from_numpy(rng.random((C, Rt)) < 0.4)
+                        else:
+                            mask = torch.full((C, w), fill == "all_true")
+                            res = ~torch.full((C, Rt), fill == "all_true")
+                        mask, res = mask.to(dev), res.to(dev)
+                        check(mask, res, idx, groups, fold)
+                    if Rt == 13:
+                        buf = torch.zeros(C * Rt + 1, dtype=torch.bool,
+                                          device=dev)
+                        buf[1:] = res.reshape(-1)
+                        check(mask, buf[1:].view(C, Rt), idx, groups, fold)
+        _C, (g, _none) = list(layouts(8))[1]
+        mask = torch.from_numpy(rng.random((3, 8)) < 0.5).to(dev)
+        res = torch.from_numpy(rng.random((3, 40)) < 0.5).to(dev)
+        idx = indices(8, 40)
+        alone = {"program": 0, "program_delta": 0, "delta": 1}
+        check(mask, res, idx, [], alone)
+        check(mask, res, idx, [dict(g, B=0)], alone)
+    limit = program.DELTA_IN_K9_MAX_ROWS
+    program.DELTA_IN_K9_MAX_ROWS = 8
+    try:
+        C, groups = list(layouts(16))[2]
+        mask = torch.from_numpy(rng.random((C, 16)) < 0.7).to(dev)
+        res = torch.from_numpy(rng.random((C, 99)) < 0.5).to(dev)
+        check(mask, res, indices(16, 99), groups,
+              {"program": 1, "program_delta": 0, "delta": 1})
+    finally:
+        program.DELTA_IN_K9_MAX_ROWS = limit
 
 
 def check_packbits_edges(rng, dev, same):
@@ -1491,7 +1765,84 @@ def check_join_edges(rng, dev, same):
                 same("joinlookup",
                      joinlookup.join_lookup_cuda(t(uk), t(uc), q, sc),
                      joinlookup.join_lookup_plain(t(uk), t(uc), q, sc))
+    check_table_lookup_edges(rng, dev, same)
     check_join_vocab_edges(rng, dev, same)
+
+
+def check_table_lookup_edges(rng, dev, same):
+    """K8's table mode, one launch for several lookups (join_lookup_many),
+    against the plain version lookup by lookup, exactly: tables of T = 0,
+    1, 8, 31, 32, 33, 1,000, 65,536 and 2^20 entries (the last ones with
+    K7's or the host index's KEY_INVALID tail), lookups of different T, S
+    (a scalar column, 1, 2 and 33 slots) and scope (none, namespaced,
+    cluster) in one launch, an empty lookup (R = 0) among them, and queries
+    at UNKNOWN_KEY, -1, the first and the last key, between keys and past
+    every key.  Each call launches K8's table mode once (none where no
+    lookup has a query); each lookup also alone (join_lookup_cuda)."""
+    import numpy as np
+    import torch
+
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.ops import joinkernel, joinlookup
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def table(T, n_keys, vocab):
+        keys = np.sort(rng.choice(vocab, n_keys, replace=False))
+        uk = np.full(T, joinkernel.KEY_INVALID, np.int32)
+        uc = np.zeros(T, np.int32)
+        uk[:n_keys] = keys
+        uc[:n_keys] = rng.integers(1, 50, n_keys)
+        return uk, uc
+
+    def lookup(T, n_keys, R, S, scope):
+        vocab = max(2 * n_keys, 16)
+        uk, uc = table(T, n_keys, vocab)
+        shape = (R,) if S is None else (R, S)
+        q = rng.integers(-6, vocab + 3, shape).astype(np.int32)
+        flat = q.reshape(-1)
+        special = [joinkernel.UNKNOWN_KEY, -1, vocab + 2]
+        if n_keys:
+            special += [uk[0], uk[n_keys - 1], uk[n_keys - 1] + 1]
+        flat[:min(len(flat), len(special))] = special[:len(flat)]
+        if n_keys and len(flat) > len(special):  # hits inside the table
+            hit = rng.random(len(flat)) < 0.5
+            flat[hit] = rng.choice(uk[:n_keys], int(hit.sum()))
+        sc = None
+        if scope is not None:
+            sc = (t(rng.random(R) < 0.8),
+                  t(rng.integers(0, 3, R).astype(np.int32)),
+                  t(rng.random(R) < 0.5), 1, scope)
+        return t(uk), t(uc), t(q), sc
+
+    def check(lookups):
+        before = gdev.launches["joinlookup_table"]
+        got = joinlookup.join_lookup_many_cuda(lookups)
+        want = joinlookup.join_lookup_many_plain(lookups)
+        torch.cuda.synchronize()
+        n = gdev.launches["joinlookup_table"] - before
+        if n != int(any(lk[2].numel() for lk in lookups)):
+            raise AssertionError(f"K8's table mode: {n} launches")
+        same("joinlookup_table", tuple(got), tuple(want))
+        for lk, w in zip(lookups, want):
+            same("joinlookup_table", joinlookup.join_lookup_cuda(*lk), w)
+
+    # (T, keys, R, S, scope): S None a scalar column; scope None, True
+    # (namespaced) or False (cluster)
+    shapes = [(0, 0, 5, None, None), (1, 1, 40, 2, True),
+              (8, 8, 33, None, False), (8, 3, 16, 2, None),
+              (31, 31, 70, 1, True), (32, 32, 64, 2, False),
+              (33, 20, 9, 33, None), (1000, 999, 300, 2, True),
+              (65536, 40000, 32, 2, None), (65536, 65536, 1, None, False),
+              (1 << 20, 700000, 257, 2, True), (16, 5, 0, 2, True)]
+    every = [lookup(*sh) for sh in shapes]
+    for lk in every:
+        check([lk])
+    check(every)
+    check(every[::-1])
+    check([every[-1]])  # only an empty lookup: no launch
+    check([every[2], every[-1], every[8]])  # an empty one between two
 
 
 def lookup_both_modes(same, uk, uc, dense, q, scope):
@@ -1917,11 +2268,36 @@ class Churn:
         return {"add": n_add, "modify": d - n_add, "delete": 0}
 
 
+# the launches a churn sweep's record counts: K9 in its sweep and delta
+# modes, K5, and K8's table mode
+SWEEP_LAUNCHES = ("program", "program_delta", "delta", "joinlookup_table")
+
+
+def delta_launches(w: int) -> dict:
+    """What a delta sweep of w padded rows launches on one card: K9 in its
+    delta mode up to ops/program.py DELTA_IN_K9_MAX_ROWS, else K9 and then
+    K5."""
+    from gatekeeper_tpu_torch.ops import program
+
+    fold = w <= program.DELTA_IN_K9_MAX_ROWS
+    return {"program": int(not fold), "program_delta": int(fold),
+            "delta": int(not fold)}
+
+
+def padded(d: int) -> int:
+    """The delta path's width for d dirty rows: a power of two >= 8."""
+    w = 8
+    while w < d:
+        w *= 2
+    return w
+
+
 def churn_sweep(client, driver, pauses, d: int, ops: dict):
     """One capped sweep after a churn step -> (its record, results,
-    totals): wall, stages, path, rows, constraint-side re-packs and the
-    garbage collector's pauses."""
+    totals): wall, stages, path, rows, constraint-side re-packs, the
+    garbage collector's pauses and the launches of SWEEP_LAUNCHES."""
     side0 = dict(driver.side_stats)
+    before = {k: _dev().launches[k] for k in SWEEP_LAUNCHES}
     pauses.reset()
     t0 = time.perf_counter()
     resp, totals = client.audit_capped(CAP)
@@ -1939,29 +2315,37 @@ def churn_sweep(client, driver, pauses, d: int, ops: dict):
         "side_ms": side["pack_ms"] + side["upload_ms"]
         - side0["pack_ms"] - side0["upload_ms"],
         "gc_ms": pauses.ms, "gc_gen2": pauses.gen2,
+        "launches": {k: _dev().launches[k] - before[k]
+                     for k in SWEEP_LAUNCHES},
     }
     return rec, resp, totals
 
 
 def churn_path(client, driver, churn: Churn, pauses):
     """Phase 6's counted run: CHURN_SWEEPS delta sweeps for each d in
-    CHURN_D, each d closed by a forced full sweep that must agree with
-    it; a sweep at CHURN_FULL_D (the full path); a full sweep after 256
-    changes with the delta path off (the row scatter)."""
+    CHURN_D, each launching K9's delta mode once and K5 never (up to the
+    fold's row limit; past it K9 and then K5), each d closed by a forced
+    full sweep that must agree with it; a sweep at CHURN_FULL_D (the full
+    path); a full sweep after 256 changes with the delta path off (the row
+    scatter).  -> the number of delta sweeps."""
     import numpy as np
 
     from gatekeeper_tpu_torch.convert import tree_nbytes
     from gatekeeper_tpu_torch.util import synthetic as syn
 
     stages = ("pack_ms", "device_ms", "render_ms")
+    n_delta = 0
     for d in CHURN_D:
         sweeps = []
+        want = dict(delta_launches(padded(d)), joinlookup_table=0)
         for _ in range(CHURN_SWEEPS):
             rec, resp, totals = churn_sweep(client, driver, pauses, d,
                                             churn.step(d))
             sweeps.append(rec)
-            if rec["path"] != "delta" or rec["delta_rows"] != d:
-                raise AssertionError(f"churn d={d}: {rec}")
+            if rec["path"] != "delta" or rec["delta_rows"] != d or \
+                    rec["launches"] != want:
+                raise AssertionError(f"churn d={d}: {rec}, want {want}")
+            n_delta += 1
         counts = driver._delta_state.counts.copy()
         sig = syn.audit_result_sig(resp.results())
         driver._delta_state = None
@@ -1996,6 +2380,7 @@ def churn_path(client, driver, churn: Churn, pauses):
         raise AssertionError(f"full sweep after 256 changes: {rec}")
     log("full_after_churn", full_upload_bytes=full_bytes,
         upload_share=rec["upload_bytes"] / full_bytes, **rec)
+    return n_delta
 
 
 class JoinIndexTimer:
@@ -2122,9 +2507,11 @@ class RefChurn:
 def ref_sweep(client, driver, pauses, timer, label: str, ops=None):
     """One capped sweep of the referential corpus -> (its record, results,
     totals): wall, path, stages, rendered cells, results, join-affected
-    rows, the join index's host time, the collector's pauses."""
+    rows, the join index's host time, the collector's pauses, the
+    launches of SWEEP_LAUNCHES."""
     pauses.reset()
     timer.ms = timer.tables_ms = 0.0
+    before = {k: _dev().launches[k] for k in SWEEP_LAUNCHES}
     t0 = time.perf_counter()
     resp, totals = client.audit_capped(CAP)
     wall_s = time.perf_counter() - t0
@@ -2139,6 +2526,8 @@ def ref_sweep(client, driver, pauses, timer, label: str, ops=None):
         )},
         "join_index_ms": timer.ms, "join_tables_ms": timer.tables_ms,
         "gc_ms": pauses.ms, "gc_gen2": pauses.gen2,
+        "launches": {k: _dev().launches[k] - before[k]
+                     for k in SWEEP_LAUNCHES},
     }
     return rec, resp, totals
 
@@ -2219,7 +2608,8 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
     """Phase 8's counted run: a cold sweep (K7, K8 and K4 recorded), WARM
     forced full sweeps before and after gc.freeze(), REF_CHURN_SWEEPS
     neutral and as many key-moving churn sweeps for each d in REF_CHURN_D
-    (the first key-moving one's K8 calls recorded), each d closed by a
+    (each launching K8's table mode once and K9's delta mode; the first
+    key-moving one's K8 and K9 calls recorded), each d closed by a
     forced full sweep that must equal it, and one crowded churn, which
     must take the full path where the crowd's readers exceed
     DELTA_MAX_ROWS (at full size).  -> (the two captures, the records)."""
@@ -2261,7 +2651,7 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
             median_join_index_ms=statistics.median(
                 r["join_index_ms"] for r in sweeps),
             sweeps=sweeps)
-    delta_cap = Capture(names=("joinlookup", "program"))
+    delta_cap = Capture(names=("joinlookup_table", "program"))
     for d in REF_CHURN_D:
         sweeps = []
         for kind in ("neutral", "moving"):
@@ -2274,8 +2664,14 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
                 else:
                     rec, resp, totals = ref_sweep(client, driver, pauses,
                                                   timer, f"{kind}{i}", ops)
-                if rec["path"] != "delta" or rec["delta_rows"] < d:
-                    raise AssertionError(f"ref churn d={d}: {rec}")
+                # one launch for the sweep's table-mode lookups, and K9
+                # writing the columns (K5 past the fold's row limit)
+                want = dict(delta_launches(padded(rec["delta_rows"] or 0)),
+                            joinlookup_table=1)
+                if rec["path"] != "delta" or rec["delta_rows"] < d or \
+                        rec["launches"] != want:
+                    raise AssertionError(f"ref churn d={d}: {rec}, "
+                                         f"want {want}")
                 sweeps.append(rec)
         counts = driver._delta_state.counts.copy()
         sig = syn.audit_result_sig(resp.results())
@@ -2478,6 +2874,7 @@ def mesh_churn(client, driver, width: int, label: str, step,
         wall = time.perf_counter() - t0
         st = dict(driver.last_sweep_stats)
         k5 = _dev().launches["delta"] - before["delta"]
+        k9_delta = _dev().launches["program_delta"] - before["program_delta"]
         counts = driver._delta_state.counts.copy()
         sig = syn.audit_result_sig(resp.results())
         force_full(driver)
@@ -2492,11 +2889,13 @@ def mesh_churn(client, driver, width: int, label: str, step,
                "delta_rows": st.get("delta_rows"),
                "delta_shards": st.get("delta_shards"),
                "owning_shards": sorted(shards), "tail_rows": new_rows,
-               "delta_launches": k5, "device_ms": st.get("device_ms"),
+               "delta_launches": k5, "k9_delta_launches": k9_delta,
+               "device_ms": st.get("device_ms"),
                "full_scatter_rows": f_st.get("scatter_rows"),
                "full_scatter_shards": f_st.get("scatter_shards"),
                "equal_to_full": equal}
         if (st.get("delta_rows") != len(rows) or k5 != len(shards)
+                or k9_delta != 0
                 or st.get("delta_shards") != len(shards)
                 or not all(equal.values()) or "delta_rows" in f_st
                 or not f_st.get("scatter_rows")
@@ -2751,7 +3150,10 @@ def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
         raise AssertionError(f"K4 row offsets on the mesh: {offsets}")
     log("mesh_launches", main_path=launches, row_offsets=offsets,
         merge_calls=len(cap.calls["joinkeys_merge"]))
-    rows = check_kernels(cap, REPS, timed=("reduction", "joinkeys_merge"),
+    # K5 runs only here on the counted paths: a delta sweep's columns on
+    # each owning shard
+    rows = check_kernels(cap, REPS,
+                         timed=("reduction", "joinkeys_merge", "delta"),
                          phase="kernel_mesh")
     del cap
     for width in MESH_WIDTHS:
@@ -3323,23 +3725,32 @@ def main(argv=None) -> int:
     del base_pods
     gc.callbacks.append(pauses)
     gdev.reset_launches()
-    # K5's and K6's every call on this counted run is recorded: a copy of
-    # the arguments before the call and of the result after it, inside the
-    # sweep that makes it, from memory reserved here; K1-K3 are recorded on
-    # the pass after it
+    # every call of K9's delta mode, K5 and K6 on this counted run is
+    # recorded: a copy of the arguments before the call and of the result
+    # after it, inside the sweep that makes it, from memory reserved here;
+    # K1-K3 are recorded on the pass after it
     torch.empty(RECORD_RESERVE, dtype=torch.uint8, device=DEVICE)  # freed, kept
-    with NoIR(), Capture(names=("delta", "scatter")) as churn_cap:
-        churn_path(client, driver, churn, pauses)
+    with NoIR(), Capture(names=("program_delta", "delta",
+                                "scatter")) as churn_cap:
+        n_delta = churn_path(client, driver, churn, pauses)
     churn_launches = dict(gdev.launches)
-    missing = [k for k in ("delta", "scatter", "match", "program")
+    missing = [k for k in ("program_delta", "scatter", "match", "program")
                if churn_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the incremental "
                              f"path: {missing}")
-    if churn_launches["program"] != churn_launches["match"]:
-        raise AssertionError(f"K9 is not one launch per evaluation: "
+    # K9 once per evaluation, in its delta mode once per delta sweep (up
+    # to the fold's row limit), and K5 only past that limit: on one card
+    # the delta sweep's columns come from K9's launch
+    want_k5 = sum(delta_launches(padded(d))["delta"] for d in CHURN_D) \
+        * CHURN_SWEEPS
+    if churn_launches["program"] + churn_launches["program_delta"] != \
+            churn_launches["match"] or churn_launches["delta"] != want_k5 \
+            or churn_launches["program_delta"] + want_k5 != n_delta:
+        raise AssertionError(f"K9 is not one launch per evaluation, in its "
+                             f"delta mode once per delta sweep ({n_delta}): "
                              f"{churn_launches}")
-    log("churn_launches", main_path=churn_launches)
+    log("churn_launches", main_path=churn_launches, delta_sweeps=n_delta)
     # K1 and K9 at the delta path's widths: one delta sweep for each d,
     # whose dirty rows pad to the same w = 8, 16 and 256 as the counted
     # run's
@@ -3349,7 +3760,13 @@ def main(argv=None) -> int:
             client.audit_capped(CAP)
             assert driver.last_sweep_stats.get("delta_rows") == d
     gc.callbacks.remove(pauses)
-    churn_rows = check_kernels(churn_cap, REPS, timed=("delta", "scatter"))
+    # K5 timed where it runs past the fold's row limit, at C = 1024 by w
+    # (phase 9 times it at a shard's slab)
+    past_limit = any(delta_launches(padded(d))["delta"] for d in CHURN_D)
+    churn_rows = check_kernels(
+        churn_cap, REPS,
+        timed=("program_delta", "scatter") + (("delta",) if past_limit
+                                              else ()))
     del churn_cap
     merge_rows(churn_rows, check_kernels(cap2, REPS, timed=()))
     merge_rows(churn_rows, check_kernels(cell_calls(cap2), REPS, timed=()))
@@ -3417,21 +3834,24 @@ def main(argv=None) -> int:
             rclient, rdriver, ref_churn, pauses, timer)
     ref_launches = dict(gdev.launches)
     gc.callbacks.remove(pauses)
-    missing = [k for k in ("joinkeys", "joinlookup", "match", "program",
-                           "reduction", "delta", "scatter")
+    missing = [k for k in ("joinkeys", "joinlookup", "joinlookup_table",
+                           "match", "program", "program_delta", "reduction",
+                           "scatter")
                if ref_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the referential "
                              f"path: {missing}")
-    if ref_launches["program"] != ref_launches["match"]:
+    if ref_launches["program"] + ref_launches["program_delta"] != \
+            ref_launches["match"]:
         raise AssertionError(f"K9 is not one launch per evaluation: "
                              f"{ref_launches}")
     log("ref_launches", main_path=ref_launches,
         plans=rdriver.join_plan_shapes())
     ref_rows = check_kernels(cold_cap, REPS, timed=("joinkeys", "joinlookup"))
-    # K8's table mode, at the delta sweeps' shapes (the full sweep's row
-    # above is its dense mode)
-    merge_rows(ref_rows, check_kernels(delta_cap, REPS, timed=("joinlookup",),
+    # K8's table mode, one launch for a delta sweep's lookups (the full
+    # sweep's row above is its dense mode)
+    merge_rows(ref_rows, check_kernels(delta_cap, REPS,
+                                       timed=("joinlookup_table",),
                                        phase="kernel_table_mode"))
     merge_rows(kernel_rows, ref_rows)
     del cold_cap, delta_cap

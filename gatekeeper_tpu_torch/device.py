@@ -15,9 +15,11 @@ loaded.
 Every wrapper counts its launches in ``launches`` (one per kernel launch,
 nowhere else), so a run can show that its path went through the kernels.
 A library may hold more than one launcher (K7's library holds its key
-table and the weighted merge of per-shard tables), and a launcher may be
-called in two modes (K9 in a sweep, and in a review where it packs the
-masks too, ``program_pack``); each is counted under its own name.
+table and the weighted merge of per-shard tables; K8's its dense mode and
+its table mode), and a launcher may be called in three modes (K9 in a
+sweep, in a review where it packs the masks too, ``program_pack``, and in
+a delta sweep where it writes the before | after columns too,
+``program_delta``); each is counted under its own name.
 
 A launch runs inside ``torch.cuda.device`` of its tensors' device: the C
 launchers start their kernels on the CUDA runtime's current device, and on
@@ -61,12 +63,17 @@ _SIGNATURES = {
     "scatter": ("scatter", "gk_scatter_launch", "piiillllp"),
     "joinkeys": ("joinkeys", "gk_joinkeys_launch", "pppiippiiippippp"),
     "joinkeys_merge": ("joinkeys", "gk_joinkeys_merge_launch", "ppiippippp"),
-    "joinlookup": ("joinlookup", "gk_joinlookup_launch",
-                   "ppipiipiipppiipp"),
-    "program": ("program", "gk_program_launch", "piipiiiippip"),
+    # K8's dense mode, and its table mode: every table-mode lookup of an
+    # evaluation in one launch; counted apart
+    "joinlookup": ("joinlookup", "gk_joinlookup_launch", "pipiipppiipp"),
+    "joinlookup_table": ("joinlookup", "gk_joinlookup_table_launch", "piip"),
+    "program": ("program", "gk_program_launch", "piipiiiippipippip"),
     # K9's review mode: the same launcher with a packed output, which
-    # packs the review masks in the launch (K10's work); counted apart
-    "program_pack": ("program", "gk_program_launch", "piipiiiippip"),
+    # packs the review masks in the launch (K10's work); and its delta
+    # mode, with the delta sweep's before | after output (K5's work);
+    # each counted apart
+    "program_pack": ("program", "gk_program_launch", "piipiiiippipippip"),
+    "program_delta": ("program", "gk_program_launch", "piipiiiippipippip"),
     "packbits": ("packbits", "gk_packbits_launch", "ppiiipp"),
 }
 LAUNCHERS = tuple(_SIGNATURES)

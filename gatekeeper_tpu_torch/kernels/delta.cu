@@ -10,7 +10,11 @@
 // Replaces gatekeeper_tpu/ops/driver.py _delta_fn's gather and
 // concatenation (`concatenate([mask_dev[:, idx].astype(int8),
 // new.astype(int8)], axis=1)`), which there is fused into one jitted
-// dispatch with the evaluation of the dirty slice.
+// dispatch with the evaluation of the dirty slice.  On one card K9's delta
+// mode (program.cu) writes the same columns in K9's launch; this kernel
+// runs where K9 does not (no program group has rows), past
+// ops/program.py DELTA_IN_K9_MAX_ROWS rows, and under a mesh, on each
+// owning shard's slab of the resident mask.
 //
 // What bounds it: the launch.  Its bytes are C*w gathered mask bytes, C*w
 // read from fresh and 2*C*w written, with w indices: about 1 MB at

@@ -65,6 +65,23 @@
 // first packs a share of the rows of no group (ranges after the code in
 // the blob), which K9 does not write.  Without an output (a sweep) none
 // of this runs.
+//
+// Delta mode (a delta output given; a separate instantiation, so a
+// sweep's and a review's code is unchanged): the incremental audit's
+// before | after columns of the w dirty rows, int8 [C, 2w], which
+// gatekeeper_tpu/ops/driver.py _delta_fn gathers and concatenates in the
+// same jitted dispatch as the evaluation of the w-row slice, and which
+// K5 (delta.cu) writes in a launch of its own after K9 where this mode
+// does not run.  The thread that finishes an item writes its rows'
+// after-bytes from its registers.  The before-bytes, resident[c, idx[j]]
+// from the full sweep's resident mask, depend on no program: extra blocks
+// past the groups' gather them for every row, V columns a thread, and
+// write both halves of the rows of no group.  A delta launch's group
+// blocks are few (16 at w = 256, one a group at w = 8), so the extra
+// blocks run on SMs that would idle, beside the groups' items, and no
+// block waits for another.  (Gathering an item's before-bytes in its own
+// thread, loaded with its mask bytes while the item before it ran, lost
+// 0.007-0.018 ms at w = 256: PERF.md, K9's delta mode.)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -634,21 +651,83 @@ __device__ __forceinline__ void pack_item(unsigned fin, const Rows& w,
   out[t] = gk::pack_byte(mask, autoreject, C, R, vec, t);
 }
 
+// Delta mode, after an item: its rows' after-bytes, the final mask bits
+// ``fin``, into row ``row`` of dout [C, 2R], columns R + r0 + STEP * i.
+template <int V, int STEP>
+__device__ __forceinline__ void delta_item(unsigned fin, const Rows& w,
+                                           long long row, int R,
+                                           int8_t* dout) {
+  uint8_t a[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) a[i] = on(fin, i);
+  store_bytes<V, STEP>(
+      reinterpret_cast<uint8_t*>(dout) + row * 2LL * R + R + w.r0, w.n, a);
+}
+
+// Delta mode, the blocks past the groups' (``first`` the first of ``nb``),
+// V consecutive columns of a row a unit: the before-bytes of every row,
+// gathered from the resident mask, and the after-bytes of the rows that
+// no group covers, the launch's mask as K1 left it.  ``tail`` as in
+// pack_rows_of_no_group.
+__device__ void delta_gather(const long long* tail, const uint8_t* mask,
+                             int C, int R, const uint8_t* resident,
+                             long long Rt, const int* idx, int8_t* dout,
+                             unsigned first, unsigned nb) {
+  const long long U = tail[0];
+  const long long* ranges = tail + 1;
+  const long long per = (R + ROWS - 1) / ROWS;  // units a row
+  for (long long f = (long long)(blockIdx.x - first) * THREADS + threadIdx.x;
+       f < (long long)C * per; f += (long long)nb * THREADS) {
+    const long long row = f / per;
+    const int j0 = (int)(f - row * per) * ROWS;
+    const int cnt = min(ROWS, R - j0);
+    const uint8_t* res = resident + row * Rt;
+    uint8_t b[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) b[i] = i < cnt ? res[idx[j0 + i]] != 0 : 0;
+    uint8_t* o = reinterpret_cast<uint8_t*>(dout) + row * 2LL * R + j0;
+    store_bytes<ROWS, 1>(o, cnt, b);
+    bool no_group = false;
+    for (long long u = 0; u < U; ++u)
+      no_group |= ranges[2 * u] <= row && row < ranges[2 * u + 1];
+    if (no_group) {
+      uint8_t a[ROWS];
+      load_bytes<ROWS, 1>(mask + row * R + j0, cnt, a);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) a[i] = a[i] != 0;
+      store_bytes<ROWS, 1>(o + R, cnt, a);
+    }
+  }
+}
+
 // Lane i of an item is row r0 + STEP * i.  STEP 1: an item is V
 // consecutive rows (a review's 8 rows fill threads on several constraint
 // rows, and 1-D columns and the mask move V bytes an access); STEP 32: a
 // warp's item is 32 * V consecutive rows, lane i of thread t row
 // 32 * i + t, so that each access of a row-major [R, S] or [R, K] operand
 // reads 32 consecutive rows.  The launcher takes STEP 32 where R >= 32 V.
-template <int V, int STEP>
+// DELTA: the delta mode's instantiation (resident, Rt, idx and dout
+// given, and blocks past ``nblocks``, the groups' blocks, for the gather).
+template <int V, int STEP, bool DELTA>
 __global__ void __launch_bounds__(THREADS)
     program_kernel(const long long* __restrict__ blob, int G, int NOP,
                    uint8_t* __restrict__ mask, int R, int max_ops,
                    const uint8_t* __restrict__ autoreject,
-                   uint8_t* __restrict__ pout, int C, int vec) {
+                   uint8_t* __restrict__ pout, int C, int vec, int nblocks,
+                   const uint8_t* __restrict__ resident, long long Rt,
+                   const int* __restrict__ idx, int8_t* __restrict__ dout) {
   extern __shared__ long long sh[];
   long long* ops = sh;                                // [max_ops * OPW]
   int* code = reinterpret_cast<int*>(sh + (long long)max_ops * OPW);
+  if (DELTA && blockIdx.x >= (unsigned)nblocks) {
+    // the word after the code, as in review mode below
+    const long long* hl = blob + (long long)(G - 1) * HDRW;
+    delta_gather(blob + (long long)G * HDRW + (long long)NOP * OPW +
+                     (hl[3] + hl[4] + 1) / 2,
+                 mask, C, R, resident, Rt, idx, dout, nblocks,
+                 gridDim.x - nblocks);
+    return;
+  }
   // the block's group: the last whose first block is not after this one
   int g = 0, hi = G - 1;
   while (g < hi) {
@@ -664,7 +743,7 @@ __global__ void __launch_bounds__(THREADS)
                       h[3];
   for (int i = threadIdx.x; i < n_op * OPW; i += THREADS) ops[i] = g_ops[i];
   for (int i = threadIdx.x; i < n_code; i += THREADS) code[i] = g_code[i];
-  if (pout != nullptr) {
+  if (!DELTA && pout != nullptr) {
     // the word after the code: the last group's code ends it, padded to
     // whole words
     const long long* hl = blob + (long long)(G - 1) * HDRW;
@@ -683,8 +762,9 @@ __global__ void __launch_bounds__(THREADS)
                 : (unsigned)((R + 32 * V - 1) / (32 * V)) * 32u;
   const unsigned items = B * per_row;  // < 2^31: the wrapper checks it
   const unsigned first = (unsigned)h[2];
-  const unsigned last =
-      g + 1 < G ? (unsigned)blob[(long long)(g + 1) * HDRW + 2] : gridDim.x;
+  const unsigned last = g + 1 < G
+                            ? (unsigned)blob[(long long)(g + 1) * HDRW + 2]
+                            : (unsigned)nblocks;
   const unsigned stride = (last - first) * THREADS;
   const bool packed = h[7] <= 64 / V;  // the stack fits one word
   unsigned item = (blockIdx.x - first) * THREADS + threadIdx.x;
@@ -727,9 +807,12 @@ __global__ void __launch_bounds__(THREADS)
         store_bytes<V, STEP>(row, w.n, m);
       }
     }
-    if (pout != nullptr)
+    if (DELTA) {
+      if (item < items) delta_item<V, STEP>(fin, w, h[0] + w.c, R, dout);
+    } else if (pout != nullptr) {
       pack_item<V, STEP>(fin, w, item < items, h[0] + w.c, mask, autoreject,
                          pout, C, R, vec);
+    }
     item += stride;
     w = wn;
     row = row_n;
@@ -744,29 +827,40 @@ struct Pack {
   int C, vec;
 };
 
-template <int V, int STEP>
+struct Delta {
+  const uint8_t* resident;
+  long long Rt;
+  const int* idx;
+  int8_t* out;
+  int extra;  // blocks past the groups' for the rows of no group
+};
+
+template <int V, int STEP, bool DELTA>
 int launch_step(const long long* blob, int G, int NOP, uint8_t* mask, int R,
                 int blocks, size_t smem, int max_ops, const Pack& pk,
-                cudaStream_t stream) {
+                const Delta& dl, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        program_kernel<V, STEP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        program_kernel<V, STEP, DELTA>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  program_kernel<V, STEP><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      blob, G, NOP, mask, R, max_ops, pk.autoreject, pk.out, pk.C, pk.vec);
+  const unsigned grid = (unsigned)blocks + (DELTA ? (unsigned)dl.extra : 0u);
+  program_kernel<V, STEP, DELTA><<<grid, THREADS, smem, stream>>>(
+      blob, G, NOP, mask, R, max_ops, pk.autoreject, pk.out, pk.C, pk.vec,
+      blocks, dl.resident, dl.Rt, dl.idx, dl.out);
   return cudaGetLastError();
 }
 
-int launch(const long long* blob, int G, int NOP, uint8_t* mask, int R,
-           int blocks, size_t smem, int max_ops, const Pack& pk,
-           cudaStream_t stream) {
+template <bool DELTA>
+int launch_mode(const long long* blob, int G, int NOP, uint8_t* mask, int R,
+                int blocks, size_t smem, int max_ops, const Pack& pk,
+                const Delta& dl, cudaStream_t stream) {
   return R >= 32 * ROWS
-             ? launch_step<ROWS, 32>(blob, G, NOP, mask, R, blocks, smem,
-                                     max_ops, pk, stream)
-             : launch_step<ROWS, 1>(blob, G, NOP, mask, R, blocks, smem,
-                                    max_ops, pk, stream);
+             ? launch_step<ROWS, 32, DELTA>(blob, G, NOP, mask, R, blocks,
+                                            smem, max_ops, pk, dl, stream)
+             : launch_step<ROWS, 1, DELTA>(blob, G, NOP, mask, R, blocks,
+                                           smem, max_ops, pk, dl, stream);
 }
 
 }  // namespace
@@ -784,18 +878,32 @@ extern "C" const char* gk_error_string(int code) {
 // shared memory a block takes).
 // out: null for a sweep; for a review the uint8[2C, ceil(R/8)] packed
 // masks, the mask [C, R] and autoreject [C, R] packed into it.
+// dout: null but in delta mode, then the int8[C, 2R] before | after
+// columns: dout[c, j] = resident[c, idx[j]] (resident bool [C, Rt], idx
+// int32 [R] in [0, Rt)) and dout[c, R + j] = mask[c, j] after the groups;
+// ``extra`` blocks after the ``blocks`` of the groups gather the
+// before-bytes and write the rows of no group.  C is the mask's rows in
+// both modes.  A launch passes out or dout, not both.
 extern "C" int gk_program_launch(const long long* blob, int G, int NOP,
                                  uint8_t* mask, int R, int blocks,
                                  int max_code, int max_ops,
                                  const uint8_t* autoreject, uint8_t* out,
-                                 int C, void* stream) {
+                                 int C, const uint8_t* resident, int Rt,
+                                 const int* idx, int8_t* dout, int extra,
+                                 void* stream) {
   if (G <= 0 || blocks <= 0 || R <= 0) return 0;
+  if (out != nullptr && dout != nullptr) return cudaErrorInvalidValue;
   const size_t smem =
       (size_t)max_ops * OPW * sizeof(long long) + (size_t)max_code * 4;
   const int vec = R % 8 == 0 &&
                   ((reinterpret_cast<uintptr_t>(mask) |
                     reinterpret_cast<uintptr_t>(autoreject)) & 7) == 0;
-  return launch(blob, G, NOP, mask, R, blocks, smem, max_ops,
-                Pack{autoreject, out, C, vec},
-                static_cast<cudaStream_t>(stream));
+  const Pack pk{autoreject, out, C, vec};
+  const Delta dl{resident, Rt, idx, dout, extra};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dout != nullptr
+             ? launch_mode<true>(blob, G, NOP, mask, R, blocks, smem, max_ops,
+                                 pk, dl, s)
+             : launch_mode<false>(blob, G, NOP, mask, R, blocks, smem,
+                                  max_ops, pk, dl, s);
 }

@@ -100,7 +100,7 @@ from ..target.match import constraint_matches, needs_autoreject
 from ..target.target import K8sValidationTarget
 from .auditpack import AuditPackCache
 from .columns import extract_columns
-from .delta import delta_columns
+from .delta import delta_columns, delta_index
 from .deltasweep import DeltaState, MaskSource, NeedsFullSweep
 from .interning import Interner, PredicateTable
 from .matchkernel import constraint_records, match_kernel
@@ -110,7 +110,7 @@ from .params import pack_params
 from .reduction import packed_reduction
 from .scatter import scatter_rows
 from .vectorizer import vectorize
-from .program import bind_group, program_eval
+from .program import bind_group, lookup_joins, program_eval
 from .progcode import encode
 from .vexpr import EvalEnv, VProgram
 
@@ -479,13 +479,16 @@ class TorchDriver(InterpDriver):
     # ---- device evaluation ------------------------------------------------
 
     def _eval(self, side, rv, cols, placed, join_mode: Optional[str] = None,
-              joins=None, pack_out=None):
+              joins=None, pack_out=None, delta=None):
         """The match kernel plus every violation-program group ->
         (candidate mask bool[C, R], autoreject bool[C, R]) on the device.
 
         ``pack_out`` (a review's uint8[2C, ceil(R/8)], ops/packbits.py
         packed_empty): both masks are also packed into it, by K9's launch
-        (program_eval's ``pack``).
+        (program_eval's ``pack``).  ``delta`` (a delta sweep's (resident
+        mask, column indices on the device, int8 [C, 2R] output)): the
+        before | after columns are written into the output, by K9's launch
+        (program_eval's ``delta``).
 
         ``join_mode`` (ops/joinkernel.py): None on the review path (every
         JoinCmp resolves to its polarity default); 'trace' for full audit
@@ -504,7 +507,7 @@ class TorchDriver(InterpDriver):
         # one referential family cost one table build and one lookup per
         # (plan, exclude_self) a sweep
         shared_tables: dict = {}
-        bound = []
+        staged = []
         for (prog, start, B, _packed), (params, elems, tables) in zip(
             groups, gp
         ):
@@ -530,14 +533,21 @@ class TorchDriver(InterpDriver):
                     [joins[pidx[p]] for p in prog.join_plans],
                     rv=rv, cache=shared_tables,
                 )
-            bound.append(bind_group(encode(prog), env, start))
+            staged.append((encode(prog), env, start))
+        # the join lookups of every group (K8), the table-mode ones in
+        # one launch
+        lookup_joins([(enc, env) for enc, env, _s in staged])
+        bound = [bind_group(enc, env, start) for enc, env, start in staged]
         # every group's program ANDed into its static slice of the fresh
         # match mask, one launch (K9): pad rows are match-False and stay so;
-        # a review's launch packs both masks too
-        if pack_out is None:
-            program_eval(mask, bound)
-        else:
-            program_eval(mask, bound, pack=(autoreject, pack_out))
+        # a review's launch packs both masks too, a delta sweep's writes
+        # its before | after columns
+        modes = {}
+        if pack_out is not None:
+            modes["pack"] = (autoreject, pack_out)
+        if delta is not None:
+            modes["delta"] = delta
+        program_eval(mask, bound, **modes)
         return mask, autoreject
 
     def _review_pack(self, reviews: List[dict]):
@@ -1304,17 +1314,25 @@ class TorchDriver(InterpDriver):
         len(rows_pad)), the match kernel and the programs run on the
         w-row slice of the pack on ``device`` (default the driver's);
         ``joins`` the host join index's tables there ('tables' mode), or
-        None without join plans.  Under a mesh (``mask`` a ShardedMask)
-        K5 gathers each row's before-column on its owning shard, at its
-        slab-local column, and the result is assembled on the host."""
+        None without join plans.  On one device K9 writes both halves in
+        its launch (program_eval's ``delta``).  Under a mesh (``mask`` a
+        ShardedMask) K5 gathers each row's before-column on its owning
+        shard, at its slab-local column, and the result is assembled on
+        the host."""
         device = device or self.device
         rv_d = state_from_numpy(rv_slice, device)
         cols_d = state_from_numpy(cols_slice, device)
+        w = len(rows_pad)
+        if not isinstance(mask, ShardedMask):
+            out = torch.empty((mask.shape[0], 2 * w), dtype=torch.int8,
+                              device=device)
+            self._eval(side, rv_d, cols_d, placed, join_mode="tables",
+                       joins=joins, delta=(
+                           mask, delta_index(rows_pad, mask.shape[1], device),
+                           out))
+            return out
         new, _autoreject = self._eval(side, rv_d, cols_d, placed,
                                       join_mode="tables", joins=joins)
-        if not isinstance(mask, ShardedMask):
-            return delta_columns(mask, rows_pad, new)
-        w = len(rows_pad)
         owner = rows_pad // mask.slab
         parts = []
         for shard in np.unique(owner):

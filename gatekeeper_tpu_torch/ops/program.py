@@ -21,6 +21,15 @@ launch, so the review launches no K10.  Where no group has rows K9 is not
 launched, and past PACK_IN_K9_MAX_ROWS rows the fold costs more than
 K10's own launch: K10 packs in both cases.
 
+A delta sweep passes ``delta=(resident, idx, out)``: the incremental
+audit's int8 [C, 2w] before | after columns of the w evaluated rows
+(ops/delta.py's function, gatekeeper_tpu/ops/driver.py _delta_fn's
+gather and concatenation, which run in the same jitted dispatch as the
+evaluation), written by K9 in its own launch, so the delta sweep launches
+no K5.  Where no group has rows, or past DELTA_IN_K9_MAX_ROWS rows, K5
+writes them after K9.  A launch packs a review or writes a delta, never
+both.
+
 A bound group is a plain dict (``start``, ``B``, ``code``, ``stack``,
 ``operands``), each operand a dict of its kind and tensors, so a run can
 record and copy a call like any tensor tree.
@@ -34,13 +43,15 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from . import delta as _delta
 from . import packbits as _packbits
 from . import progcode as pc
 from .columns import T_FALSE, T_NUM, T_STR, T_UNDEF
 from .interning import Interner
 from .joinkernel import UNKNOWN_KEY
 from .setcount import setcount_plain
-from .vexpr import EvalEnv, _cmp_values, _slot_mask, join_counts
+from .vexpr import (EvalEnv, _cmp_values, _slot_mask, fill_join_counts,
+                    join_counts)
 
 # operand kinds, as kernels/program.cu reads them
 SCALAR, SLOT, PARAM, ELEM, LITSTR, CONSTV = 0, 1, 2, 3, 4, 5
@@ -141,6 +152,16 @@ def bind_group(enc: pc.Encoded, env: EvalEnv, start: int) -> dict:
                   f"elements, its loop {width}")
     return {"start": int(start), "B": int(env.C), "code": enc.code,
             "stack": enc.stack, "operands": ops}
+
+
+def lookup_joins(staged) -> None:
+    """Every join lookup that the encoded programs of one evaluation
+    name, ``staged`` its (enc, env) pairs, into their bindings' caches
+    (vexpr.fill_join_counts: the table-mode ones in one K8 launch), before
+    ``bind_group`` reads them."""
+    fill_join_counts([(env, d[1], d[2]) for enc, env in staged
+                      if env.joins is not None
+                      for d in enc.operands if d[0] == "join"])
 
 
 # ---- the plain version ------------------------------------------------------
@@ -523,6 +544,47 @@ def pack_launch(groups: List[dict], C: int, R: int, dev) -> dict:
 PACK_IN_K9_MAX_ROWS = 32
 
 
+# The largest delta row count w whose before | after columns K9 writes in
+# its own launch; past it K9 runs alone and K5 writes them.  Times of the
+# delta sweep's program step on one NVIDIA H100 80GB HBM3 (700.00 W), 500
+# templates (C = 1024), ms, the fused launch against K9 then K5 on the
+# same inputs, in two turns (tools/kernel_turns.py --kernels delta_chain;
+# PERF.md): w = 8 0.0280 / 0.0303 (once 0.0230); 16 0.0372 / 0.0398-0.0399;
+# 64 0.0724-0.0725 / 0.0745-0.0748; 128 0.1253-0.1259 / 0.1277-0.1280;
+# 256 0.1232-0.1234 / 0.1190-0.1194.
+DELTA_IN_K9_MAX_ROWS = 128
+
+# blocks a delta launch gives its gather at most (two a SM of the H100);
+# their threads stride past them
+GATHER_BLOCKS_MAX = 264
+
+
+def gather_blocks(C: int, R: int) -> int:
+    """The blocks after the groups' that gather a delta launch's
+    before-bytes (and write the rows of no group) over a [C, R] mask: a
+    thread a unit of ROWS_PER_THREAD columns of a row, at most
+    GATHER_BLOCKS_MAX."""
+    units = C * -(-R // ROWS_PER_THREAD)
+    return min(-(-units // THREADS), GATHER_BLOCKS_MAX)
+
+
+def _check_delta(delta, mask: torch.Tensor):
+    resident, idx, out = delta
+    dev = mask.device
+    C, R = mask.shape
+    _dev.check(resident, "resident", torch.bool, 2, dev)
+    _dev.check(idx, "idx", torch.int32, 1, dev)
+    _dev.check(out, "out", torch.int8, 2, dev)
+    if resident.shape[0] != C:
+        raise ValueError(f"resident rows {resident.shape[0]} != mask rows "
+                         f"{C}")
+    if idx.shape[0] != R:
+        raise ValueError(f"idx {tuple(idx.shape)} != the mask's {R} rows")
+    if tuple(out.shape) != (C, 2 * R):
+        raise ValueError(f"out {tuple(out.shape)} != {(C, 2 * R)}")
+    return resident, idx, out
+
+
 def _check_pack(pack, mask: torch.Tensor):
     autoreject, out = pack
     dev = mask.device
@@ -537,21 +599,35 @@ def _check_pack(pack, mask: torch.Tensor):
     return autoreject, out
 
 
+def _check_modes(mask, pack, delta):
+    if pack is not None and delta is not None:
+        raise ValueError("a launch packs a review or writes a delta sweep's "
+                         "columns, not both")
+    return (None if pack is None else _check_pack(pack, mask),
+            None if delta is None else _check_delta(delta, mask))
+
+
 def program_eval_cuda(mask: torch.Tensor, groups: List[dict],
-                      pack=None) -> torch.Tensor:
+                      pack=None, delta=None) -> torch.Tensor:
     """K9: one launch for every group.  With ``pack=(autoreject, out)``
     the same launch packs ``mask`` (after the groups) and ``autoreject``
     into ``out``; K10 packs instead where K9 is not launched (no group
-    has rows) or R is past PACK_IN_K9_MAX_ROWS."""
+    has rows) or R is past PACK_IN_K9_MAX_ROWS.  With ``delta=(resident,
+    idx, out)`` (idx int32 in [0, resident's columns): ops/delta.py
+    delta_index checks it) the same launch writes out[:, :R] =
+    resident[:, idx] and out[:, R:] = ``mask`` after the groups; K5
+    writes them instead where K9 is not launched or R is past
+    DELTA_IN_K9_MAX_ROWS."""
     dev = mask.device
     _dev.check(mask, "mask", torch.bool, 2, dev)
-    if pack is not None:
-        pack = _check_pack(pack, mask)
+    pack, delta = _check_modes(mask, pack, delta)
     C, R = mask.shape
     if R == 0:
         return mask
     lp = pack_launch(groups, C, R, dev)
     fold = pack is not None and lp["G"] > 0 and R <= PACK_IN_K9_MAX_ROWS
+    fold_delta = delta is not None and lp["G"] > 0 and \
+        R <= DELTA_IN_K9_MAX_ROWS
     if lp["G"]:
         # a fresh device buffer every evaluation (the table holds this
         # evaluation's pointers, and the counter starts at 0), copied from
@@ -560,27 +636,42 @@ def program_eval_cuda(mask: torch.Tensor, groups: List[dict],
         # the copy is done
         blob_d = _dev.upload(lp["blob"], dev)
         autoreject, out = pack if fold else (None, None)
+        resident, idx, dout = delta if fold_delta else (None, None, None)
+        extra = gather_blocks(C, R) if fold_delta else 0
         _dev.launch(
-            "program_pack" if fold else "program", dev, _dev.ptr(blob_d),
-            lp["G"], lp["NOP"], _dev.ptr(mask), R, lp["blocks"],
-            lp["max_code"], lp["max_ops"],
+            "program_pack" if fold else
+            "program_delta" if fold_delta else "program", dev,
+            _dev.ptr(blob_d), lp["G"], lp["NOP"], _dev.ptr(mask), R,
+            lp["blocks"], lp["max_code"], lp["max_ops"],
             _dev.ptr(autoreject) if fold else None,
-            _dev.ptr(out) if fold else None, C if fold else 0,
+            _dev.ptr(out) if fold else None,
+            C if fold or fold_delta else 0,
+            _dev.ptr(resident) if fold_delta else None,
+            resident.shape[1] if fold_delta else 0,
+            _dev.ptr(idx) if fold_delta else None,
+            _dev.ptr(dout) if fold_delta else None, extra,
             _dev.stream(mask),
         )
     if pack is not None and not fold:
         _packbits.pack_review_masks_cuda(mask, pack[0], out=pack[1])
+    if delta is not None and not fold_delta:
+        _delta.delta_columns_cuda(delta[0], delta[1], mask, out=delta[2])
     return mask
 
 
 def program_eval(mask: torch.Tensor, groups: List[dict],
-                 pack=None) -> torch.Tensor:
-    """K9 on a CUDA mask, the plain version on a CPU one; ``pack`` as in
-    program_eval_cuda (on the CPU, the plain pack after the groups)."""
+                 pack=None, delta=None) -> torch.Tensor:
+    """K9 on a CUDA mask, the plain version on a CPU one; ``pack`` and
+    ``delta`` as in program_eval_cuda (on the CPU, the plain pack or the
+    plain delta columns after the groups)."""
     if mask.device.type == "cpu":
+        pack, delta = _check_modes(mask, pack, delta)
         program_eval_plain(mask, groups)
         if pack is not None:
-            autoreject, out = _check_pack(pack, mask)
+            autoreject, out = pack
             out.copy_(_packbits.pack_review_masks_plain(mask, autoreject))
+        if delta is not None:
+            resident, idx, out = delta
+            out.copy_(_delta.delta_columns_plain(resident, idx, mask))
         return mask
-    return program_eval_cuda(mask, groups, pack)
+    return program_eval_cuda(mask, groups, pack, delta)

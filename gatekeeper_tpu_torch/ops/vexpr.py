@@ -38,7 +38,7 @@ import torch
 from .columns import T_COMP, T_FALSE, T_NUM, T_STR, T_TRUE, T_UNDEF
 from .interning import Interner
 from .joinkernel import UNKNOWN_KEY
-from .joinlookup import join_lookup
+from .joinlookup import join_lookup, join_lookup_many
 from .setcount import setcount
 from .strpred import strpred
 
@@ -486,23 +486,59 @@ def _eval_joincmp(node: JoinCmp, env: EvalEnv, axes: str, pidx=None):
     return torch.where(q == UNKNOWN_KEY, unk, res)
 
 
+def _join_lookup_args(env: EvalEnv, plan_id: int, exclude_self: bool):
+    """The cache key of a (plan, exclude_self) lookup, and its table,
+    dense counts, queries and scope."""
+    jb = env.joins
+    plan = jb.plans[plan_id]
+    uk, uc, dense = jb.table(plan_id, env)
+    sid = env.cols[plan.local_colkey]["sid"]
+    scope = jb.self_scope(plan_id) if exclude_self else None
+    return ("counts", plan, bool(exclude_self)), uk, uc, dense, sid, scope
+
+
 def join_counts(env: EvalEnv, plan_id: int, exclude_self: bool):
     """int32 counts in the shape of the plan's local key column ([R] or
     [R, S]): the table lookup (kernel K8, reading the table's dense
     counts where K7 built them), less the row's own contribution
     with ``exclude_self``.  A count depends on the row, not the
     constraint, so it is looked up once per (plan, exclude_self) and
-    evaluation, in the binding's cache that every group shares."""
+    evaluation, in the binding's cache that every group shares, by
+    fill_join_counts: here on a miss, or for every group at once before
+    the groups are bound."""
     jb = env.joins
-    plan = jb.plans[plan_id]
-    key = ("counts", plan, bool(exclude_self))
-    hit = jb.cache.get(key)
-    if hit is None:
-        uk, uc, dense = jb.table(plan_id, env)
-        sid = env.cols[plan.local_colkey]["sid"]
-        scope = jb.self_scope(plan_id) if exclude_self else None
-        hit = jb.cache[key] = join_lookup(uk, uc, sid, scope, dense=dense)
-    return hit
+    key = ("counts", jb.plans[plan_id], bool(exclude_self))
+    if key not in jb.cache:
+        fill_join_counts([(env, plan_id, exclude_self)])
+    return jb.cache[key]
+
+
+def fill_join_counts(needs) -> None:
+    """The lookups of ``needs``, each (env, plan_id, exclude_self) of one
+    evaluation, into the bindings' caches, where join_counts reads them:
+    each (plan, exclude_self) not in its cache, once.  A lookup into a
+    table with dense counts (K7's, a full sweep's) is dense mode's launch
+    of its own (join_lookup); the rest, into the host join index's tables
+    (a delta sweep's), run together in one table-mode K8 launch
+    (join_lookup_many)."""
+    todo = {}
+    for env, plan_id, exclude_self in needs:
+        jb = env.joins
+        key = ("counts", jb.plans[plan_id], bool(exclude_self))
+        if key in jb.cache or (id(jb.cache), key) in todo:
+            continue
+        key, uk, uc, dense, sid, scope = _join_lookup_args(env, plan_id,
+                                                           exclude_self)
+        if dense is not None:
+            jb.cache[key] = join_lookup(uk, uc, sid, scope, dense=dense)
+        else:
+            todo[(id(jb.cache), key)] = (jb.cache, key,
+                                         (uk, uc, sid, scope))
+    if not todo:
+        return
+    counts = join_lookup_many([args for _c, _k, args in todo.values()])
+    for (cache, key, _args), hit in zip(todo.values(), counts):
+        cache[key] = hit
 
 
 _SETCOUNT_OPS = {">": 0, ">=": 1, "<": 2, "<=": 3, "==": 4, "!=": 5}

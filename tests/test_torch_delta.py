@@ -343,6 +343,100 @@ def test_delta_columns_bit_equal_to_tpu_delta_fn():
     assert got[:, len(rows_pad):].any(), "the churned rows must flag"
 
 
+def _referential_trio():
+    """The port and TpuDriver on the referential corpus (unique hosts,
+    required classes, team quotas), fed the same objects."""
+    from gatekeeper_tpu.util import synthetic as jsyn
+
+    tpu = TpuDriver()
+    tpu.mesh_enabled = False
+    tpu._mesh_cache = None
+    t = TorchClient(driver=TorchDriver(device="cpu"))
+    j = JaxClient(driver=tpu)
+    templates, constraints = jsyn.make_referential_templates(6, 0)
+    objs = jsyn.make_referential_objects(240, 1)
+    for c in (t, j):
+        for x in templates + constraints:
+            getattr(c, "add_template" if x in templates else
+                    "add_constraint")(copy.deepcopy(x))
+        for o in objs:
+            c.add_data(copy.deepcopy(o))
+    return t, j
+
+
+@pytest.fixture(scope="module", params=["synthetic", "referential"])
+def swept_pair(request):
+    """(port client, TpuDriver client, corpus) after a full capped sweep
+    on each: the resident mask and, for the referential corpus, the join
+    index current."""
+    if request.param == "synthetic":
+        trio = Trio()
+        t, j = trio.t, trio.j
+    else:
+        t, j = _referential_trio()
+    for c in (t, j):
+        c.audit_capped(5)
+    return t, j, request.param
+
+
+@pytest.mark.parametrize("w", [8, 16, 256])
+def test_program_eval_delta_bit_equal_to_tpu_delta_fn(swept_pair, w,
+                                                      monkeypatch):
+    """program_eval with ``delta`` (on the CPU: the plain groups, then
+    delta_columns_plain into the output), as the port's delta sweep calls
+    it, equals TpuDriver._delta_fn()'s [C, 2w] on the same resident mask
+    and the same slices of the pack, at w = 8, 16 and 256 with the last
+    quarter of the rows padding (the last row repeated, as both drivers
+    pad); on the referential corpus with the host join index's tables."""
+    from gatekeeper_tpu_torch.ops import driver as tdriver
+
+    t, j, corpus = swept_pair
+    td, jd = t.driver, j.driver
+    assert jd.interner._strings == td.interner._strings
+    ap = jd._audit_pack
+    assert td._audit_pack.n_rows == ap.n_rows
+    mask_j = np.array(jd._delta_state.mask_src.get())  # writable copy
+    # rows the resident mask flags first, then the others, in a seeded
+    # order
+    rng = np.random.default_rng(w)
+    flagged = mask_j[:, :ap.n_rows].any(0)
+    order = np.concatenate([rng.permutation(np.flatnonzero(f))
+                            for f in (flagged, ~flagged)])
+    n = min(w - w // 4, ap.n_rows)
+    rows = np.sort(order[:n])
+    rows_pad = np.concatenate([rows, np.full(w - n, rows[-1])]).astype(
+        np.int32)
+    rv, cols = convert.take_rows((ap.rp, ap.cols), rows_pad)
+    _ordered, cp, groups, _specs, _crow = jd._constraint_side()
+    cs_d, gp_d = jd._constraint_device_side(
+        cp.arrays, [p for *_s, p in groups], None, None
+    )
+    jt = jd._join_delta_tables()
+    assert (jt is None) == (corpus == "synthetic")
+    want = np.asarray(jd._delta_fn()(mask_j, rows_pad, rv, cs_d, cols, gp_d,
+                                     *(() if jt is None else (jt,))))
+    calls = []
+    orig = tdriver.program_eval
+
+    def spy(mask, groups, **kw):
+        calls.append(kw)
+        return orig(mask, groups, **kw)
+
+    monkeypatch.setattr(tdriver, "program_eval", spy)
+    side = td._constraint_side()
+    got = td._delta_eval(
+        side, td._constraint_device(side),
+        convert.state_from_numpy(mask_j, td.device), rows_pad, rv, cols,
+        td._join_delta_tables(),
+    ).numpy()
+    [kw] = calls
+    assert set(kw) == {"delta"}
+    assert got.dtype == np.int8 and got.shape == want.shape == \
+        (mask_j.shape[0], 2 * w)
+    np.testing.assert_array_equal(got, want)
+    assert got[:, w:].any(), "the evaluated rows must flag"
+
+
 def test_carried_state_folds_like_tpu_driver():
     """TpuDriver's DeltaState and resident mask, carried into the port by
     convert.delta_state_from: the port's next delta sweep folds the same

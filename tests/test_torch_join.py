@@ -384,6 +384,142 @@ def test_join_lookup_plain_subtracts_participating_rows():
         [[5, 2], [0, 3], [1, 1], [5, 5]]
 
 
+def _warp_lower_bound(uk, key):
+    """kernels/joinlookup.cu lower_bound_warp, its 32 lanes on the host
+    -> (the lower bound of ``key`` in ``uk``, the dependent steps)."""
+    lo, hi, steps = 0, len(uk), 0
+    while True:
+        n = hi - lo
+        steps += 1
+        if n <= 32:
+            b = [lane < n and uk[lo + lane] >= key for lane in range(32)]
+            return (lo + b.index(True) if any(b) else hi), steps
+        step = -(-n // 32)
+        b = [uk[min(lo + (lane + 1) * step - 1, hi - 1)] >= key
+             for lane in range(32)]
+        if not any(b):
+            return hi, steps
+        f = b.index(True)
+        hi = min(lo + (f + 1) * step - 1, hi - 1)
+        lo += f * step
+
+
+@pytest.mark.parametrize("T,n_keys,steps", [
+    (0, 0, 1), (1, 1, 1), (8, 3, 1), (8, 8, 1), (32, 32, 1), (33, 20, 2),
+    (1000, 999, 2), (1025, 700, 3), (65536, 40000, 4), (65536, 65536, 4),
+    (1 << 20, 300000, 4)])
+def test_warp_search_is_the_lower_bound(T, n_keys, steps):
+    """K8's table-mode search, a warp's 32-ary lower bound, lands where
+    searchsorted does on tables with and without a KEY_INVALID tail, for
+    keys in the table, between its keys, before and past all of them; in
+    at most log32(T) + 1 dependent steps (4 at T = 65,536, one at T <=
+    32), where a binary search takes log2(T)."""
+    rng = np.random.default_rng(T + n_keys)
+    vocab = 3 * max(n_keys, 4)
+    uk = np.full(T, INVALID, np.int64)
+    uk[:n_keys] = np.sort(rng.choice(vocab, n_keys, replace=False))
+    keys = list(rng.integers(-2, vocab + 3, 300)) + [0, vocab + 9, INVALID]
+    if n_keys:
+        picks = rng.choice(uk[:n_keys], min(n_keys, 200), replace=False)
+        keys += [int(k) + dk for k in picks for dk in (-1, 0, 1)]
+        keys += [int(uk[0]), int(uk[n_keys - 1])]
+    most = 0
+    for key in keys:
+        got, n = _warp_lower_bound(uk, key)
+        assert got == np.searchsorted(uk, key, "left"), (T, key)
+        most = max(most, n)
+    assert most <= steps
+
+
+def _jax_self_mask(valid, kind, ns_empty, kind_id, namespaced):
+    """The JAX package's JoinBinding.self_mask on numpy rows."""
+    import types
+
+    plan = types.SimpleNamespace(
+        remote_scope="namespace" if namespaced else "cluster")
+    fake = types.SimpleNamespace(
+        plans=[plan], plan_args=[{"kind_id": kind_id}],
+        rv={"valid": valid, "kind": kind, "ns_empty": ns_empty})
+    return jjk.JoinBinding.self_mask(fake, 0, types.SimpleNamespace(xp=np))
+
+
+@pytest.mark.parametrize("T", [8, 64, 4096, 65536])
+def test_join_lookup_many_equals_each_lookup_and_jax(T):
+    """join_lookup_many's plain version (what K8's one table-mode launch
+    is held against) gives each lookup's join_lookup_plain counts, and
+    the JAX package's lookup_counts less its self-exclusion (self_mask),
+    for lookups of different T, S and scope in one call: queries at -1,
+    UNKNOWN_KEY, the first and the last key, between keys and past every
+    key, scope off, namespaced and cluster, and an empty lookup."""
+    from gatekeeper_tpu_torch.ops.joinlookup import (join_lookup_many,
+                                                     join_lookup_many_plain)
+
+    rng = np.random.default_rng(T)
+
+    def lookup(T, n_keys, shape, scope):
+        vocab = 2 * max(n_keys, 8)
+        uk = np.full(T, INVALID, np.int32)
+        uc = np.zeros(T, np.int32)
+        uk[:n_keys] = np.sort(rng.choice(vocab, n_keys, replace=False))
+        uc[:n_keys] = rng.integers(1, 40, n_keys)
+        q = rng.integers(-6, vocab + 3, shape).astype(np.int32)
+        flat = q.reshape(-1)
+        flat[rng.random(flat.size) < 0.5] = rng.choice(
+            uk[:max(n_keys, 1)], 1)[0] if n_keys else 0
+        special = [-1, tjk.UNKNOWN_KEY, vocab + 2] + (
+            [uk[0], uk[n_keys - 1]] if n_keys else [])
+        flat[:min(flat.size, len(special))] = special[:flat.size]
+        R = shape[0]
+        rows = None
+        if scope is not None:
+            rows = (rng.random(R) < 0.8, rng.integers(0, 3, R).astype(
+                np.int32), rng.random(R) < 0.5, 1, scope)
+        return uk, uc, q, rows
+
+    specs = [lookup(T, T - T // 4, (40,), None),
+             lookup(T, T // 2, (33, 2), True),
+             lookup(8, 5, (17, 3), False),
+             lookup(T, T, (9, 1), True),
+             lookup(max(8, T // 8), 3, (0, 2), False)]
+    lookups = [(_t(uk), _t(uc), _t(q),
+                None if rows is None else tuple(_t(a) for a in rows[:3])
+                + rows[3:]) for uk, uc, q, rows in specs]
+    tdev.reset_launches()
+    got = join_lookup_many(lookups)
+    assert all(v == 0 for v in tdev.launches.values())
+    assert [g.shape for g in got] == [lk[2].shape for lk in lookups]
+    plain = join_lookup_many_plain(lookups)
+    for g, p, lk, (uk, uc, q, rows) in zip(got, plain, lookups, specs):
+        assert torch.equal(g, p)
+        assert torch.equal(g, join_lookup_plain(*lk))
+        want = np.asarray(jjk.lookup_counts(uk, uc, q, np))
+        if rows is not None:
+            part = _jax_self_mask(*rows).astype(np.int32)
+            want = want - (part[:, None] if q.ndim == 2 else part)
+        np.testing.assert_array_equal(g.numpy(), want)
+    assert join_lookup_many([]) == []
+
+
+@pytest.mark.parametrize("T,N", [(8, 16), (32768, 16), (65536, 32),
+                                 (262144, 262144)])
+def test_table_mode_bound_counts_what_the_searches_touch(T, N):
+    """chip_smoke's table-mode bound: each query's 4 bytes in and 4 out,
+    one binary search's keys and the count it finds a query, never more
+    of the table than it holds."""
+    import math
+
+    import chip_smoke
+
+    uk = torch.arange(T, dtype=torch.int32)
+    q = torch.zeros(N, dtype=torch.int32)
+    nbytes, ops, shapes, _lib = chip_smoke._joinlookup_work(
+        ((uk, uk, q, None), {}))
+    steps = math.ceil(math.log2(T + 1))
+    assert nbytes == 8 * N + 4 * min(T, N * steps) + 4 * min(T, N)
+    assert nbytes <= 8 * N + 8 * T
+    assert ops == N * (steps + 2) and shapes["mode"] == "table"
+
+
 def test_int_and_str_twins_never_share_a_key():
     """5 and "5" intern to two keys, so their groups are counted apart;
     5 and 5.0 share one."""

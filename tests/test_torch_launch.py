@@ -5,8 +5,8 @@ and a mesh shard's tensors may lie on another card than the current one.
 So ``device.launch`` takes the device of the tensors it launches on and
 calls the launcher inside ``torch.cuda.device`` of it, and every wrapper
 hands it the device of its inputs.  Both are checked here on the CPU:
-``launch`` with a stand-in library and device context, each of the twelve
-launchers' wrappers with ``launch`` recording what it was handed (the
+``launch`` with a stand-in library and device context, each of the
+fourteen launchers' wrappers with ``launch`` recording what it was handed (the
 wrappers' CUDA functions, called on CPU tensors, with the stream and the
 pinned staging buffer stood in for)."""
 
@@ -96,6 +96,10 @@ def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
     program.program_eval_cuda(mask.clone(), groups)
     program.program_eval_cuda(mask.clone(), groups, pack=(
         ~mask, packbits.packed_empty(*mask.shape, CPU)))
+    C, R = mask.shape
+    program.program_eval_cuda(mask.clone(), groups, delta=(
+        torch.zeros((C, R + 5), dtype=torch.bool), _i32(list(range(R))),
+        torch.empty((C, 2 * R), dtype=torch.int8)))
     reduction.packed_reduction_cuda(mask, 8, row_offset=64)
     strpred.strpred_cuda(
         torch.tensor([[0, 1], [1, 0]], dtype=torch.uint8), _i32([0, 1]),
@@ -117,30 +121,59 @@ def test_every_wrapper_hands_launch_its_inputs_device(monkeypatch):
     joinkeys.merge_key_tables_cuda(_i32([0, 2, 2]), _i32([1, 1, 2]), 4)
     joinlookup.join_lookup_cuda(_i32([0, 2]), _i32([1, 2]), _i32([2, 1, 0]),
                                 (valid, kind, ns_empty, 1, True))
+    joinlookup.join_lookup_cuda(uk, uc, _i32([2, 1, 0]),
+                                (valid, kind, ns_empty, 1, True), dense=dense)
     packbits.pack_review_masks_cuda(mask, ~mask)
     assert {name for name, _d in got} == set(dev.LAUNCHERS)
     assert all(d == CPU for _n, d in got), got
 
 
 def test_join_launchers_get_their_modes_and_scratch(monkeypatch):
-    """K8's launcher takes (uk, uc, T, dense, V, mode, q, R, S, ...): mode
-    0 and no dense array without ``dense``, mode 1 with it; K7's two
-    launchers get the dense counts and the block totals after them, and
-    the totals' length."""
-    got = []
-    monkeypatch.setattr(dev, "launch",
-                        lambda name, device, *args: got.append((name, args)))
+    """K8's table launcher takes (descriptors in host memory, lookups,
+    blocks), a descriptor a lookup (uk, uc, T, q, R, S, the scope's rows,
+    kind id and code, out, first block, blocks), without ``dense``, at
+    most MAX_LOOKUPS a launch; its dense launcher (dense, V, q, R, S, ...)
+    with it; K7's two launchers get the dense counts and the block totals
+    after them, and the totals' length."""
+    import ctypes
+
+    got, uploads = [], []
+
+    def launch(name, device, *args):
+        got.append((name, args))
+        if name == "joinlookup_table":  # the descriptors, while they live
+            words = ctypes.cast(args[0], ctypes.POINTER(ctypes.c_int64))
+            uploads.append(np.ctypeslib.as_array(
+                words, (args[1] * joinlookup.DESC_WORDS,)).copy())
+
+    monkeypatch.setattr(dev, "launch", launch)
     monkeypatch.setattr(dev, "stream", lambda t: 0)
     uk, uc = _i32([0, 2, 2**31 - 1]), _i32([1, 2, 0])
     dense = _i32([1, 0, 2, 0])
     q = _i32([[2, 1], [0, 3], [-1, 5]])
-    joinlookup.join_lookup_cuda(uk, uc, q)
+    out = joinlookup.join_lookup_cuda(uk, uc, q)
     joinlookup.join_lookup_cuda(uk, uc, q, dense=dense)
-    sig = dev._SIGNATURES["joinlookup"][2]
-    (_n0, table), (_n1, dense_mode) = got
-    assert len(table) == len(dense_mode) == len(sig)
-    assert table[2:9] == (3, 0, 0, 0, q.data_ptr(), 3, 2)
-    assert dense_mode[2:9] == (3, dense.data_ptr(), 4, 1, q.data_ptr(), 3, 2)
+    (n0, table), (n1, dense_mode) = got
+    assert (n0, n1) == ("joinlookup_table", "joinlookup")
+    assert len(table) == len(dev._SIGNATURES["joinlookup_table"][2])
+    assert len(dense_mode) == len(dev._SIGNATURES["joinlookup"][2])
+    [desc] = uploads
+    assert table[1:3] == (1, 1)  # one lookup, its 6 queries one block
+    assert desc.tolist() == [uk.data_ptr(), uc.data_ptr(), 3, q.data_ptr(),
+                             3, 2, 0, 0, 0, 0, -1, out.data_ptr(), 0, 1, 0,
+                             0]
+    assert dense_mode[:5] == (dense.data_ptr(), 4, q.data_ptr(), 3, 2)
+    # past MAX_LOOKUPS a launch: a launch each MAX_LOOKUPS, blocks from 0
+    got.clear()
+    uploads.clear()
+    n = joinlookup.MAX_LOOKUPS + 3
+    outs = joinlookup.join_lookup_many_cuda([(uk, uc, q, None)] * n)
+    assert [(name, a[1:3]) for name, a in got] == [
+        ("joinlookup_table", (joinlookup.MAX_LOOKUPS, n - 3)),
+        ("joinlookup_table", (3, 3))]
+    last = uploads[1].reshape(3, joinlookup.DESC_WORDS)
+    assert last[:, 12].tolist() == [0, 1, 2]
+    assert last[:, 11].tolist() == [o.data_ptr() for o in outs[-3:]]
     with pytest.raises(ValueError, match="dense"):
         joinlookup.join_lookup_cuda(uk, uc, q, dense=_i32([]))
     with pytest.raises(TypeError, match="dense"):

@@ -908,6 +908,13 @@ def launched(monkeypatch):
     return calls
 
 
+# K9's launch arguments of a launch that packs nothing (autoreject, out,
+# C) and of one that writes no delta columns (resident, its columns, idx,
+# out, the extra blocks)
+NO_PACK = (None, None, 0)
+NO_DELTA = (None, 0, None, None, 0)
+
+
 def _review_call(R=8, C_extra=2):
     groups, C, rng = _edge_groups(R, 3, 3, 11)
     C += C_extra  # rows of no group
@@ -925,14 +932,15 @@ def test_review_launches_k9_once_with_the_pack(launched):
     lp = tprogram.pack_launch(groups, *mask.shape, torch.device("cpu"))
     assert args[1:] == (lp["G"], lp["NOP"], mask.data_ptr(), 8,
                         lp["blocks"], lp["max_code"], lp["max_ops"],
-                        rej.data_ptr(), out.data_ptr(), mask.shape[0], 0)
+                        rej.data_ptr(), out.data_ptr(), mask.shape[0],
+                        *NO_DELTA, 0)
 
 
 def test_sweep_passes_no_pack_output(launched):
     groups, mask, _rej = _review_call(R=1025)
     tprogram.program_eval_cuda(mask, groups)
     [(name, args)] = launched
-    assert name == "program" and args[-4:] == (None, None, 0, 0)
+    assert name == "program" and args[-9:] == (*NO_PACK, *NO_DELTA, 0)
 
 
 @pytest.mark.parametrize("groups_of", [lambda g: [], lambda g: [
@@ -957,7 +965,7 @@ def test_past_the_row_limit_k10_packs_after_k9(launched, monkeypatch):
         tprogram.program_eval_cuda(mask, groups, pack=(rej, out))
         assert [n for n, _a in launched] == want
         if len(want) == 2:
-            assert launched[0][1][-4:] == (None, None, 0, 0)
+            assert launched[0][1][-9:] == (*NO_PACK, *NO_DELTA, 0)
             assert launched[1][1][5] == out.data_ptr()
 
 
@@ -989,6 +997,233 @@ def test_program_eval_packs_with_the_plain_versions_on_the_cpu():
     assert torch.equal(got, want)
     assert torch.equal(out, packbits.pack_review_masks_plain(want, rej))
     assert all(v == 0 for v in tdev.launches.values())
+
+
+def _delta_call(R=8, C_extra=2, Rt=40):
+    """A delta launch's inputs: the groups over a [C, R] mask with rows of
+    no group, a resident [C, Rt] mask, the indices (the first, the last
+    and padding) and the output."""
+    groups, mask, _rej = _review_call(R=R, C_extra=C_extra)
+    C = mask.shape[0]
+    rng = np.random.default_rng(R)
+    resident = torch.from_numpy(rng.random((C, Rt)) < 0.5)
+    idx = rng.integers(0, Rt, R).astype(np.int32)
+    idx[0], idx[1], idx[-2:] = 0, Rt - 1, idx[-3]
+    out = torch.empty((C, 2 * R), dtype=torch.int8)
+    return groups, mask, (resident, torch.from_numpy(idx), out)
+
+
+def test_delta_launches_k9_once_with_the_columns(launched):
+    """K9's delta mode: the resident mask, its columns, the indices, the
+    output and the blocks for the rows of no group after the groups'; no
+    pack output, and no K5."""
+    for R in (8, 16, tprogram.DELTA_IN_K9_MAX_ROWS):
+        launched.clear()
+        groups, mask, delta = _delta_call(R=R)
+        tprogram.program_eval_cuda(mask, groups, delta=delta)
+        [(name, args)] = launched
+        assert name == "program_delta"
+        C = mask.shape[0]
+        lp = tprogram.pack_launch(groups, C, R, torch.device("cpu"))
+        assert tprogram.rows_of_no_group(groups, C)
+        resident, idx, out = delta
+        assert args[1:] == (lp["G"], lp["NOP"], mask.data_ptr(), R,
+                            lp["blocks"], lp["max_code"], lp["max_ops"],
+                            None, None, C, resident.data_ptr(), 40,
+                            idx.data_ptr(), out.data_ptr(),
+                            tprogram.gather_blocks(C, R), 0)
+
+
+def test_gather_blocks_give_a_thread_a_unit_of_each_row():
+    """A delta launch's extra blocks: a thread a unit of ROWS_PER_THREAD
+    columns of a row, 256 threads a block, at most GATHER_BLOCKS_MAX."""
+    V, T = tprogram.ROWS_PER_THREAD, tprogram.THREADS
+    assert V == 8 and T == 256
+    assert tprogram.gather_blocks(0, 256) == 0
+    assert tprogram.gather_blocks(1, 8) == 1
+    assert tprogram.gather_blocks(256, 8) == 1
+    assert tprogram.gather_blocks(257, 8) == 2
+    assert tprogram.gather_blocks(1024, 8) == 4
+    assert tprogram.gather_blocks(1024, 256) == 128
+    assert tprogram.gather_blocks(5, 13) == 1
+    assert tprogram.gather_blocks(10 ** 6, 256) == \
+        tprogram.GATHER_BLOCKS_MAX
+
+
+@pytest.mark.parametrize("groups_of", [lambda g: [], lambda g: [
+    dict(g[0], B=0)]])
+def test_a_delta_without_group_rows_launches_k5_alone(launched, groups_of):
+    groups, mask, delta = _delta_call()
+    tprogram.program_eval_cuda(mask, groups_of(groups), delta=delta)
+    [(name, args)] = launched
+    resident, idx, out = delta
+    assert name == "delta"
+    assert args == (resident.data_ptr(), mask.shape[0], 40, idx.data_ptr(),
+                    8, mask.data_ptr(), out.data_ptr(), 0)
+
+
+def test_past_the_delta_row_limit_k5_writes_after_k9(launched, monkeypatch):
+    monkeypatch.setattr(tprogram, "DELTA_IN_K9_MAX_ROWS", 8)
+    for R, want in ((8, ["program_delta"]), (16, ["program", "delta"])):
+        launched.clear()
+        groups, mask, delta = _delta_call(R=R)
+        tprogram.program_eval_cuda(mask, groups, delta=delta)
+        assert [n for n, _a in launched] == want
+        if len(want) == 2:
+            assert launched[0][1][-9:] == (*NO_PACK, *NO_DELTA, 0)
+            assert launched[1][1][6] == delta[2].data_ptr()
+
+
+def test_pack_and_delta_together_are_refused(launched):
+    groups, mask, delta = _delta_call()
+    _g, _m, rej = _review_call()
+    pack = (rej, torch.empty((2 * mask.shape[0], 1), dtype=torch.uint8))
+    for fn in (tprogram.program_eval_cuda, program_eval):
+        with pytest.raises(ValueError, match="not both"):
+            fn(mask, groups, pack=pack, delta=delta)
+    assert not launched
+
+
+def test_the_delta_arguments_are_checked(launched):
+    groups, mask, (resident, idx, out) = _delta_call()
+    C = mask.shape[0]
+    bad = [((resident[:-1], idx, out), ValueError),
+           ((resident.to(torch.uint8), idx, out), TypeError),
+           ((resident, idx[:-1], out), ValueError),
+           ((resident, idx.long(), out), TypeError),
+           ((resident, idx, torch.empty((C, 15), dtype=torch.int8)),
+            ValueError),
+           ((resident, idx, out.to(torch.uint8)), TypeError)]
+    for delta, err in bad:
+        with pytest.raises(err):
+            tprogram.program_eval_cuda(mask, groups, delta=delta)
+        with pytest.raises(err):
+            program_eval(mask, groups, delta=delta)
+    assert not launched
+
+
+def test_program_eval_writes_delta_columns_with_the_plain_versions_on_the_cpu():
+    """On the CPU the delta columns are program_eval_plain, then
+    delta_columns_plain of the result; nothing is launched."""
+    from gatekeeper_tpu_torch.ops import delta as tdelta
+
+    groups, mask, (resident, idx, out) = _delta_call(R=16)
+    out.fill_(7)
+    tdev.reset_launches()
+    got = program_eval(mask.clone(), groups, delta=(resident, idx, out))
+    want = program_eval_plain(mask.clone(), groups)
+    assert torch.equal(got, want)
+    assert torch.equal(out, tdelta.delta_columns_plain(resident, idx, want))
+    assert torch.equal(out[:, :16], resident[:, idx.long()].to(torch.int8))
+    assert all(v == 0 for v in tdev.launches.values())
+
+
+def test_k9_delta_mode_matches_the_kernel_source():
+    """program.cu's delta mode: its own instantiation, the rows of no
+    group found as pack_launch lays them out, the gather by the blocks
+    after the groups'."""
+    import re
+
+    src = (pathlib.Path(tdev.__file__).parent / "kernels"
+           / "program.cu").read_text()
+    assert "template <int V, int STEP, bool DELTA>" in src
+    assert re.search(r"if \(DELTA && blockIdx\.x >= \(unsigned\)nblocks\)",
+                     src)
+    assert re.search(r"delta_gather\(blob \+ \(long long\)G \* HDRW \+ "
+                     r"\(long long\)NOP \* OPW \+\s*\(hl\[3\] \+ hl\[4\] "
+                     r"\+ 1\) / 2", src)
+    assert "gridDim.x - nblocks" in src
+
+
+@pytest.fixture
+def routed(launched, monkeypatch):
+    """The driver's kernel calls through the CUDA wrappers on CPU tensors:
+    each wrapper's launches recorded (``launched``), then its plain
+    version's result returned."""
+    from gatekeeper_tpu_torch.ops import delta as tdelta
+    from gatekeeper_tpu_torch.ops import driver as tdriver
+    from gatekeeper_tpu_torch.ops import joinlookup, matchkernel
+
+    def both(cuda, plain):
+        def call(*a, **k):
+            cuda(*a, **k)
+            return plain(*a, **k)
+        return call
+
+    def k5(mask, idx, new):
+        return tdelta.delta_columns_cuda(
+            mask, tdelta.delta_index(idx, mask.shape[1], mask.device), new)
+
+    monkeypatch.setattr(tdriver, "match_kernel", both(
+        matchkernel.match_kernel_cuda, matchkernel.match_kernel))
+    monkeypatch.setattr(tdriver, "program_eval", both(
+        tprogram.program_eval_cuda, program_eval))
+    monkeypatch.setattr(tdriver, "delta_columns", both(
+        k5, tdelta.delta_columns))
+    monkeypatch.setattr(tv, "join_lookup_many", both(
+        joinlookup.join_lookup_many_cuda, joinlookup.join_lookup_many_plain))
+    monkeypatch.setattr(tv, "join_lookup", both(
+        joinlookup.join_lookup_cuda, joinlookup.join_lookup_plain))
+    return launched
+
+
+def _moved_ingress(client):
+    """An Ingress of the referential corpus moved to a fresh host."""
+    from gatekeeper_tpu_torch.engine.value import thaw as tthaw
+
+    ing = next(o for o, *_r in client.driver.store.iter_objects()
+               if o["kind"] == "Ingress")
+    moved = copy.deepcopy(tthaw(ing))
+    moved["spec"]["rules"][0]["host"] = "moved.corp.io"
+    return moved
+
+
+def test_one_card_delta_sweep_launches_k1_one_k8_and_k9s_delta_mode(routed):
+    """A referential delta sweep on one device: K1, K8's table mode once
+    for every lookup of its groups, and K9 in its delta mode, which writes
+    the before | after columns; no K5 and no lookup of its own."""
+    client = tsyn.build_referential_driver(6, 120, device="cpu")
+    oracle = tsyn.build_referential_oracle(6, 120)
+    client.audit_capped(20)
+    moved = _moved_ingress(client)
+    for c in (client, oracle):
+        c.add_data(copy.deepcopy(moved))
+    routed.clear()
+    got, totals = client.audit_capped(20)
+    assert "delta_rows" in client.driver.last_sweep_stats
+    names = [n for n, _a in routed]
+    assert sorted(names) == ["joinlookup_table", "match", "program_delta"]
+    [(_n, largs)] = [c for c in routed if c[0] == "joinlookup_table"]
+    assert largs[1] == 3  # the corpus's three (plan, exclude_self) lookups
+    want, want_totals = oracle.audit_capped(20)
+    assert tsyn.audit_result_sig(got.results()) == \
+        tsyn.audit_result_sig(want.results())
+    assert totals == want_totals
+
+
+def test_mesh_delta_sweep_launches_k5_on_each_owning_shard(routed,
+                                                            monkeypatch):
+    """Under a mesh the resident mask is a slab a shard: K9 runs without
+    the delta mode and K5 gathers on each owning shard."""
+    from gatekeeper_tpu_torch.engine.value import thaw as tthaw
+    from gatekeeper_tpu_torch.parallel import mesh as pm
+
+    monkeypatch.setenv(pm.VIRTUAL_DEVICES_ENV, "2")
+    client = tsyn.build_driver(4, 40, device="cpu")
+    client.driver.set_mesh(True, width=2)
+    client.audit_capped(20)
+    ap = client.driver._audit_pack
+    for r in (1, ap.capacity - 1 - (ap.capacity - ap.n_rows)):
+        obj = tthaw(client.driver.store.get(ap.row_path[r]))
+        obj["metadata"].setdefault("labels", {})["moved"] = "y"
+        client.add_data(obj)
+    routed.clear()
+    client.audit_capped(20)
+    st = client.driver.last_sweep_stats
+    names = [n for n, _a in routed]
+    assert st["delta_rows"] == 2.0 and st["delta_shards"] == 2.0
+    assert names.count("delta") == 2 and "program_delta" not in names
+    assert names.count("program") == 1 and names.count("match") == 1
 
 
 # ---- the driver ---------------------------------------------------------------------

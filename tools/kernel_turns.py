@@ -46,7 +46,19 @@ program_eval with the pack where the checkout's driver asks for it, else
 K9 then K10 as an earlier checkout's driver runs them (its wrappers lack
 the pack argument, so the trees compare only as chains); for the packing
 checkout, K9 then K10 on the same inputs and the fused launch with its
-row limit lifted are timed beside it.
+row limit lifted are timed beside it.  ``delta_chain`` times the delta
+sweep's program step as one unit after churn of 1, 16, 64, 128 and 256
+pods (w = 8 to 256; "delta_chain_w<w>"): program_eval with ``delta``
+(K9 writing the before | after columns in its launch) where the
+checkout's driver asks for it, else K9 then K5 as the checkout's driver
+runs them; for the folding checkout, K9 then K5 on the same inputs is
+timed beside it, and past its row limit the fused launch with the limit
+lifted.  With --corpus referential, ``joinlookup`` also times
+the key-moving delta sweep's table-mode lookups as one chain
+("delta_lookup_chain": each (plan, exclude_self) lookup in a launch of
+its own where the checkout launches them so, one join_lookup_many launch
+where it launches that), and its largest lookup alone
+("delta_one_lookup").
 """
 
 from __future__ import annotations
@@ -72,11 +84,15 @@ def _chip_smoke():
 # the review batches whose device chain review_chain times: a one-pod
 # review (R = 8) and batches of 16, 32, 64 and 256 pods
 CHAIN_PODS = (1, 16, 32, 64, 256)
+# the churn whose delta sweep's program step delta_chain times: w = 8, 16,
+# 64, 128 and 256
+DELTA_CHAIN_D = (1, 16, 64, 128, 256)
 
 
 def synthetic_runs(cs, syn, args, names) -> list:
     """A cold capped sweep, a one-pod review, with review_chain batches
-    of CHAIN_PODS pods, and with scatter a full sweep after 256 changed
+    of CHAIN_PODS pods, with delta_chain a delta sweep after churn of each
+    of DELTA_CHAIN_D pods, and with scatter a full sweep after 256 changed
     pods with the delta path off -> [(label, Capture)]."""
     client = syn.build_driver(args.templates, args.pods, cs.SEED)
     with cs.Capture(names=names) as sweep:
@@ -96,10 +112,24 @@ def synthetic_runs(cs, syn, args, names) -> list:
                                    "packbits")) as cap:
                 client.review_batch(pods)
             runs.append((f"chain{n}", cap))
-    if "scatter" in names:
+    churn = None
+    if "delta_chain" in names:
         driver = client.driver
         churn = cs.Churn([client], syn.make_pods(args.pods, cs.SEED + 1),
                          cs.SEED + 5)
+        for d in DELTA_CHAIN_D:
+            churn.step(d)
+            with cs.Capture(names=("program", "program_delta",
+                                   "delta")) as cap:
+                client.audit_capped(cs.CAP)
+            if driver.last_sweep_stats.get("delta_rows") != d:
+                raise AssertionError(f"delta chain d={d}: "
+                                     f"{driver.last_sweep_stats}")
+            runs.append((f"delta{cs.padded(d)}", cap))
+    if "scatter" in names:
+        driver = client.driver
+        churn = churn or cs.Churn(
+            [client], syn.make_pods(args.pods, cs.SEED + 1), cs.SEED + 5)
         churn.step(256)
         driver.delta_enabled = False
         with cs.Capture(names=("scatter",)) as full:
@@ -162,6 +192,88 @@ def review_chain(cs, cap, reps: int) -> dict:
     return rec
 
 
+def delta_chain(cs, cap, reps: int) -> dict:
+    """The delta sweep's program step as one unit, on the inputs of the
+    recorded delta sweep: K9 writing the columns in its launch where this
+    checkout's driver asks it to (program_eval with ``delta``), else K9
+    then K5, as the checkout's driver ran them; checked against the plain
+    versions.  For a checkout that folds, K9 then K5 on the same inputs is
+    timed beside it, and past its row limit (where program_eval runs K9
+    then K5) the fused launch with the limit lifted."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import delta, program
+
+    if cap.calls.get("program_delta"):
+        [(a, kw, _out)] = cap.calls["program_delta"]
+        p = cs._program_delta_prep(a, kw)
+        chain, name = (lambda: cs._program_delta_kernel(p)[1]), "k9_delta"
+    else:
+        [(a, kw, _out)] = cap.calls["program"]
+        [((resident, idx, _new), _kw, _cols)] = cap.calls["delta"]
+        p = cs._program_prep(a, kw)
+        p.update(resident=resident, idx=idx)
+        chain, name = (lambda: cs._k9_then_k5(p)), "k9_then_k5"
+    reset = (lambda: cs._program_reset(p, "kernel"))
+    reset()
+    got = chain()
+    want = delta.delta_columns_plain(
+        p["resident"], p["idx"],
+        program.program_eval_plain(p["plain"], p["groups"]))
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"delta chain: {name} != plain")
+    rec = {"chain": name, "ms": cs.cuda_ms(chain, reps, setup=reset)}
+    if name == "k9_delta":
+        rec["k9_then_k5_ms"] = cs.cuda_ms(lambda: cs._k9_then_k5(p), reps,
+                                          setup=reset)
+    if name == "k9_delta" and \
+            p["pre"].shape[1] > program.DELTA_IN_K9_MAX_ROWS:
+        rec["routed"] = "k9_then_k5"  # the driver's route past the limit
+
+        def forced():
+            with cs.FoldAtEveryR("DELTA_IN_K9_MAX_ROWS"):
+                return cs._program_delta_kernel(p)[1]
+
+        reset()
+        if not torch.equal(forced(), want):
+            raise AssertionError("delta chain: the forced fold != plain")
+        rec["fused_forced_ms"] = cs.cuda_ms(forced, reps, setup=reset)
+    rec["shape"] = list(p["pre"].shape)
+    return rec
+
+
+def lookup_chain(cs, cap, reps: int) -> dict:
+    """A delta sweep's table-mode lookups as one unit: its recorded
+    join_lookup_many call (one launch) where the checkout makes one, else
+    its join_lookup calls (a launch each) in turn; checked against the
+    plain version.  And the largest lookup alone (join_lookup_cuda)."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import joinlookup
+
+    if cap.calls.get("joinlookup_table"):
+        [((lookups,), _kw, _out)] = cap.calls["joinlookup_table"]
+        chain = (lambda: joinlookup.join_lookup_many_cuda(lookups))
+        name = "one_launch"
+    else:
+        lookups = [a for a, _kw, _out in cap.calls["joinlookup"]]
+        chain = (lambda: [joinlookup.join_lookup_cuda(*lk)
+                          for lk in lookups])
+        name = "a_launch_a_lookup"
+    got = chain()
+    want = [joinlookup.join_lookup_plain(*lk) for lk in lookups]
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"delta lookup chain: {name} != plain")
+    big = max(lookups, key=lambda lk: lk[2].numel())
+    return {"chain": name, "lookups": len(lookups),
+            "queries": [lk[2].numel() for lk in lookups],
+            "ms": cs.cuda_ms(chain, reps),
+            "one_lookup_ms": cs.cuda_ms(
+                lambda: joinlookup.join_lookup_cuda(*big), reps)}
+
+
 def referential_runs(cs, syn, args, names) -> list:
     """A full device sweep, a key-moving delta sweep of 16 objects, and a
     full sweep on a width-2 mesh of the one card, each without its render
@@ -179,7 +291,9 @@ def referential_runs(cs, syn, args, names) -> list:
         if driver._audit_sweep(K) is None:
             raise AssertionError("referential sweep: empty inventory")
     churn.moving(16)
-    with cs.Capture(names=names) as delta:
+    delta_names = names + ("joinlookup_table",) if "joinlookup" in names \
+        else names
+    with cs.Capture(names=delta_names) as delta:
         if driver._try_delta(K) is None:
             raise AssertionError("the key-moving churn took no delta sweep")
     os.environ[pm.VIRTUAL_DEVICES_ENV] = "2"
@@ -205,7 +319,7 @@ def main(argv=None) -> int:
                     help="default match,program (synthetic) or "
                     "joinkeys,joinkeys_merge,joinlookup (referential); "
                     "synthetic also takes scatter, program_pack and "
-                    "review_chain")
+                    "review_chain, delta_chain")
     ap.add_argument("--templates", type=int, default=None,
                     help="default 500 (synthetic) or 24 (referential)")
     ap.add_argument("--pods", type=int, default=100_000,
@@ -231,14 +345,15 @@ def main(argv=None) -> int:
     names = tuple(args.kernels.split(","))
     specs = cs.kernel_specs()
     recorded = {name for _m, _f, name in cs.Capture.SITES}
-    recorded |= set(cs.Capture.MODES.values())
+    recorded |= {m for modes in cs.Capture.MODES.values()
+                 for m in modes.values()}
     for name in names:
-        if name == "review_chain" and not ref:
+        if name in ("review_chain", "delta_chain") and not ref:
             continue
         if name not in specs or name not in recorded:
             ap.error(f"--kernels: {name} is not a kernel that chip_smoke "
                      f"records (one of {sorted(recorded)}) or "
-                     f"review_chain")
+                     f"review_chain or delta_chain")
     from gatekeeper_tpu_torch import device as gdev
     from gatekeeper_tpu_torch.ops import program
     from gatekeeper_tpu_torch.util import synthetic as syn
@@ -259,7 +374,7 @@ def main(argv=None) -> int:
     runs = (referential_runs if ref else synthetic_runs)(cs, syn, args,
                                                          names)
     for name in names:
-        if name != "review_chain" and not any(
+        if name not in ("review_chain", "delta_chain") and not any(
                 cap.calls.get(name) for _label, cap in runs):
             raise AssertionError(f"{name}: no call on the "
                                  f"{'/'.join(lb for lb, _c in runs)} runs")
@@ -269,6 +384,13 @@ def main(argv=None) -> int:
             out["ms"][f"review_chain_{label[5:]}_pods"] = review_chain(
                 cs, cap, args.reps)
             continue
+        if label.startswith("delta") and not ref:
+            out["ms"][f"delta_chain_w{label[5:]}"] = delta_chain(
+                cs, cap, args.reps)
+            continue
+        if label == "delta" and "joinlookup" in names:
+            out["ms"]["delta_lookup_chain"] = lookup_chain(cs, cap,
+                                                           args.reps)
         for name in names:
             if not cap.calls.get(name):
                 continue
