@@ -138,6 +138,22 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      multi-process sweep: two processes of this script on gloo over
      loopback, each with a 2-slot virtual mesh of the card, each equal to
      its one-process sweep bit for bit
+ 10. the process: gatekeeper_tpu_torch.main.App, the process users deploy
+     (--driver torch on the card, --audit-from-cache), over an API store
+     filled as a restart finds it: the 500 templates and constraints of
+     phase 3's corpus, a Config that syncs Pods, and the ~100,000 pods
+     phase 3's client holds by now.  Its time from construction to
+     /readyz, split into the kernels' load, template ingest and the pods'
+     sync; a cold audit cycle and warm ones; phase 3's 256 pods as
+     admission requests one at a time over one keep-alive HTTPS
+     connection, its batch pods from 8 client threads of 32 requests, and
+     64 requests sent while a forced full audit cycle holds the driver
+     (each answer equal to phase 3's results for its pod, none an error,
+     K1 and K9's review mode launched once for each review_batch call);
+     churn of d = 1 and 16 pods written through the store, each cycle on
+     the delta path, then a full cycle (K6); every cycle's constraint
+     totals equal to phase 3's client's sweep of the same inventory.  Then
+     App.stop(), after which the collector must be enabled again
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -238,15 +254,24 @@ class GcPauses:
         self.reset()
 
     def reset(self):
-        self.ms, self.gen2 = 0.0, 0
+        self.ms, self.gen2, self.max_ms = 0.0, 0, 0.0
 
     def __call__(self, phase, info):
         if phase == "start":
             self._t0 = time.perf_counter()
         elif self._t0 is not None:
-            self.ms += (time.perf_counter() - self._t0) * 1e3
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self.ms += ms
+            self.max_ms = max(self.max_ms, ms)
             self.gen2 += info["generation"] == 2
             self._t0 = None
+
+    def take(self) -> dict:
+        """The pauses since the last reset, then reset."""
+        out = {"gc_ms": self.ms, "gc_max_ms": self.max_ms,
+               "gc_gen2": self.gen2}
+        self.reset()
+        return out
 
 
 def percentile(xs, q: float) -> float:
@@ -3165,6 +3190,571 @@ def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
     return rows, launches
 
 
+# ---- phase 10: the process (gatekeeper_tpu_torch.main.App) -----------------
+
+# the process's traffic: phase 3's REVIEWS pods one at a time, then its
+# batch pods from (client threads, requests each), then requests sent while
+# an audit cycle holds the driver; its audit: warm cycles after the cold
+# one, and cycles after each churn of d pods written through the store
+PROCESS_BURST = (8, 32)
+PROCESS_DURING_AUDIT = 64
+PROCESS_WARM = 3
+PROCESS_CHURN_D = (1, 16)
+PROCESS_CHURN_CYCLES = 2
+# the longest the App may take from construction to /readyz
+PROCESS_READY_S = 600
+# the kernels phase 10's run must launch: reviews (K1, K9 packing), full
+# sweeps (K9, K4), delta sweeps (K9's delta mode) and the full sweep after
+# churn (K6)
+PROCESS_KERNELS = ("match", "program", "program_pack", "reduction",
+                   "program_delta", "scatter")
+POD_GVK = ("", "v1", "Pod")
+
+
+def results_sig(results) -> list:
+    """A review's results as (constraint kind, name, message, action)."""
+    return [(r.constraint["kind"], r.constraint["metadata"]["name"], r.msg,
+             r.enforcement_action) for r in results]
+
+
+def expected_response(sig) -> tuple:
+    """(allowed, status message) of the webhook's answer to results
+    ``sig``: the deny results' messages deny, nothing else does
+    (webhook/policy.py _get_deny_messages)."""
+    msgs = [f"[denied by {name}] {msg}" for _k, name, msg, action in sig
+            if action == "deny"]
+    return (not msgs, "\n".join(msgs) if msgs else None)
+
+
+class KubeWriter:
+    """A Churn target that writes through the App's API store; the App's
+    sync controller delivers each change to its client."""
+
+    def __init__(self, kube):
+        self.kube = kube
+
+    def add_data(self, obj):
+        self.kube.apply(obj)
+
+    def remove_data(self, obj):
+        md = obj["metadata"]
+        self.kube.delete(POD_GVK, md["name"], md.get("namespace", ""))
+
+
+class ProcessSpy:
+    """Wraps the App driver's review_batch and compute_masks: each review
+    batch's results by request uid and its size, and the launches each
+    review evaluation made.  compute_masks runs under the driver's lock, so
+    no sweep's launches fall inside it."""
+
+    def __init__(self, driver):
+        self.driver = driver
+        self.sizes, self.results, self.per_eval = [], {}, []
+        self._batch = driver.review_batch
+        self._masks = driver.compute_masks
+        driver.review_batch = self.review_batch
+        driver.compute_masks = self.compute_masks
+
+    def review_batch(self, reviews, tracing=False):
+        if tracing:
+            raise AssertionError("a traced review: the interpreter walk")
+        out = self._batch(reviews, tracing=tracing)
+        self.sizes.append(len(reviews))
+        for review, (results, _trace) in zip(reviews, out):
+            uid = review["uid"]
+            self.results[uid] = results_sig(results)
+        return out
+
+    def compute_masks(self, reviews):
+        before = dict(_dev().launches)
+        out = self._masks(reviews)
+        self.per_eval.append({k: v - before[k]
+                              for k, v in _dev().launches.items()
+                              if v != before[k]})
+        return out
+
+
+def _https(port: int):
+    import http.client
+    import ssl
+
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    return http.client.HTTPSConnection("127.0.0.1", port, context=ctx,
+                                       timeout=600)
+
+
+def _admission(uid: str, pod: dict) -> bytes:
+    md = pod["metadata"]
+    return json.dumps({"request": {
+        "uid": uid, "kind": {"group": "", "version": "v1", "kind": "Pod"},
+        "name": md["name"], "namespace": md["namespace"],
+        "operation": "CREATE", "userInfo": {"username": "chip-smoke"},
+        "object": pod,
+    }}).encode()
+
+
+def admit(conn, uid: str, pod: dict) -> tuple:
+    """One admission over ``conn`` -> (its response, milliseconds)."""
+    body = _admission(uid, pod)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/admit", body,
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200:
+        raise AssertionError(f"{uid}: HTTP {resp.status}: {data[:200]!r}")
+    return json.loads(data)["response"], ms
+
+
+def check_answers(answers: dict, spy: ProcessSpy, want: dict) -> int:
+    """Every answer equal to phase 3's results for its pod, none an error
+    response, and the App's results equal to phase 3's -> denials."""
+    denied = 0
+    for uid, resp in answers.items():
+        if resp.get("uid") != uid:
+            raise AssertionError(f"{uid}: answered as {resp.get('uid')}")
+        allowed, msg = expected_response(want[uid])
+        status = resp.get("status") or {}
+        if resp["allowed"] != allowed or status.get("message") != msg or \
+                (not allowed and status.get("code") != 403):
+            raise AssertionError(f"{uid}: {resp} is not phase 3's "
+                                 f"({allowed}, {msg!r})")
+        if spy.results.get(uid) != want[uid]:
+            raise AssertionError(f"{uid}: the App's results differ from "
+                                 f"phase 3's")
+        denied += not allowed
+    return denied
+
+
+def process_store(churn, n_templates: int):
+    """An API store as a restart finds it: the templates and constraints
+    of phase 3's corpus, a Config that syncs Pods, the namespaces, and
+    every pod phase 3's client holds now (the same seed's corpus, with
+    phases 6 and 9's churn)."""
+    from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    kube = InMemoryKube()
+    templates, constraints = syn.make_templates(n_templates, SEED)
+    pods = list(churn.live.values())
+    for ns in sorted({p["metadata"]["namespace"] for p in pods}):
+        kube.create({"apiVersion": "v1", "kind": "Namespace",
+                     "metadata": {"name": ns}})
+    kube.create({
+        "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+        "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+        "spec": {"sync": {"syncOnly": [
+            {"group": "", "version": "v1", "kind": "Pod"}]}},
+    })
+    for obj in templates + constraints + pods:
+        kube.create(obj)
+    return kube, constraints, len(pods)
+
+
+def _stored_pods(driver) -> int:
+    with driver.store._lock:
+        spaces = driver.store.tree.get("namespace") or {}
+        return sum(len((gv.get("v1") or {}).get("Pod") or {})
+                   for gv in spaces.values())
+
+
+def stored_pod_rvs(driver) -> dict:
+    """(namespace, name) -> resourceVersion of each pod a client holds."""
+    with driver.store._lock:
+        spaces = driver.store.tree.get("namespace") or {}
+        return {(ns, name): str(obj["metadata"]["resourceVersion"])
+                for ns, gv in spaces.items()
+                for name, obj in ((gv.get("v1") or {}).get("Pod")
+                                  or {}).items()}
+
+
+def synced(app):
+    """Wait until the controllers' queues are empty and the App's client
+    holds every pod of its API store at the store's resourceVersion."""
+    deadline = time.perf_counter() + 120
+    while time.perf_counter() < deadline:
+        if app.manager.drain(timeout=60) and stored_pod_rvs(
+                app.client.driver) == app.kube.list_rvs(POD_GVK):
+            return
+        time.sleep(0.01)
+    raise AssertionError("the App's client does not hold its store's pods")
+
+
+def constraint_totals(kube, constraints) -> dict:
+    """(kind, name) -> (status.totalViolations, totalViolationsExact)."""
+    out = {}
+    for c in constraints:
+        st = kube.get(("constraints.gatekeeper.sh", "v1beta1", c["kind"]),
+                      c["metadata"]["name"]).get("status") or {}
+        out[(c["kind"], c["metadata"]["name"])] = (
+            st.get("totalViolations"), st.get("totalViolationsExact"))
+    return out
+
+
+def _as_status(totals: dict) -> dict:
+    return {k: (n, how == "exact") for k, (n, how) in totals.items()}
+
+
+def cycle(app, label: str, record: list, want=None, constraints=None):
+    """One audit cycle of the App -> its record; its totals must equal
+    ``want`` (a sweep of the same inventory by phase 3's client)."""
+    driver = app.client.driver
+    t0 = time.perf_counter()
+    ok = app.audit_manager.run_once_guarded()
+    wall = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"audit cycle {label} failed")
+    st = dict(driver.last_sweep_stats)
+    rec = {"cycle": label, "s": wall,
+           "path": "delta" if "delta_rows" in st else
+           "cached" if "cached" in st else "full",
+           **{k: st.get(k) for k in ("pack_ms", "device_ms", "render_ms",
+                                     "delta_rows", "scatter_rows",
+                                     "rendered_cells")}}
+    if want is not None:
+        got = constraint_totals(app.kube, constraints)
+        if got != _as_status(want):
+            bad = [k for k in got if got[k] != _as_status(want).get(k)]
+            raise AssertionError(f"cycle {label}: totals differ from phase "
+                                 f"3's sweep for {bad[:5]}")
+    record.append(rec)
+    return rec
+
+
+RESTART_LOAD = """
+import json, time
+t0 = time.perf_counter()
+import torch
+from gatekeeper_tpu_torch import device
+from gatekeeper_tpu_torch.ops.driver import TorchDriver
+t1 = time.perf_counter()
+torch.cuda.init()
+t2 = time.perf_counter()
+d = TorchDriver(device="cuda")
+t3 = time.perf_counter()
+print(json.dumps({"import_s": t1 - t0, "cuda_init_s": t2 - t1,
+                  "construct_s": t3 - t2,
+                  "kernels_load_s": d.kernels_load_s,
+                  "nvcc_s": device.build_seconds,
+                  "ready": d.wait_ready(timeout=0.0)}))
+"""
+
+
+def restart_kernels_load() -> dict:
+    """What a restarted process pays to load the kernels: a fresh
+    process builds a TorchDriver on the card with the build cache as
+    this run left it (every library built), so no nvcc runs; -> its
+    times."""
+    out = subprocess.run([sys.executable, "-c", RESTART_LOAD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"the restarted driver failed: {out.stderr}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if got["nvcc_s"] or not got["ready"]:
+        raise AssertionError(f"the restart rebuilt the kernels: {got}")
+    return got
+
+
+def process_phase(args, client, driver, churn, pods, batch, review_sigs,
+                  batch_sigs) -> dict:
+    """Phase 10's counted run: gatekeeper_tpu_torch.main.App, the process
+    users deploy, on the card over the API store of phase 3's corpus at
+    full size -> the launches of its run."""
+    import threading
+
+    from gatekeeper_tpu_torch import main as gmain
+    from gatekeeper_tpu_torch.main import App, build_parser
+
+    gdev = _dev()
+    # the kernels' load as a restart pays it (in this process they are
+    # loaded already, so the App's own load below is a memo hit)
+    log("process_restart_kernels_load", **restart_kernels_load())
+    # the reference: phase 3's client sweeps its own inventory, the one the
+    # App's store is filled with
+    force_full(driver)
+    _resp, ref_totals = client.audit_capped(CAP)
+    t0 = time.perf_counter()
+    kube, constraints, n_pods = process_store(churn, args.templates)
+    log("process_store", seconds=time.perf_counter() - t0, pods=n_pods,
+        templates=args.templates)
+    cert_dir = os.path.join(ROOT, "build", "process_certs")
+    flags = ["--driver", "torch", "--torch-device", DEVICE,
+             "--port", "0", "--prometheus-port", "0", "--health-addr", ":0",
+             "--audit-from-cache", "--audit-interval", "86400",
+             "--constraint-violations-limit", str(CAP),
+             "--log-level", "WARNING", "--cert-dir", cert_dir]
+    ref_launches = dict.fromkeys(gdev.launches, 0)
+    gdev.reset_launches()
+    t_start = time.perf_counter()
+    app = App(build_parser().parse_args(flags), kube=kube)
+    t_built = time.perf_counter()
+    adriver = app.client.driver
+    if adriver.device.type != DEVICE or app.rotator is None:
+        raise AssertionError(f"the App runs on {adriver.device} with "
+                             f"rotation {app.rotator}")
+    spy = ProcessSpy(adriver)
+    # the collector's pauses in each part of the run (the webhook server
+    # freezes and disables it at start; its sweeper collects every 5 s)
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    with Timed((gmain.CertRotator, "write_cert_files"),
+               (gmain.UpgradeManager, "upgrade"), (gmain.Tracker, "run"),
+               (gmain.Manager, "start"), (gmain.WebhookServer, "start"),
+               (gmain.AuditManager, "start"),
+               (gmain.MetricsExporter, "start")) as start_split:
+        app.start()
+    t_started = time.perf_counter()
+    try:
+        marks = {}
+        deadline = t_start + PROCESS_READY_S
+        conn = _https(app.webhook_server.port)
+        while time.perf_counter() < deadline and "ready" not in marks:
+            now = time.perf_counter() - t_start
+            if "templates" not in marks and len(
+                    app.client.templates()) == args.templates and sum(
+                    len(v) for v in adriver.constraints.values()) == len(
+                    constraints):
+                marks["templates"] = now
+            if "pods" not in marks and _stored_pods(adriver) == n_pods:
+                marks["pods"] = now
+            conn.request("GET", "/readyz")
+            r = conn.getresponse()
+            r.read()
+            if r.status == 200 and "templates" in marks and "pods" in marks:
+                marks["ready"] = time.perf_counter() - t_start
+            time.sleep(0.05)
+        if "ready" not in marks:
+            raise AssertionError(f"the App is not ready after "
+                                 f"{PROCESS_READY_S} s: {marks}")
+        synced(app)
+        log("process_ready", **pauses.take(), start_split=start_split.seconds,
+            construct_s=t_built - t_start,
+            kernels_load_s=adriver.kernels_load_s,
+            kernels_first_build_s=gdev.build_seconds,
+            start_s=t_started - t_built, templates_ingested_s=marks[
+                "templates"], pods_synced_s=marks["pods"],
+            ready_s=marks["ready"], pods=n_pods)
+
+        # the audit: a cold cycle (a full sweep) and warm ones, each
+        # equal to phase 3's sweep of the same inventory
+        cycles = []
+        cycle(app, "cold", cycles, ref_totals, constraints)
+        for i in range(PROCESS_WARM):
+            cycle(app, f"warm{i}", cycles, ref_totals, constraints)
+        log("process_audit", cycles=cycles, **pauses.take())
+        if cycles[0]["path"] != "full":
+            raise AssertionError(f"the cold cycle was {cycles[0]['path']}")
+
+        # admission: phase 3's pods, one at a time over one connection
+        want, answers = {}, {}
+        lat = []
+        for i, pod in enumerate(pods):
+            uid = f"seq-{i}"
+            want[uid] = review_sigs[i]
+            answers[uid], ms = admit(conn, uid, pod)
+            lat.append(ms)
+        denied = check_answers(answers, spy, want)
+        log("process_reviews", n=len(lat), p50_ms=statistics.median(lat),
+            p99_ms=percentile(lat, 99), max_ms=max(lat), denied=denied,
+            batches=len(spy.sizes), slowest_ms=sorted(lat)[-5:],
+            **pauses.take())
+
+        # a burst: phase 3's batch pods from client threads, each on its
+        # own keep-alive connection
+        n_threads, each = PROCESS_BURST
+        burst, errors = {}, []
+        sizes0 = len(spy.sizes)
+
+        def client_thread(t):
+            try:
+                c = _https(app.webhook_server.port)
+                for j in range(each):
+                    i = t * each + j
+                    uid = f"burst-{i}"
+                    burst[uid] = admit(c, uid, batch[i])
+                c.close()
+            except Exception as e:  # surfaced below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client_thread, args=(t,))
+                   for t in range(n_threads)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        burst_s = time.perf_counter() - t0
+        if errors:
+            raise AssertionError(f"burst clients failed: {errors[:3]}")
+        want.update({f"burst-{i}": batch_sigs[i]
+                     for i in range(n_threads * each)})
+        answers.update({uid: r for uid, (r, _ms) in burst.items()})
+        burst_lat = [ms for _r, ms in burst.values()]
+        sizes = spy.sizes[sizes0:]
+        log("process_burst", clients=n_threads, requests=len(burst),
+            seconds=burst_s, requests_per_s=len(burst) / burst_s,
+            p50_ms=statistics.median(burst_lat),
+            p99_ms=percentile(burst_lat, 99), max_ms=max(burst_lat),
+            batches=len(sizes), batch_sizes=sorted(sizes),
+            mean_batch=len(burst) / len(sizes), **pauses.take())
+
+        # requests while an audit cycle holds the driver: a full sweep
+        # (forced) in a thread, and PROCESS_DURING_AUDIT requests sent once
+        # the sweep has begun
+        entered = threading.Event()
+        sweep = adriver.audit_capped
+
+        def audit_capped(cap, tracing=False):
+            entered.set()
+            return sweep(cap, tracing=tracing)
+
+        adriver.audit_capped = audit_capped
+        force_full(adriver)
+        during, audit_wall = [], []
+
+        def audit_thread():
+            t = time.perf_counter()
+            cycle(app, "during_reviews", cycles, ref_totals, constraints)
+            audit_wall.append(time.perf_counter() - t)
+
+        th = threading.Thread(target=audit_thread)
+        th.start()
+        entered.wait(60)
+        t0 = time.perf_counter()
+        for i in range(PROCESS_DURING_AUDIT):
+            uid = f"during-{i}"
+            want[uid] = review_sigs[i]
+            answers[uid], ms = admit(conn, uid, pods[i])
+            during.append((time.perf_counter() - t0, ms))
+        th.join()
+        adriver.audit_capped = sweep
+        if not audit_wall:
+            raise AssertionError("the audit cycle during reviews failed")
+        lat_d = [ms for _t, ms in during]
+        log("process_reviews_during_audit", n=len(lat_d),
+            p50_ms=statistics.median(lat_d), max_ms=max(lat_d),
+            first_ms=lat_d[0], audit_cycle_s=audit_wall[0],
+            audit_record=cycles[-1],
+            answered_within_cycle=sum(1 for t, _ms in during
+                                      if t < audit_wall[0]),
+            slowest_ms=sorted(lat_d)[-5:], **pauses.take())
+        denied = check_answers(answers, spy, want)
+        evals = spy.per_eval
+        want_eval = {"match": 1, "program_pack": 1}
+        bad = [e for e in evals if e != want_eval]
+        if bad or len(evals) != len(spy.sizes):
+            raise AssertionError(f"a review evaluation launched {bad[:3]}: "
+                                 f"K1 and K9's review mode once each for "
+                                 f"each of {len(spy.sizes)} review_batch "
+                                 f"calls ({len(evals)} evaluations)")
+        log("process_admission", requests=len(answers), denied=denied,
+            review_batch_calls=len(spy.sizes), evaluations=len(evals),
+            launches_per_evaluation=want_eval)
+
+        # churn written through the store, each d's cycles on the delta
+        # path, each equal to phase 3's client's sweep after the same
+        # changes
+        churn.clients = [client, KubeWriter(kube)]
+        for d in PROCESS_CHURN_D:
+            for _ in range(PROCESS_CHURN_CYCLES):
+                ops = churn.step(d)
+                synced(app)
+                # the reference's sweep launches on the same card inside
+                # the App's counted window: its launches are not the App's
+                before = dict(gdev.launches)
+                _resp, want_totals = client.audit_capped(CAP)
+                for k, n in gdev.launches.items():
+                    ref_launches[k] += n - before[k]
+                rec = cycle(app, f"churn{d}", cycles, want_totals,
+                            constraints)
+                rec.update(ops)
+                if rec["path"] != "delta" or rec["delta_rows"] != d:
+                    raise AssertionError(f"churn of {d}: {rec}")
+        # and a full sweep of the churned store (K6 patches the resident
+        # rows), equal to the last churn cycle's totals
+        force_full(adriver)
+        rec = cycle(app, "full_after_churn", cycles, want_totals,
+                    constraints)
+        if rec["path"] != "full" or not rec["scatter_rows"]:
+            raise AssertionError(f"the full sweep after churn: {rec}")
+        log("process_churn", cycles=[c for c in cycles
+                                     if c["cycle"].startswith(("churn",
+                                                               "full_"))],
+            **pauses.take())
+        launches = {k: n - ref_launches[k]
+                    for k, n in gdev.launches.items()}
+        families = sum(1 for ln in metrics_text(
+            app.metrics_exporter.port).splitlines()
+            if ln.startswith("# TYPE "))
+        if app.audit_manager.consecutive_failures:
+            raise AssertionError("an audit cycle failed")
+    finally:
+        app.stop()
+        gc.callbacks.remove(pauses)
+    if not gc.isenabled():
+        raise AssertionError("the collector is off after App.stop()")
+    missing = [k for k in PROCESS_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the process: "
+                             f"{missing}")
+    if launches["packbits"] or launches["delta"]:
+        raise AssertionError(f"K10 or K5 launched in the process: "
+                             f"{launches}")
+    # K9's delta mode: once for each of the App's delta cycles
+    n_delta = sum(1 for c in cycles if c["path"] == "delta")
+    if launches["program_delta"] != n_delta:
+        raise AssertionError(f"K9's delta mode launched "
+                             f"{launches['program_delta']} times for "
+                             f"{n_delta} delta cycles of the App")
+    log("process_launches", main_path=launches, metric_families=families,
+        reference_sweeps=ref_launches,
+        gc_enabled_after_stop=gc.isenabled(), device=str(adriver.device))
+    return launches
+
+
+class Timed:
+    """The wall of each call of the named methods while active (class
+    attributes patched, then restored): "Class.method" -> seconds."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {}
+
+    def _wrap(self, key, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds[key] = self.seconds.get(key, 0.0) + (
+                    time.perf_counter() - t0)
+        return timed
+
+    def __enter__(self):
+        self._saved = [(cls, name, cls.__dict__[name])
+                       for cls, name in self.targets]
+        for cls, name, fn in self._saved:
+            setattr(cls, name, self._wrap(f"{cls.__name__}.{name}", fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+        return False
+
+
+def metrics_text(port: int) -> str:
+    """The App's /metrics as text."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        return r.read().decode()
+
+
 SPLIT_MODES = ("op_by_op", "k9")
 
 
@@ -3570,6 +4160,8 @@ def main(argv=None) -> int:
     before_reviews = dict(gdev.launches)
     pods = syn.make_pods(REVIEWS, seed=SEED + 99, violation_rate=0.5)
     lat, side_ms, repacks, gc_ms, denied = [], [], 0, [], 0
+    # each pod's results, which phase 10's App must answer again
+    review_sigs = []
     for i, pod in enumerate(pods):
         pod["metadata"]["name"] = f"admission-{i}"
         side0 = dict(driver.side_stats)
@@ -3583,6 +4175,7 @@ def main(argv=None) -> int:
         repacks += side["repacks"] - side0["repacks"]
         gc_ms.append(pauses.ms)
         denied += bool(out.results())
+        review_sigs.append(results_sig(out.results()))
     gc.callbacks.remove(pauses)
     launches = dict(gdev.launches)
     review_launches = {k: launches[k] - before_reviews[k] for k in launches}
@@ -3654,7 +4247,8 @@ def main(argv=None) -> int:
     for i, p in enumerate(batch):
         p["metadata"]["name"] = f"admission-batch-{i}"
     with Capture(names=("program_pack", "packbits")) as fold_batch_cap:
-        client.review_batch(batch)
+        batch_sigs = [results_sig(r.results())
+                      for r in client.review_batch(batch)]
     if len(fold_cap.calls["program_pack"]) != len(pods) or \
             len(fold_batch_cap.calls["program_pack"]) != 1:
         raise AssertionError("K9 does not pack once per review evaluation")
@@ -3872,9 +4466,18 @@ def main(argv=None) -> int:
                              f"sweep: {missing}")
     merge_rows(kernel_rows, mesh_rows)
     log("mesh", seconds=time.perf_counter() - t0)
+    del rclient, rdriver, ref_churn
+    gc.collect()
+
+    # 10. the process: gatekeeper_tpu_torch.main.App on the card
+    t0 = time.perf_counter()
+    process_launches = process_phase(args, client, driver, churn, pods,
+                                     batch, review_sigs, batch_sigs)
+    log("process", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
-                           + ref_launches[name] + mesh_launches[name])
+                           + ref_launches[name] + mesh_launches[name]
+                           + process_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

@@ -104,6 +104,10 @@ def select_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but no CUDA card")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        # "cuda" names the current card: tensors made there report its
+        # index, and the wrappers compare devices exactly
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -95,7 +95,7 @@ from ..parallel.mesh import (
     slab_rows,
     visible_devices,
 )
-from ..device import select_device
+from ..device import kernels, select_device
 from ..target.match import constraint_matches, needs_autoreject
 from ..target.target import K8sValidationTarget
 from .auditpack import AuditPackCache
@@ -118,6 +118,20 @@ log = logging.getLogger("gatekeeper_tpu_torch.driver")
 
 # _bound_plans miss sentinel (None is a valid cached "no plan")
 _PLAN_MISS = object()
+
+
+def _evaluated_part(constraint):
+    """A constraint without what a status write changes: its status and
+    metadata.resourceVersion, which neither evaluation nor the render
+    reads."""
+    if not isinstance(constraint, dict):
+        return constraint
+    out = {k: v for k, v in constraint.items() if k != "status"}
+    md = out.get("metadata")
+    if isinstance(md, dict) and "resourceVersion" in md:
+        out["metadata"] = {k: v for k, v in md.items()
+                           if k != "resourceVersion"}
+    return out
 
 
 def _constraint_name(constraint: dict) -> str:
@@ -182,6 +196,14 @@ class TorchDriver(InterpDriver):
         from ..native import load as _load_native
 
         _load_native()
+        # eager kernel build/load on the card, likewise: nvcc runs here,
+        # never inside an admission request's deadline, and a failed
+        # build raises here (wait_ready)
+        self.kernels_load_s = 0.0
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            kernels()
+            self.kernels_load_s = time.perf_counter() - t0
         self.interner = Interner()
         self.programs: Dict[str, Optional[VProgram]] = {}
         self.pred_cache: Dict[Tuple[str, str], PredicateTable] = {}
@@ -232,6 +254,16 @@ class TorchDriver(InterpDriver):
 
     # ---- lifecycle --------------------------------------------------------
 
+    def wait_ready(self, timeout: Optional[float] = 120.0) -> bool:
+        """True once the kernels are built and loaded (TpuDriver's
+        signature; there it waits for the background compile).  They load
+        when the driver is constructed on the card, so this never waits
+        and ``timeout`` is unused; a failed build raises.  On the CPU
+        there is nothing to load."""
+        if self.device.type == "cuda":
+            kernels()
+        return True
+
     def put_template(self, kind: str, artifact: CompiledTemplate):
         with self._lock:
             super().put_template(kind, artifact)
@@ -247,6 +279,19 @@ class TorchDriver(InterpDriver):
 
     def put_constraint(self, kind: str, name: str, constraint: dict):
         with self._lock:
+            stored = self.constraints.get(kind, {}).get(name)
+            if stored is not None and stored is not constraint and \
+                    _evaluated_part(stored) == _evaluated_part(constraint):
+                # a replay that changes nothing evaluation reads: the
+                # constraint controller re-puts every constraint whose
+                # status the audit just wrote (a new status and
+                # resourceVersion), and an epoch bump would rebase the
+                # delta basis, so every audit cycle behind the App would
+                # be a full sweep.  TpuDriver.put_constraint skips only an
+                # identical replay.  The identity guard: the same dict
+                # mutated in place compares equal to itself and must
+                # still invalidate
+                return
             super().put_constraint(kind, name, constraint)
             self._cs_epoch += 1
 
