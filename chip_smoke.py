@@ -152,8 +152,31 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      K1 and K9's review mode launched once for each review_batch call);
      churn of d = 1 and 16 pods written through the store, each cycle on
      the delta path, then a full cycle (K6); every cycle's constraint
-     totals equal to phase 3's client's sweep of the same inventory.  Then
+     totals equal to phase 3's client's sweep of the same inventory.  The
+     App runs with --snapshot-dir, its background writer stopped at start:
+     after the last cycle its snapshotter writes once (the seconds, the
+     bytes, and the time the resident mask takes to reach the host).  Then
      App.stop(), after which the collector must be enabled again
+ 11. the restart (snapshot/, warm resume): 16 pods churn in phase 10's
+     store, and a second App over the same store and directory restores
+     phase 10's snapshot: outcome "restored" with its delta basis,
+     construction to /readyz beside phase 10's cold start (the restore's
+     and the start's split, the collector's pauses), and a first cycle on
+     the delta path (K1 and K9's delta mode once each, no full sweep)
+     whose totals equal phase 3's client's after the same churn and
+     whose results equal the App's own forced full sweep; the restored
+     mask, uploaded by that cycle, equal on the card bit for bit to the
+     one phase 10's App held when it wrote.  Then through the
+     Client at a smaller depth: a basis written at width 2 of the virtual
+     mesh restored at width 2 (its slabs back on their shards, churn on
+     the delta path with K5 on the owning shards) and dropped at width 1
+     (a full sweep, K4); the referential parity corpus (6 x 240 under
+     GK_JOIN_ASSERT=1) restored with its join index, its first churn
+     sweep launching K8's table mode, equal to the oracle.  Last the
+     kernels' sealed build cache behind --xla-cache-dir, in fresh
+     processes: an empty directory builds and seals the ten libraries,
+     the next process loads them with no nvcc (ten hits), and a library
+     whose seal was broken is rebuilt, not loaded
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -168,6 +191,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -247,10 +271,11 @@ def log(phase: str, **fields):
 
 class GcPauses:
     """A gc.callbacks hook: the pause time and the full (generation 2)
-    collections since the last reset."""
+    collections since the last reset (``total_ms``: since it was made)."""
 
     def __init__(self):
         self._t0 = None
+        self.total_ms = 0.0
         self.reset()
 
     def reset(self):
@@ -262,6 +287,7 @@ class GcPauses:
         elif self._t0 is not None:
             ms = (time.perf_counter() - self._t0) * 1e3
             self.ms += ms
+            self.total_ms += ms
             self.max_ms = max(self.max_ms, ms)
             self.gen2 += info["generation"] == 2
             self._t0 = None
@@ -3383,6 +3409,36 @@ def synced(app):
     raise AssertionError("the App's client does not hold its store's pods")
 
 
+def await_ready(app, conn, t_start: float, n_templates: int,
+                n_constraints: int, n_pods: int) -> dict:
+    """Poll the App until /readyz answers 200 with every template and
+    constraint ingested and every pod stored -> the seconds since
+    ``t_start`` at which each was first seen ("templates", "pods",
+    "ready")."""
+    driver = app.client.driver
+    marks = {}
+    deadline = t_start + PROCESS_READY_S
+    while time.perf_counter() < deadline and "ready" not in marks:
+        now = time.perf_counter() - t_start
+        if "templates" not in marks and len(
+                app.client.templates()) == n_templates and sum(
+                len(v) for v in driver.constraints.values()) == \
+                n_constraints:
+            marks["templates"] = now
+        if "pods" not in marks and _stored_pods(driver) == n_pods:
+            marks["pods"] = now
+        conn.request("GET", "/readyz")
+        r = conn.getresponse()
+        r.read()
+        if r.status == 200 and "templates" in marks and "pods" in marks:
+            marks["ready"] = time.perf_counter() - t_start
+        time.sleep(0.05)
+    if "ready" not in marks:
+        raise AssertionError(f"the App is not ready after "
+                             f"{PROCESS_READY_S} s: {marks}")
+    return marks
+
+
 def constraint_totals(kube, constraints) -> dict:
     """(kind, name) -> (status.totalViolations, totalViolationsExact)."""
     out = {}
@@ -3481,11 +3537,16 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     log("process_store", seconds=time.perf_counter() - t0, pods=n_pods,
         templates=args.templates)
     cert_dir = os.path.join(ROOT, "build", "process_certs")
+    # the snapshot directory phase 11 restarts from (empty: this start
+    # restores nothing)
+    snap_dir = os.path.join(ROOT, "build", "process_snapshots")
+    shutil.rmtree(snap_dir, ignore_errors=True)
     flags = ["--driver", "torch", "--torch-device", DEVICE,
              "--port", "0", "--prometheus-port", "0", "--health-addr", ":0",
              "--audit-from-cache", "--audit-interval", "86400",
              "--constraint-violations-limit", str(CAP),
-             "--log-level", "WARNING", "--cert-dir", cert_dir]
+             "--log-level", "WARNING", "--cert-dir", cert_dir,
+             "--snapshot-dir", snap_dir, "--snapshot-interval", "86400"]
     ref_launches = dict.fromkeys(gdev.launches, 0)
     gdev.reset_launches()
     t_start = time.perf_counter()
@@ -3500,37 +3561,31 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     # freezes and disables it at start; its sweeper collects every 5 s)
     pauses = GcPauses()
     gc.callbacks.append(pauses)
+    # the parts of the way to ready, until the pods are synced (phase
+    # 11's restart reads the same)
+    ready_split = Timed(*ready_spans(), pauses=pauses).__enter__()
     with Timed((gmain.CertRotator, "write_cert_files"),
                (gmain.UpgradeManager, "upgrade"), (gmain.Tracker, "run"),
                (gmain.Manager, "start"), (gmain.WebhookServer, "start"),
                (gmain.AuditManager, "start"),
-               (gmain.MetricsExporter, "start")) as start_split:
+               (gmain.MetricsExporter, "start"),
+               pauses=pauses) as start_split:
         app.start()
     t_started = time.perf_counter()
     try:
-        marks = {}
-        deadline = t_start + PROCESS_READY_S
+        # the snapshot writer's background loop stops before any cycle
+        # wakes it: the one write, timed, comes after the last cycle
+        app.snapshotter.stop()
+        if app.snapshot_restore_outcome != "none":
+            raise AssertionError(f"the App restored "
+                                 f"{app.snapshot_restore_outcome}")
         conn = _https(app.webhook_server.port)
-        while time.perf_counter() < deadline and "ready" not in marks:
-            now = time.perf_counter() - t_start
-            if "templates" not in marks and len(
-                    app.client.templates()) == args.templates and sum(
-                    len(v) for v in adriver.constraints.values()) == len(
-                    constraints):
-                marks["templates"] = now
-            if "pods" not in marks and _stored_pods(adriver) == n_pods:
-                marks["pods"] = now
-            conn.request("GET", "/readyz")
-            r = conn.getresponse()
-            r.read()
-            if r.status == 200 and "templates" in marks and "pods" in marks:
-                marks["ready"] = time.perf_counter() - t_start
-            time.sleep(0.05)
-        if "ready" not in marks:
-            raise AssertionError(f"the App is not ready after "
-                                 f"{PROCESS_READY_S} s: {marks}")
+        marks = await_ready(app, conn, t_start, args.templates,
+                            len(constraints), n_pods)
         synced(app)
-        log("process_ready", **pauses.take(), start_split=start_split.seconds,
+        ready_split.__exit__()
+        log("process_ready", **pauses.take(), start_split=start_split.split(),
+            ready_split=ready_split.split(),
             construct_s=t_built - t_start,
             kernels_load_s=adriver.kernels_load_s,
             kernels_first_build_s=gdev.build_seconds,
@@ -3691,7 +3746,18 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
             if ln.startswith("# TYPE "))
         if app.audit_manager.consecutive_failures:
             raise AssertionError("an audit cycle failed")
+        # the snapshot of the inventory as the last cycle left it, for
+        # phase 11's restart; the resident mask is what it must restore
+        written = adriver._delta_state.mask_src.get()
+        with MaskToHost() as m2h:
+            t0 = time.perf_counter()
+            snap_path = app.snapshotter.write_once()
+            write_s = time.perf_counter() - t0
+        if snap_path is None:
+            raise AssertionError(f"no snapshot written: "
+                                 f"{app.snapshotter.last_error}")
     finally:
+        ready_split.__exit__()
         app.stop()
         gc.callbacks.remove(pauses)
     if not gc.isenabled():
@@ -3712,38 +3778,575 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     log("process_launches", main_path=launches, metric_families=families,
         reference_sweeps=ref_launches,
         gc_enabled_after_stop=gc.isenabled(), device=str(adriver.device))
+    from gatekeeper_tpu_torch.snapshot import format as snapfmt
+
+    log("process_snapshot", write_s=write_s,
+        bytes=snapfmt.dir_bytes(snap_path),
+        files={f: os.path.getsize(os.path.join(snap_path, f))
+               for f in sorted(os.listdir(snap_path))},
+        mask_to_host_s=m2h.seconds, mask_shape=list(written.shape))
+    return launches, {"kube": kube, "constraints": constraints,
+                      "ready_s": marks["ready"], "flags": flags,
+                      "written": written}
+
+
+# ---- phase 11: the restart (snapshots, warm resume, the kernels' cache) ----
+
+# pods changed in the store while the App is down
+RESTART_D = 16
+# the mesh restores' depth: a synthetic store of (templates, pods)
+RESTART_MESH = (24, 20_000)
+RESTART_MESH_D = 16
+
+
+class RestoreSpy:
+    """Every SnapshotLoader.restore while active: the loader (its stats
+    and delta_restored), the outcome and the seconds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from gatekeeper_tpu_torch.snapshot.loader import SnapshotLoader
+
+        self._orig = SnapshotLoader.restore
+        orig, calls = self._orig, self.calls
+
+        def restore(loader, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(loader, *a, **kw)
+            calls.append({"loader": loader, "outcome": out,
+                          "s": time.perf_counter() - t0})
+            return out
+
+        SnapshotLoader.restore = restore
+        return self
+
+    def __exit__(self, *exc):
+        from gatekeeper_tpu_torch.snapshot.loader import SnapshotLoader
+
+        SnapshotLoader.restore = self._orig
+        return False
+
+
+class MaskToHost:
+    """The seconds of each SnapshotWriter._resolve_mask while active: the
+    resident mask's way to the host, outside the driver lock."""
+
+    def __enter__(self):
+        from gatekeeper_tpu_torch.snapshot.writer import SnapshotWriter
+
+        self._orig = SnapshotWriter.__dict__["_resolve_mask"]
+        fn, self.seconds = self._orig.__func__, []
+
+        def resolve(mask_src):
+            t0 = time.perf_counter()
+            try:
+                return fn(mask_src)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        SnapshotWriter._resolve_mask = staticmethod(resolve)
+        return self
+
+    def __exit__(self, *exc):
+        from gatekeeper_tpu_torch.snapshot.writer import SnapshotWriter
+
+        SnapshotWriter._resolve_mask = self._orig
+        return False
+
+
+class SweepSpy:
+    """The (results, totals) of each audit_capped of a driver while
+    active."""
+
+    def __init__(self, driver):
+        self.driver, self.sweeps = driver, []
+
+    def __enter__(self):
+        orig, sweeps = self.driver.audit_capped, self.sweeps
+
+        def audit_capped(cap, tracing=False):
+            out = orig(cap, tracing=tracing)
+            sweeps.append(out[:2])
+            return out
+
+        self.driver.audit_capped = audit_capped
+        return self
+
+    def __exit__(self, *exc):
+        del self.driver.audit_capped
+        return False
+
+
+def restart_app(flags, kube, n_templates: int, n_constraints: int,
+                n_pods: int):
+    """Construct and start an App over ``kube`` and wait until it serves
+    and holds the store's pods -> (app, its marks: construction, start,
+    and the seconds from construction to each readiness mark)."""
+    from gatekeeper_tpu_torch.main import App, build_parser
+
+    t_start = time.perf_counter()
+    app = App(build_parser().parse_args(flags), kube=kube)
+    t_built = time.perf_counter()
+    try:
+        app.start()
+        t_started = time.perf_counter()
+        conn = _https(app.webhook_server.port)
+        marks = await_ready(app, conn, t_start, n_templates, n_constraints,
+                            n_pods)
+        conn.close()
+        synced(app)
+    except BaseException:
+        app.stop()
+        raise
+    marks.update(construct_s=t_built - t_start,
+                 start_s=t_started - t_built)
+    return app, marks
+
+
+def _under_cap(results, totals) -> dict:
+    """(kind, name) -> the sorted signatures of its results, for each
+    constraint whose results are all listed (total at most the cap)."""
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    by = {}
+    for sig in syn.audit_result_sig(results):
+        by.setdefault(sig[:2], []).append(sig)
+    return {k: by.get(k, []) for k, (n, _how) in totals.items() if n <= CAP}
+
+
+def restart_process(args, client, churn, process) -> dict:
+    """The App restart from phase 10's snapshot, after churn -> the
+    counted launches of the restored App's run."""
+    import torch
+
+    from gatekeeper_tpu_torch import main as gmain
+    from gatekeeper_tpu_torch.snapshot.loader import SnapshotLoader
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    gdev = _dev()
+    kube, constraints = process["kube"], process["constraints"]
+    written = process.pop("written")
+    # 16 pods change while no App runs; the reference sweeps them first,
+    # outside the counted run
+    ops = churn.step(RESTART_D)
+    n = (args.templates, len(constraints), len(kube.list_rvs(POD_GVK)))
+    ref_resp, want_totals = client.audit_capped(CAP)
+    want = _under_cap(ref_resp.results(), want_totals)
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    gdev.reset_launches()
+    try:
+        with RestoreSpy() as spy, Timed(
+                (SnapshotLoader, "_read"), (SnapshotLoader, "_install"),
+                (SnapshotLoader, "_resync"),
+                (SnapshotLoader, "_restore_delta"), (gmain.Tracker, "run"),
+                (gmain.Manager, "start"), (gmain.WebhookServer, "start"),
+                *ready_spans(), pauses=pauses) as split:
+            app, warm = restart_app(process["flags"], kube, *n)
+        ready_gc = pauses.take()
+    finally:
+        gc.callbacks.remove(pauses)
+    try:
+        adriver = app.client.driver
+        # its background writer stops too: the first cycle runs alone
+        app.snapshotter.stop()
+        if app.snapshot_restore_outcome != "restored" or \
+                len(spy.calls) != 1 or \
+                not spy.calls[0]["loader"].delta_restored:
+            raise AssertionError(f"the restart restored "
+                                 f"{app.snapshot_restore_outcome}, "
+                                 f"{spy.calls}")
+        cycles = []
+        with SweepSpy(adriver) as sweeps:
+            rec = cycle(app, "first", cycles, want_totals, constraints)
+        launches = dict(gdev.launches)
+        if rec["path"] != "delta" or rec["delta_rows"] != RESTART_D:
+            raise AssertionError(f"the restored App's first cycle: {rec}")
+        results, totals = sweeps.sweeps[0]
+        if _under_cap(results, totals) != want:
+            raise AssertionError("the restored App's results differ from "
+                                 "phase 3's client's after the same churn")
+        # the restored mask, uploaded by that cycle's delta sweep, equal
+        # on the card to the one phase 10's App held when it wrote
+        restored = adriver._delta_state.mask_src.get()
+        torch.cuda.synchronize()
+        if restored.device.type != DEVICE or \
+                not torch.equal(restored, written):
+            raise AssertionError("the restored mask differs on the card")
+        del written, restored
+        # the same inventory through a forced full sweep of the App's own
+        # driver: the same results and totals as the delta path's
+        force_full(adriver)
+        full_results, full_totals, _trace = adriver.audit_capped(CAP)
+        if full_totals != totals or syn.audit_result_sig(
+                full_results) != syn.audit_result_sig(results):
+            raise AssertionError("the restored App's delta cycle differs "
+                                 "from its full sweep")
+    finally:
+        app.stop()
+    want_launch = {"match": 1, "program_delta": 1}
+    got = {k: v for k, v in launches.items() if v}
+    if got != want_launch:
+        raise AssertionError(f"the restored App's first cycle launched "
+                             f"{got}, not K1 and K9's delta mode once")
+    loader = spy.calls[0]["loader"]
+    log("restart_app", restore_s=spy.calls[0]["s"], resync=loader.stats,
+        delta_restored=loader.delta_restored, churn=ops,
+        warm_marks=warm, cold_ready_s=process["ready_s"],
+        start_split=split.split(), gc_until_ready=ready_gc,
+        first_cycle=rec, launches=launches, mask_equal_on_card=True)
+    return launches
+
+
+def _store_client(width: int):
+    """An empty Client on the card at mesh width ``width``."""
+    from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.ops.driver import TorchDriver
+
+    client = Client(driver=TorchDriver(device=DEVICE))
+    client.driver.set_mesh(width > 1, width=width if width > 1 else None)
+    return client
+
+
+def _install(client, templates, constraints):
+    for t in templates:
+        client.add_template(t)
+    for c in constraints:
+        client.add_constraint(c)
+    return client
+
+
+def _stored(kube) -> list:
+    return [o for gvk in kube.list_gvks() for o in kube.list(gvk)]
+
+
+def restart_mesh() -> dict:
+    """A basis written at width 2 of the virtual mesh, restored at width 2
+    and at width 1 -> the counted launches of the two restores' first
+    sweeps."""
+    import shutil
+
+    import torch
+
+    from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
+    from gatekeeper_tpu_torch.parallel import mesh as pm
+    from gatekeeper_tpu_torch.snapshot import SnapshotLoader, Snapshotter
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    gdev = _dev()
+    n_templates, n_pods = RESTART_MESH
+    templates, constraints = syn.make_templates(n_templates, SEED)
+    pods = syn.make_pods(n_pods, SEED + 21)
+    kube = InMemoryKube()
+    for p in pods:
+        kube.create(p)
+    snap_dir = os.path.join(ROOT, "build", "restart_mesh_snapshots")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    os.environ[pm.VIRTUAL_DEVICES_ENV] = "2"
+    try:
+        writer = _install(_store_client(2), templates, constraints)
+        for o in _stored(kube):
+            writer.add_data(o)
+        writer.audit_capped(CAP)
+        written = writer.driver._delta_state.mask_src.get()
+        if not isinstance(written, pm.ShardedMask):
+            raise AssertionError("the width-2 sweep's mask is not sharded")
+        if Snapshotter(writer, snap_dir, interval_s=0.0).write_once() is None:
+            raise AssertionError("the width-2 snapshot was not written")
+        ops = Churn([KubeWriter(kube)], pods, SEED + 23).step(RESTART_MESH_D)
+        ref = _install(_store_client(1), templates, constraints)
+        for o in _stored(kube):
+            ref.add_data(o)
+        ref_resp, ref_totals = ref.audit_capped(CAP)
+        # a capped list follows the pack's row order, which a fresh
+        # client's differs from: compared where every result is listed
+        want = _under_cap(ref_resp.results(), ref_totals)
+        del ref
+        gdev.reset_launches()
+        records, sigs = {}, {}
+        for width in (2, 1):
+            client = _store_client(width)
+            loader = SnapshotLoader(snap_dir)
+            outcome = loader.restore(client, kube)
+            resp, totals = client.audit_capped(CAP)
+            st = dict(client.driver.last_sweep_stats)
+            sigs[width] = syn.audit_result_sig(resp.results())
+            if outcome != "restored" or \
+                    loader.delta_restored is not (width == 2) or \
+                    totals != ref_totals or \
+                    _under_cap(resp.results(), totals) != want:
+                raise AssertionError(f"the width-{width} restore: "
+                                     f"{outcome}, {loader.delta_restored}, "
+                                     f"{st}")
+            if width == 2:
+                if st.get("delta_rows") != RESTART_MESH_D:
+                    raise AssertionError(f"width 2 after churn: {st}")
+                restored = client.driver._delta_state.mask_src.get()
+                torch.cuda.synchronize()
+                if restored.rows != written.rows or any(
+                        g.device != w.device or not torch.equal(g, w)
+                        for g, w in zip(restored.slabs, written.slabs)):
+                    raise AssertionError("the restored slabs differ")
+            elif "delta_rows" in st:
+                raise AssertionError(f"width 1 took the delta path: {st}")
+            records[width] = {"outcome": outcome, "resync": loader.stats,
+                              "delta_restored": loader.delta_restored,
+                              "sweep": st}
+            del client
+        launches = dict(gdev.launches)
+    finally:
+        del os.environ[pm.VIRTUAL_DEVICES_ENV]
+    # both restored the same pack: the same rows, the same capped lists
+    if sigs[1] != sigs[2]:
+        raise AssertionError("the width-1 and width-2 restores differ")
+    missing = [k for k in ("match", "program", "delta", "reduction")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the mesh "
+                             f"restores: {missing}")
+    log("restart_mesh", templates=n_templates, pods=n_pods, churn=ops,
+        widths=records, launches=launches, slabs_equal_on_card=True)
+    return launches
+
+
+def restart_referential() -> dict:
+    """The referential parity corpus written, churned and restored with
+    its join index under GK_JOIN_ASSERT=1 -> the counted launches of the
+    restore and its first sweep."""
+    import copy
+    import shutil
+
+    from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.client.drivers import InterpDriver
+    from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
+    from gatekeeper_tpu_torch.snapshot import SnapshotLoader, Snapshotter
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    gdev = _dev()
+    n_templates, n_objects = REF_PARITY
+    templates, constraints = syn.make_referential_templates(n_templates,
+                                                            SEED)
+    kube = InMemoryKube()
+    for o in syn.make_referential_objects(n_objects, SEED + 1):
+        kube.create(o)
+    snap_dir = os.path.join(ROOT, "build", "restart_ref_snapshots")
+    shutil.rmtree(snap_dir, ignore_errors=True)
+    os.environ["GK_JOIN_ASSERT"] = "1"
+    try:
+        writer = _install(_store_client(1), templates, constraints)
+        for o in _stored(kube):
+            writer.add_data(o)
+        writer.audit_capped(CAP)
+        if Snapshotter(writer, snap_dir, interval_s=0.0).write_once() is None:
+            raise AssertionError("the referential snapshot was not written")
+        del writer
+        # ref_parity's churn through the store: an Ingress takes another's
+        # host, a PVC's class dangles, a Pod joins the crowded team
+        ings = [o for o in kube.list(("networking.k8s.io", "v1", "Ingress"))
+                if o["spec"]["rules"][0]["host"].startswith("svc-")]
+        ing = copy.deepcopy(ings[0])
+        ing["spec"]["rules"] = [dict(ings[1]["spec"]["rules"][0])]
+        pvc = kube.list(("", "v1", "PersistentVolumeClaim"))[0]
+        pvc["spec"]["storageClassName"] = "missing-0"
+        pod = kube.list(POD_GVK)[0]
+        pod["metadata"]["labels"]["team"] = "crowded"
+        for o in (ing, pvc, pod):
+            kube.update(o)
+        oracle = _install(Client(driver=InterpDriver()), templates,
+                          constraints)
+        for o in _stored(kube):
+            oracle.add_data(o)
+        gdev.reset_launches()
+        client = _store_client(1)
+        loader = SnapshotLoader(snap_dir)
+        outcome = loader.restore(client, kube)
+        js = client.driver._join_state
+        resp, totals = client.audit_capped(CAP)
+        launches = dict(gdev.launches)
+        st = dict(client.driver.last_sweep_stats)
+        if outcome != "restored" or not loader.delta_restored or \
+                js is None or not js.built:
+            raise AssertionError(f"the referential restore: {outcome}, "
+                                 f"{loader.delta_restored}, {js}")
+        if st.get("delta_rows", 0) < 3 or \
+                st.get("join_affected_rows", 0) < 1:
+            raise AssertionError(f"the first referential sweep: {st}")
+        o_resp, o_totals = oracle.audit_capped(CAP)
+        o_all = syn.audit_result_sig(oracle.audit().results())
+        sig = syn.audit_result_sig(resp.results())
+        exact = [k for k, (_n, how) in totals.items() if how == "exact"]
+        if not sig or not set(sig) <= set(o_all) or not exact or any(
+                totals[k][0] != o_totals[k][0] for k in exact) or \
+                syn.audit_result_sig(client.audit().results()) != o_all:
+            raise AssertionError("the restored referential sweep differs "
+                                 "from the oracle")
+    finally:
+        del os.environ["GK_JOIN_ASSERT"]
+    if launches["joinlookup_table"] == 0 or launches["joinkeys"] != 0 or \
+            launches["program_delta"] == 0:
+        raise AssertionError(f"the restored referential sweep launched "
+                             f"{launches}: K8's table mode and K9's delta "
+                             f"mode, no K7")
+    log("restart_referential", templates=n_templates, objects=n_objects,
+        resync=loader.stats, join_index_restored=True, sweep=st,
+        results=len(sig), oracle_results=len(o_all),
+        exact_totals=len(exact), launches=launches)
+    return launches
+
+
+CACHE_LOAD = """
+import json, sys, time
+t0 = time.perf_counter()
+from gatekeeper_tpu_torch import device
+from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
+from gatekeeper_tpu_torch.main import App, build_parser
+from gatekeeper_tpu_torch.metrics.views import global_registry
+t1 = time.perf_counter()
+app = App(build_parser().parse_args([
+    "--xla-cache-dir", sys.argv[1], "--cert-dir", sys.argv[2],
+    "--log-level", "WARNING"]), kube=InMemoryKube())
+t2 = time.perf_counter()
+rows = global_registry().view_rows("cache_requests_total")
+print(json.dumps({"import_s": t1 - t0, "construct_s": t2 - t1,
+                  "kernels_load_s": app.client.driver.kernels_load_s,
+                  "nvcc_s": device.build_seconds,
+                  "build_dir": device.BUILD_DIR, "libraries": device.cache_log,
+                  "hits": rows.get(("kernels", "hit"), 0),
+                  "misses": rows.get(("kernels", "miss"), 0),
+                  "device": str(app.client.driver.device)}))
+"""
+
+
+def kernel_cache() -> dict:
+    """--xla-cache-dir in fresh processes (this one has its libraries
+    loaded already): an empty directory builds and seals the ten, the next
+    process loads them with no nvcc, and a broken seal is rebuilt ->
+    each process's record."""
+    import shutil
+
+    from gatekeeper_tpu_torch import device
+
+    cache_dir = os.path.join(ROOT, "build", "restart_kernel_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cert_dir = os.path.join(ROOT, "build", "restart_cache_certs")
+    names = device.KERNEL_NAMES
+
+    def one(label: str) -> dict:
+        out = subprocess.run(
+            [sys.executable, "-c", CACHE_LOAD, cache_dir, cert_dir],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"the {label} process failed: "
+                                 f"{out.stderr[-2000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        if got["build_dir"] != os.path.join(cache_dir, "torch_kernels") or \
+                not got["device"].startswith("cuda"):
+            raise AssertionError(f"the {label} process: {got}")
+        return got
+
+    cold = one("cold")
+    if cold["libraries"] != dict.fromkeys(names, "built") or \
+            cold["misses"] != len(names) or cold["hits"] or \
+            not cold["nvcc_s"]:
+        raise AssertionError(f"the empty cache did not build the ten: "
+                             f"{cold}")
+    warm = one("warm")
+    if warm["libraries"] != dict.fromkeys(names, "sealed") or \
+            warm["hits"] != len(names) or warm["misses"] or warm["nvcc_s"]:
+        raise AssertionError(f"the warm cache ran nvcc: {warm}")
+    # one library's seal broken: rebuilt, the others loaded
+    broken = "packbits"
+    lib = [f for f in os.listdir(os.path.join(cache_dir, "torch_kernels"))
+           if f.startswith(f"gk_{broken}-") and f.endswith(".so")][0]
+    with open(os.path.join(cache_dir, "torch_kernels",
+                           lib + device.SEAL_SUFFIX), "w") as f:
+        f.write("0" * 64)
+    resealed = one("broken seal")
+    want = dict.fromkeys(names, "sealed")
+    want[broken] = "built"
+    if resealed["libraries"] != want or resealed["misses"] != 1:
+        raise AssertionError(f"the broken seal was not rebuilt: "
+                             f"{resealed}")
+    return {"cold": cold, "warm": warm, "broken_seal": resealed}
+
+
+def restart_phase(args, client, churn, process) -> dict:
+    """Phase 11 -> the launches of its counted runs (the restored App's
+    first cycle, the mesh restores, the referential restore)."""
+    launches = restart_process(args, client, churn, process)
+    for part in (restart_mesh(), restart_referential()):
+        for k, v in part.items():
+            launches[k] += v
+    log("kernel_cache", **kernel_cache())
     return launches
 
 
 class Timed:
     """The wall of each call of the named methods while active (class
-    attributes patched, then restored): "Class.method" -> seconds."""
+    attributes patched, then restored): "Class.method" -> seconds.  A
+    target (cls, name, "by_type") is keyed by the class of the instance
+    called.  With ``pauses`` (a GcPauses in gc.callbacks), ``gc_ms`` holds
+    the collector's pauses inside each key's calls, whichever thread set
+    them off (calls that overlap in time share a pause)."""
 
-    def __init__(self, *targets):
+    def __init__(self, *targets, pauses=None):
         self.targets = targets
+        self.pauses = pauses
         self.seconds = {}
+        self.gc_ms = {}
 
-    def _wrap(self, key, fn):
+    def _wrap(self, key, fn, by_type):
         def timed(*a, **kw):
+            k = f"{type(a[0]).__name__}.{fn.__name__}" if by_type else key
+            g0 = self.pauses.total_ms if self.pauses else 0.0
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
-                self.seconds[key] = self.seconds.get(key, 0.0) + (
+                self.seconds[k] = self.seconds.get(k, 0.0) + (
                     time.perf_counter() - t0)
+                if self.pauses:
+                    self.gc_ms[k] = self.gc_ms.get(k, 0.0) + (
+                        self.pauses.total_ms - g0)
         return timed
 
     def __enter__(self):
-        self._saved = [(cls, name, cls.__dict__[name])
-                       for cls, name in self.targets]
-        for cls, name, fn in self._saved:
-            setattr(cls, name, self._wrap(f"{cls.__name__}.{name}", fn))
+        self._saved = [(t[0], t[1], t[0].__dict__[t[1]], len(t) > 2)
+                       for t in self.targets]
+        for cls, name, fn, by_type in self._saved:
+            setattr(cls, name,
+                    self._wrap(f"{cls.__name__}.{name}", fn, by_type))
         return self
 
     def __exit__(self, *exc):
-        for cls, name, fn in self._saved:
+        for cls, name, fn, _by_type in self._saved:
             setattr(cls, name, fn)
         return False
+
+    def split(self) -> dict:
+        """key -> {"s": seconds, "gc_ms": pauses inside}."""
+        return {k: {"s": v, "gc_ms": self.gc_ms.get(k)}
+                for k, v in self.seconds.items()}
+
+
+def ready_spans() -> tuple:
+    """The parts of an App's way to ready that the restart compares with a
+    cold start: Manager.start's calls (the engine reset of a cold start,
+    each watch added, each controller's start, the readiness tracker's
+    collect), the Config's reconcile and the sync controller's reconciles
+    (in their threads), as Timed targets."""
+    from gatekeeper_tpu_torch.client.client import Client
+    from gatekeeper_tpu_torch.controllers.base import Controller
+    from gatekeeper_tpu_torch.controllers.config import ConfigController
+    from gatekeeper_tpu_torch.controllers.sync import SyncController
+    from gatekeeper_tpu_torch.readiness.tracker import Tracker
+    from gatekeeper_tpu_torch.watch.manager import Registrar
+
+    return ((Client, "reset"), (Registrar, "add_watch"),
+            (Controller, "start", "by_type"), (Tracker, "collect"),
+            (ConfigController, "reconcile"), (SyncController, "reconcile"))
 
 
 def metrics_text(port: int) -> str:
@@ -4471,13 +5074,19 @@ def main(argv=None) -> int:
 
     # 10. the process: gatekeeper_tpu_torch.main.App on the card
     t0 = time.perf_counter()
-    process_launches = process_phase(args, client, driver, churn, pods,
-                                     batch, review_sigs, batch_sigs)
+    process_launches, process = process_phase(
+        args, client, driver, churn, pods, batch, review_sigs, batch_sigs)
     log("process", seconds=time.perf_counter() - t0)
+
+    # 11. the restart: snapshots, warm resume and the kernels' cache
+    t0 = time.perf_counter()
+    restart_launches = restart_phase(args, client, churn, process)
+    log("restart", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
-                           + process_launches[name])
+                           + process_launches[name]
+                           + restart_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

@@ -63,15 +63,44 @@ class ConfigController(Controller):
         if not self.excluder.equals(new_ex):
             self.excluder.replace(new_ex)
 
-        # (2) wipe replicated data — the sync set may have shrunk
-        self.client.wipe_data()
-
-        # (3) replace dynamic watches
+        # (2) replace dynamic watches
         sync_gvks = [e.gvk() for e in spec.sync_only]
         if self.sync_registrar is not None:
             self.sync_registrar.replace_watch(sync_gvks)
         if self.sync_controller is not None:
             self.sync_controller.prune()
+
+        # (3) drop the replicated data the new config no longer keeps —
+        # the sync set may have shrunk, the excluder grown.  Where the
+        # JAX package wipes everything before (2), the port removes only
+        # those objects, after (2): the replay below re-adds the rest at
+        # an unchanged resourceVersion, which the store dedups, so an
+        # inventory restored from a snapshot before the controllers start
+        # keeps its packed rows and delta basis.  The watches are live
+        # before the listing, so an object deleted after it still gets
+        # its DELETED, and one created after it and dropped here comes
+        # back with the replay: the store ends as after a wipe and a
+        # replay.  The listing is metadata-only where the kube surface
+        # offers it (list_rvs)
+        keep = set()
+        for g in sync_gvks:
+            api = f"{g[0]}/{g[1]}" if g[0] else g[1]
+            if hasattr(self.kube, "list_rvs"):
+                keys = self.kube.list_rvs(g)
+            else:
+                keys = [((o.get("metadata") or {}).get("namespace") or "",
+                         (o.get("metadata") or {}).get("name"))
+                        for o in self.kube.list(g)]
+            for ns, name in keys:
+                if not self.excluder.is_namespace_excluded(SYNC, ns):
+                    keep.add((api, g[2], name, ns))
+        for _obj, api, kind, name, ns in list(
+                self.client.driver.store.iter_objects()):
+            if (api, kind, name, ns) not in keep:
+                self.client.remove_data({
+                    "apiVersion": api, "kind": kind,
+                    "metadata": {"name": name, "namespace": ns},
+                })
 
         # (4) replay: list each still-watched GVK and re-add its objects
         # (the watch replay would also deliver them; doing it inline makes

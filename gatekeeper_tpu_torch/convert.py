@@ -33,6 +33,18 @@ def state_from_numpy(tree, device):
     return tree
 
 
+def to_device(array, device):
+    """A copy of the host array ``array`` on ``device``: one pinned,
+    asynchronous copy on the card (device.upload: work queued after it on
+    the device's stream runs after it), a plain copy on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        from .device import upload
+
+        return upload(array, device)
+    return state_from_numpy(np.asarray(array), device)
+
+
 def place(tree, device):
     """A tree of numpy arrays and tensors on ``device``: arrays are copied
     there (state_from_numpy), tensors moved, and a tensor already on

@@ -7,10 +7,22 @@ fallback: asking for the card without one raises.
 The CUDA kernels (``kernels/*.cu``) are plain C-interface shared
 libraries loaded with ``ctypes``: each source is compiled by its own
 ``nvcc`` process, all started together, into ``build/torch_kernels/`` at
-the repository root on first use.  Each library file name carries a hash
-of its source, the headers it includes (``kernels/*.cuh``) and the flags,
-so an edited source or header is rebuilt and a stale library is never
-loaded.
+the repository root on first use, or into ``<dir>/torch_kernels`` of the
+process's ``--xla-cache-dir`` (``use_cache_dir``).  Each library file name
+carries a hash of its source, the headers it includes (``kernels/*.cuh``)
+and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  A loaded library runs as code, so each is
+sealed when built (``<library>.seal``, an HMAC of its bytes under
+``util/seal.py``'s build-stable key, ``$GK_SEAL_KEY`` when set: the file
+name already tells a library of other sources apart, so an edit to the
+Python code keeps the libraries): a library whose seal is missing or
+fails is rebuilt, never loaded.  What is loaded is the bytes that were
+verified, written to a private directory of this process, never the
+shared file itself, so a library swapped in the cache directory after
+its check does not run.  Each library found sealed counts as a hit of the "kernels"
+cache, each build as a miss (``metrics.catalog.record_cache``), and both
+are recorded with ``obs.compilestats.record_compile`` (provenance
+``cold`` for a build, ``aot`` for a sealed library loaded).
 
 Every wrapper counts its launches in ``launches`` (one per kernel launch,
 nowhere else), so a run can show that its path went through the kernels.
@@ -30,10 +42,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import hmac
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Dict, Optional
@@ -84,6 +98,10 @@ launches: Dict[str, int] = {name: 0 for name in LAUNCHERS}
 build_log: Dict[str, str] = {}
 #: wall seconds of the last build (0.0 when every library was current)
 build_seconds = 0.0
+#: library name -> "built" or "sealed" (found sealed, loaded without
+#: nvcc), for each library of the last build_kernels()
+cache_log: Dict[str, str] = {}
+SEAL_SUFFIX = ".seal"
 
 _lock = threading.Lock()
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
@@ -130,6 +148,58 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
+def use_cache_dir(build_dir: str) -> str:
+    """Build the kernel libraries into, and load them from, ``build_dir``
+    (the App's ``--xla-cache-dir``/torch_kernels) from now on.  Libraries
+    this process has loaded already stay loaded: their file names hash
+    the same sources."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(build_dir)
+    return BUILD_DIR
+
+
+def _verified(path: str) -> Optional[bytes]:
+    """The bytes of the library at ``path`` if its seal verifies against
+    them (util/seal.py's build-stable key), else None."""
+    from .util.seal import stable_seal
+
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path + SEAL_SUFFIX, "rb") as f:
+            tag = f.read().strip()
+    except OSError:
+        return None
+    return data if hmac.compare_digest(stable_seal(data).encode(),
+                                       tag) else None
+
+
+def _seal(path: str, data: bytes) -> None:
+    """Write the seal of ``data``, the library at ``path``, beside it,
+    atomically."""
+    from .util.seal import stable_seal
+
+    tmp = f"{path}{SEAL_SUFFIX}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(stable_seal(data))
+    os.replace(tmp, path + SEAL_SUFFIX)
+
+
+def _load(name: str, image: bytes) -> ctypes.CDLL:
+    """Load ``image``, a library's verified bytes, from a copy in a
+    private (0700) directory of this process, removed once loaded."""
+    tmp = tempfile.mkdtemp(prefix="gk_kernels-")
+    path = os.path.join(tmp, f"gk_{name}.so")
+    try:
+        with open(path, "wb") as f:
+            f.write(image)
+        return ctypes.CDLL(path)
+    finally:
+        if os.path.exists(path):
+            os.unlink(path)
+        os.rmdir(tmp)
+
+
 def _lib_path(name: str) -> str:
     """The library's path: its name and a hash of the source, every header
     it includes from ``_SRC_DIR`` (followed through the headers' own
@@ -150,12 +220,33 @@ def _lib_path(name: str) -> str:
 
 
 def build_kernels(force: bool = False) -> Dict[str, str]:
-    """Compile every kernel library that is missing; -> name -> path.
-    One nvcc process per source, all running at once."""
+    """Compile every kernel library that is missing or whose seal fails,
+    and seal it; -> name -> path of a sealed library.  One nvcc process
+    per source, all running at once."""
+    return {name: path for name, (path, _image) in _build(force).items()}
+
+
+def _build(force: bool = False) -> Dict[str, tuple]:
+    """build_kernels(); -> name -> (path, the bytes verified or built)."""
+    from .metrics.catalog import record_cache
+    from .obs.compilestats import record_compile
+    from .util.seal import secure_makedirs
+
     global build_seconds
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    secure_makedirs(BUILD_DIR)
     paths = {name: _lib_path(name) for name in KERNEL_NAMES}
-    todo = [n for n, p in paths.items() if force or not os.path.exists(p)]
+    images = {}
+    cache_log.clear()
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        image = None if force else _verified(path)
+        if image is not None:
+            images[name] = image
+            cache_log[name] = "sealed"
+            record_cache("kernels", True)
+            record_compile(f"kernels/{name}", time.perf_counter() - t0,
+                           "aot")
+    todo = [name for name in KERNEL_NAMES if name not in images]
     t0 = time.perf_counter()
     if todo:
         nvcc = _nvcc()
@@ -174,12 +265,19 @@ def build_kernels(force: bool = False) -> Dict[str, str]:
             build_log[name] = (out or "") + (err or "")
             if proc.returncode != 0:
                 failed.append(f"{name}.cu:\n{build_log[name]}")
-            else:
-                os.replace(tmp, paths[name])
+                continue
+            with open(tmp, "rb") as f:
+                images[name] = f.read()
+            os.replace(tmp, paths[name])
+            _seal(paths[name], images[name])
+            cache_log[name] = "built"
+            record_cache("kernels", False)
+            record_compile(f"kernels/{name}", time.perf_counter() - t0,
+                           "cold")
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         build_seconds = time.perf_counter() - t0
-    return paths
+    return {name: (paths[name], images[name]) for name in KERNEL_NAMES}
 
 
 def _c_args(*kinds: str):
@@ -199,8 +297,8 @@ def kernels() -> Dict[str, ctypes.CDLL]:
             # gklint: disable=blocking-under-lock -- the lock exists to
             # serialise the one-time nvcc build; concurrent first callers
             # must wait for it, and every later call returns above
-            for name, path in build_kernels().items():
-                lib = ctypes.CDLL(path)
+            for name, (_path, image) in _build().items():
+                lib = _load(name, image)
                 lib.gk_error_string.argtypes = [ctypes.c_int]
                 lib.gk_error_string.restype = ctypes.c_char_p
                 libs[name] = lib

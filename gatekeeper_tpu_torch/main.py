@@ -81,11 +81,15 @@ def build_parser() -> argparse.ArgumentParser:
     # construction when given (refuse_unported_flags)
     p.add_argument("--jax-profile-port", type=int, default=0,
                    help="not supported by the port: any value but 0 is "
-                        "refused (ROADMAP A8)")
+                        "refused (ROADMAP A8; PyTorch has no counterpart "
+                        "of jax.profiler.start_server)")
     p.add_argument("--xla-cache-dir", default="",
-                   help="not supported by the port: a non-empty value is "
-                        "refused (ROADMAP A8; the kernels' build cache is "
-                        "build/torch_kernels/).  $GK_XLA_CACHE, which the "
+                   help="the kernels' build cache: the CUDA libraries are "
+                        "built into and loaded from DIR/torch_kernels, "
+                        "each sealed (util/seal.py), so a restarted pod "
+                        "runs no nvcc; a library whose seal fails is "
+                        "rebuilt, never loaded (empty = build/torch_kernels "
+                        "beside the package).  $GK_XLA_CACHE, which the "
                         "JAX package reads, is not read")
     # operations.go:77
     p.add_argument("--operation", action="append", default=[],
@@ -270,10 +274,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "breaker): refused when given (ROADMAP A6)")
     # state snapshot & warm resume (docs/snapshots.md)
     p.add_argument("--snapshot-dir", default="",
-                   help="not supported by the port (it has no snapshots): "
-                        "a non-empty value is refused (ROADMAP A8).  "
-                        "$GK_SNAPSHOT_DIR, which the JAX package reads, "
-                        "is not read")
+                   help="directory for serving-state snapshots: a restart "
+                        "restores the packed inventory and delta-resyncs "
+                        "from the recorded resourceVersions instead of "
+                        "paying the full relist+repack cold sweep, and its "
+                        "delta basis goes back onto the card (empty = "
+                        "disabled).  $GK_SNAPSHOT_DIR, which the JAX "
+                        "package reads, is not read")
     p.add_argument("--snapshot-interval", type=float, default=300.0,
                    help="minimum seconds between background snapshots "
                         "(each completed audit sweep re-arms the writer)")
@@ -309,10 +316,6 @@ def build_parser() -> argparse.ArgumentParser:
 UNPORTED_FLAGS = (
     ("--jax-profile-port", lambda a: bool(getattr(a, "jax_profile_port", 0)),
      "A8 (a device profiler hook)"),
-    ("--xla-cache-dir", lambda a: bool(getattr(a, "xla_cache_dir", "")),
-     "A8 (the compile and cache seam)"),
-    ("--snapshot-dir", lambda a: bool(getattr(a, "snapshot_dir", "")),
-     "A8 (snapshots)"),
     ("--breaker-failure-threshold",
      lambda a: getattr(a, "breaker_failure_threshold", None) is not None,
      "A6 (the breaker)"),
@@ -512,6 +515,14 @@ class App:
             level_key=getattr(args, "log_level_key", "level"),
             level_encoder=getattr(args, "log_level_encoder", "lower"),
         )
+        if getattr(args, "xla_cache_dir", ""):
+            from .device import use_cache_dir
+
+            # the kernels' sealed build cache rides in a subdir, as the
+            # JAX package's executables ride in <dir>/aot: the torch
+            # driver below loads its libraries from there (nvcc only for
+            # a missing library or one whose seal fails)
+            use_cache_dir(os.path.join(args.xla_cache_dir, "torch_kernels"))
         if getattr(args, "debug_use_fake_pod", False):
             # run outside Kubernetes: fixed pod identity, no owner refs on
             # status CRs (controller.go:133-142)

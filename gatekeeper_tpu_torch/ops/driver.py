@@ -288,9 +288,12 @@ class TorchDriver(InterpDriver):
                 # resourceVersion), and an epoch bump would rebase the
                 # delta basis, so every audit cycle behind the App would
                 # be a full sweep.  TpuDriver.put_constraint skips only an
-                # identical replay.  The identity guard: the same dict
-                # mutated in place compares equal to itself and must
-                # still invalidate
+                # identical replay.  The same holds for the replay after a
+                # snapshot restore (snapshot/loader.py): the restored basis
+                # serves the first sweep, where TpuDriver rebases it once
+                # the stored status has moved.  The identity guard: the
+                # same dict mutated in place compares equal to itself and
+                # must still invalidate
                 return
             super().put_constraint(kind, name, constraint)
             self._cs_epoch += 1
@@ -880,6 +883,23 @@ class TorchDriver(InterpDriver):
         self._bound_plans[key] = plan
         return plan
 
+    def _render_plan_tiers(self) -> Dict[str, str]:
+        """Per-constraint render-plan classification ("kind/name" ->
+        tier), shared by the snapshot writer (persists it in the sweep
+        basis) and loader (validates the rebuilt classification against
+        it).  Caller holds the lock.  As TpuDriver's, over this driver's
+        _render_plan_for and its per-epoch _bound_plans cache."""
+        out: Dict[str, str] = {}
+        for kind, name, constraint in self._ordered_constraints():
+            try:
+                plan = self._render_plan_for(kind, name, constraint)
+            except Exception:
+                plan = None
+            out[f"{kind}/{name}"] = (
+                plan.tier if plan is not None else "interp"
+            )
+        return out
+
     def _eval_cell(self, constraint: dict, kind: str, review: dict,
                    frozen_review, inventory, rowview=None,
                    allow_plan: bool = True) -> list:
@@ -1239,7 +1259,7 @@ class TorchDriver(InterpDriver):
             # result equals the single-device reduction bit for bit
             packed = _merge_sharded_packed(
                 packed_all, min(K, ap.capacity))[crow]
-            mask = ShardedMask(masks)
+            mask = ShardedMask(masks, rows=ap.capacity)
         t2 = time.perf_counter()
         counts = packed[:, 0].astype(np.int64)
         # resolved, never lazy: K6 patches the inputs in place, so a mask

@@ -31,7 +31,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..convert import place
+from ..convert import place, to_device
 from ..device import pinned_empty, select_device
 from ..ops.packbits import packed_empty, unpack_review_masks
 from ..util import join_thread
@@ -438,10 +438,42 @@ def shard_args(mesh: TorchMesh, rows: int, args):
 
 class ShardedMask:
     """A mesh sweep's resident [C, target] mask: one [C, slab] tensor a
-    shard, in row order, each on its shard's device."""
+    shard, in row order, each on its shard's device.  ``rows`` is the
+    live width, the pack's capacity; the columns past it are slab
+    padding, always False."""
 
-    def __init__(self, slabs):
+    def __init__(self, slabs, rows: int):
         self.slabs = tuple(slabs)
+        self.rows = int(rows)
+
+    @classmethod
+    def place(cls, host: np.ndarray, mesh: TorchMesh) -> "ShardedMask":
+        """A host bool mask [C, rows] in slabs on the mesh's shards, in
+        the slab geometry of a sweep at this width (slab_rows), zero
+        padded past ``rows``.  Each distinct device gets its shards' slabs
+        in one copy (device.upload: pinned and asynchronous on the card),
+        and each slab is a contiguous view of it."""
+        C, rows = host.shape
+        n = int(mesh.devices.size)
+        target, slab = slab_rows(rows, n)
+        padded = np.zeros((C, target), bool)
+        padded[:, :rows] = host
+        # shard-major: shard i's slab is stacked[i], contiguous
+        stacked = np.ascontiguousarray(
+            padded.reshape(C, n, slab).transpose(1, 0, 2))
+        slabs: list = [None] * n
+        for dev in mesh.distinct():
+            mine = [i for i, d in enumerate(mesh.devices) if d == dev]
+            placed = to_device(stacked[mine], dev)
+            for j, i in enumerate(mine):
+                slabs[i] = placed[j]
+        return cls(slabs, rows=rows)
+
+    def host(self) -> np.ndarray:
+        """The whole mask on the host, [C, rows]: the slabs joined in row
+        order, the padding cut."""
+        return np.concatenate([s.cpu().numpy() for s in self.slabs],
+                              axis=1)[:, :self.rows]
 
     @property
     def shape(self) -> tuple:

@@ -38,14 +38,16 @@ _code_fp: Optional[str] = None
 def code_fingerprint() -> str:
     """Digest of every source file in this package: derived state written
     by a build whose code changed must never be reused (it would silently
-    reproduce pre-fix semantics)."""
+    reproduce pre-fix semantics).  The kernels' CUDA sources (.cu, and
+    the .cuh headers they include) count as sources: a snapshot's delta
+    basis, the resident mask, is what the kernels computed."""
     global _code_fp
     if _code_fp is None:
         h = hashlib.sha256()
         pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         for root, _dirs, files in sorted(os.walk(pkg)):
             for f in sorted(files):
-                if f.endswith((".py", ".cpp")):
+                if f.endswith((".py", ".cpp", ".cu", ".cuh")):
                     path = os.path.join(root, f)
                     h.update(f.encode())
                     try:

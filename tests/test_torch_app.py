@@ -393,8 +393,6 @@ def test_the_driver_is_torch_on_the_card_by_default():
 
 @pytest.mark.parametrize("flags,item", [
     (["--jax-profile-port", "9999"], "A8"),
-    (["--xla-cache-dir", "/nonexistent"], "A8"),
-    (["--snapshot-dir", "/nonexistent"], "A8"),
     (["--breaker-failure-threshold", "3"], "A6"),
     (["--breaker-cooldown-s", "5"], "A6"),
     (["--slo-trip-breaker"], "A6"),
@@ -403,6 +401,24 @@ def test_flags_the_port_lacks_are_refused(flags, item):
     with pytest.raises(ValueError, match=f"{flags[0]} .*ROADMAP {item}"):
         TorchApp(_args("--torch-device", "cpu", *flags), kube=TorchKube())
     assert flags[0] in {f for f, _g, _i in UNPORTED_FLAGS}
+
+
+@pytest.mark.parametrize("flag", ["--xla-cache-dir", "--snapshot-dir"])
+def test_the_cache_and_snapshot_flags_are_accepted(tmp_path, monkeypatch,
+                                                   flag):
+    """Both A8 flags construct an App: --xla-cache-dir points the kernels'
+    build cache at DIR/torch_kernels (the CPU driver loads no kernel),
+    --snapshot-dir is kept for start's restore."""
+    from gatekeeper_tpu_torch import device
+
+    monkeypatch.setattr(device, "BUILD_DIR", device.BUILD_DIR)
+    app = TorchApp(_args("--torch-device", "cpu", flag, str(tmp_path)),
+                   kube=TorchKube())
+    if flag == "--xla-cache-dir":
+        assert device.BUILD_DIR == str(tmp_path / "torch_kernels")
+    else:
+        assert app.args.snapshot_dir == str(tmp_path)
+    assert flag not in {f for f, _g, _i in UNPORTED_FLAGS}
 
 
 @pytest.mark.parametrize("env", ["GK_XLA_CACHE", "GK_SNAPSHOT_DIR"])
@@ -498,3 +514,74 @@ def test_a_status_write_keeps_the_delta_basis():
     changed["metadata"]["labels"] = {"a": "b"}
     client.add_constraint(changed)
     assert driver._cs_epoch == epoch + 2
+
+
+# ---- warm resume through the process ----------------------------------------
+
+
+def _small_store():
+    """Five namespaces, a Config syncing Pods, 4 synthetic templates and
+    their constraints, 60 pods."""
+    kube = TorchKube()
+    for ns in NAMESPACES:
+        kube.create({"apiVersion": "v1", "kind": "Namespace",
+                     "metadata": {"name": ns}})
+    kube.create({
+        "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+        "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+        "spec": {"sync": {"syncOnly": [
+            {"group": "", "version": "v1", "kind": "Pod"}]}},
+    })
+    templates, constraints = syn.make_templates(4, SEEDS[0])
+    pods = syn.make_pods(60, SEEDS[2])
+    for i, p in enumerate(pods):
+        p["metadata"]["namespace"] = SERVED[i % len(SERVED)]
+    for o in templates + constraints + pods:
+        kube.create(o)
+    return kube, sorted(c["kind"] for c in constraints)
+
+
+def test_a_restarted_app_restores_its_snapshot(tmp_path):
+    """App 1 (--snapshot-dir, every role) cycles, writes a snapshot and
+    stops; App 2 over the same store and directory restores it before
+    its controllers start, and its first cycle's statuses equal App 1's,
+    served from the restored delta basis (no full sweep)."""
+    kube, kinds = _small_store()
+    snap = str(tmp_path / "snapshots")
+
+    def app_for(name):
+        return TorchApp(_args("--torch-device", "cpu", "--cert-dir",
+                              str(tmp_path / name), "--snapshot-dir", snap,
+                              "--snapshot-interval", "86400"), kube=kube)
+
+    first = app_for("first")
+    first.start()
+    try:
+        assert first.snapshot_restore_outcome == "none"
+        assert first.snapshotter is not None
+        # the background writer stops before the cycle wakes it, so the
+        # direct write below is the only one
+        first.snapshotter.stop()
+        assert _ready(first)
+        _synced(first, kube)
+        assert first.audit_manager.run_once_guarded()
+        want = statuses(kube, kinds)
+        assert sum(n for n, _v in want.values()) > 0
+        assert first.snapshotter.write_once() is not None
+    finally:
+        first.stop()
+
+    second = app_for("second")
+    second.start()
+    try:
+        assert second.snapshot_restore_outcome == "restored"
+        assert second.client.driver._delta_state is not None
+        second.snapshotter.stop()
+        assert _ready(second)
+        _synced(second, kube)
+        assert second.audit_manager.run_once_guarded()
+        stats = second.client.driver.last_sweep_stats
+        assert stats.get("cached") == 1.0, stats
+        assert statuses(kube, kinds) == want
+    finally:
+        second.stop()

@@ -318,6 +318,41 @@ class TestConfigAndSync:
         finally:
             mgr.stop()
 
+    def test_a_pod_deleted_after_the_reconciles_listing_leaves_the_store(self):
+        """The Config's first reconcile over an inventory restored before
+        the controllers start lists what it keeps: a pod deleted just
+        after that listing still leaves the store (the watch is live
+        before the listing and delivers its DELETED), and a pod created
+        then joins it."""
+        listed = []
+        pod = self.pod
+
+        class Kube(InMemoryKube):
+            def list_rvs(self, gvk):
+                out = super().list_rvs(gvk)
+                if gvk == TestConfigAndSync.POD_GVK and not listed:
+                    listed.append(gvk)
+                    self.delete(gvk, "pod-gone", "default")
+                    self.create(pod("pod-late", "default"))
+                return out
+
+        mgr, kube, client, deps = make_manager(Kube())
+        for name in ("pod-kept", "pod-gone"):
+            kube.create(self.pod(name, "default"))
+        for o in kube.list(self.POD_GVK):  # the restored inventory
+            client.add_data(o)
+        mgr.start(reset=False)
+        try:
+            kube.create(dict(self.CONFIG))
+            assert mgr.drain()
+            time.sleep(0.15)
+            assert listed
+            dump = client.dump()
+            assert "pod-kept" in dump and "pod-late" in dump
+            assert "pod-gone" not in dump
+        finally:
+            mgr.stop()
+
 
 class TestStatusAggregation:
     def test_by_pod_fold(self):

@@ -3,8 +3,10 @@ package's after the package name is replaced and the JAX package's
 provenance tags (issue, PR and review numbers in comments and docstrings,
 SCRUB) are dropped, except the functions named in CHANGED, which the
 port changed on purpose (the driver wiring, the parser and the refused
-flags of main.py, and compilestats' pytree walk without JAX).  A reader
-of the port reads only those."""
+flags of main.py, compilestats' pytree walk without JAX, the code
+fingerprint over the kernels' sources, and where the snapshot writer and
+loader move the resident mask between the host and the device).  A
+reader of the port reads only those."""
 
 import ast
 import pathlib
@@ -40,6 +42,8 @@ COPIED = (
     "webhook/__init__.py", "webhook/policy.py",
     "webhook/namespacelabel.py", "webhook/server.py",
     "audit/__init__.py", "audit/manager.py",
+    "snapshot/__init__.py", "snapshot/format.py", "snapshot/writer.py",
+    "snapshot/loader.py",
     "main.py",
 )
 
@@ -61,6 +65,27 @@ CHANGED = {
     "obs/compilestats.py": {
         # sums nbytes over tensors and numpy arrays without jax's pytrees
         "tree_nbytes",
+    },
+    "util/seal.py": {
+        # hashes the kernels' sources (.cu, .cuh) too: a snapshot's delta
+        # basis made by other kernels is never restored
+        "code_fingerprint",
+    },
+    "controllers/config.py": {
+        # drops only the data the new config no longer keeps, where the
+        # JAX package wipes it all: a warm-resumed inventory survives the
+        # Config's first reconcile
+        "ConfigController.reconcile",
+    },
+    "snapshot/writer.py": {
+        # the resident mask (a tensor on the card, or a mesh sweep's
+        # ShardedMask) brought to the host with .cpu(), not np.asarray
+        "SnapshotWriter._resolve_mask",
+    },
+    "snapshot/loader.py": {
+        # the restored mask placed on the driver's device, or in slabs on
+        # the mesh's shards, without jax.device_put
+        "SnapshotLoader._restore_delta",
     },
 }
 
@@ -85,6 +110,7 @@ SCRUB = (
      r"Earlier work instrumented \1 and added"),
     (r"the PR (\d+)\n(\s*)(#?\s*)", r"the\n\2\3"),
     (r" / PR \d+ ", " / "),
+    (r" \(round-\d+ VERDICT: [^)]*\)", ""),
 )
 TAGS = re.compile(r"ISSUE \d|\bPR \d|VERDICT")
 
