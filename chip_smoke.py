@@ -177,6 +177,34 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      processes: an empty directory builds and seals the ten libraries,
      the next process loads them with no nvcc (ten hits), and a library
      whose seal was broken is rebuilt, not loaded
+ 12. the fleet (fleet/, obs/fleetobs.py): three webhook replicas (python
+     -m gatekeeper_tpu_torch.fleet.replica, --driver torch on the card,
+     spawned together by spawn_fleet) restore phase 10's snapshot
+     (--snapshot-no-resync) and load phase 11's sealed kernels (ten hits,
+     no miss, in each replica's /metrics).  Each replica runs under
+     replica_watch, which counts in its process every review_batch with
+     the launches it made, and answers a watch command on its pipe: each
+     replica's driver on cuda:0 with memory in its allocator, the card's
+     memory taken at least every replica's reserve and a context each;
+     the collector's pauses in each before its ready line.  Phase 3's
+     256 pods to every replica, through the threaded FrontDoor and
+     through the EventFrontDoor (framed chunks to each WireListener):
+     every body the same bytes, each equal to phase 3's results; p50 and
+     p99 one at a time and a burst of 8 clients through each door.  The
+     stream command (8,192 reviews in chunks of 2,048) on one replica,
+     then on the three at once; then every admission batch of every
+     replica must have launched K1 and K9 (packing) once, every stream
+     chunk (the warm-up's included) K1, K9 and K10 once, and no launch
+     outside them.  Under a ReplicaSupervisor one replica is SIGKILLed:
+     it must come back restored and on the card, answer the 256 pods
+     byte for byte, no other replica respawned; drain replies drained.
+     One request with a traceparent through a door: /debug/fleet-traces
+     joins the door's wire stages with the replica's pack and dispatch,
+     the first miss failing.  The live replicas' launches checked again;
+     the kernels line counts the replicas' own.  Every replica stopped,
+     the card's memory back; then phase 3's client reviews one chunk of
+     2,048 stored pods, K1, K9 and K10 once each, held exactly against
+     the plain versions
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -271,11 +299,14 @@ def log(phase: str, **fields):
 
 class GcPauses:
     """A gc.callbacks hook: the pause time and the full (generation 2)
-    collections since the last reset (``total_ms``: since it was made)."""
+    collections since the last reset (``total_ms``: since it was made).
+    With ``keep``, ``stamps`` also holds every pause as (wall time at its
+    end, ms, generation), which ``before`` reduces."""
 
-    def __init__(self):
+    def __init__(self, keep: bool = False):
         self._t0 = None
         self.total_ms = 0.0
+        self.stamps = [] if keep else None
         self.reset()
 
     def reset(self):
@@ -291,6 +322,8 @@ class GcPauses:
             self.max_ms = max(self.max_ms, ms)
             self.gen2 += info["generation"] == 2
             self._t0 = None
+            if self.stamps is not None:
+                self.stamps.append((time.time(), ms, info["generation"]))
 
     def take(self) -> dict:
         """The pauses since the last reset, then reset."""
@@ -298,6 +331,15 @@ class GcPauses:
                "gc_gen2": self.gen2}
         self.reset()
         return out
+
+    @staticmethod
+    def before(stamps, wall: float) -> dict:
+        """The kept pauses that ended by wall time ``wall``."""
+        got = [(ms, g) for t, ms, g in stamps if t <= wall]
+        return {"gc_ms": sum(ms for ms, _g in got),
+                "gc_max_ms": max((ms for ms, _g in got), default=0.0),
+                "gc_n": len(got),
+                "gc_gen2": sum(1 for _ms, g in got if g == 2)}
 
 
 def percentile(xs, q: float) -> float:
@@ -3992,6 +4034,7 @@ def restart_process(args, client, churn, process) -> dict:
         raise AssertionError(f"the restored App's first cycle launched "
                              f"{got}, not K1 and K9's delta mode once")
     loader = spy.calls[0]["loader"]
+    process["warm_ready_s"] = warm["ready"]
     log("restart_app", restore_s=spy.calls[0]["s"], resync=loader.stats,
         delta_restored=loader.delta_restored, churn=ops,
         warm_marks=warm, cold_ready_s=process["ready_s"],
@@ -4356,6 +4399,775 @@ def metrics_text(port: int) -> str:
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
                                 timeout=60) as r:
         return r.read().decode()
+
+
+# ---- phase 12: the fleet (webhook replicas restoring one snapshot) ---------
+
+# replicas on the one card, spawned by spawn_fleet all at once: one at a
+# time (about 14 s each alone) would add ~30 s to a run that already
+# takes two thirds of its 1,200 s
+FLEET_REPLICAS = 3
+# the stream command: reviews and the chunk each review_batch takes (past
+# 32 rows K9 does not pack, so each chunk runs K1, K9 and K10)
+FLEET_STREAM = (8192, 2048)
+# the longest a replica may take from its spawn to its ready line
+FLEET_SPAWN_S = 600
+# the kernels each review_batch launches, once each: at the stream's chunk
+# (K9 does not pack past 32 rows, so K10 packs after it), and on an
+# admission batch of up to 32 reviews (K9 packs in its launch)
+FLEET_KERNELS = {"match": 1, "program": 1, "packbits": 1}
+FLEET_ADMISSION_KERNELS = {"match": 1, "program_pack": 1}
+FLEET_ADMISSION_MAX = 32
+# the least device memory a replica's CUDA context takes beside what its
+# allocator reserves: a replica took 620-644 MiB of an NVIDIA H100 80GB
+# HBM3 (700 W), nearly all of it its context; above two thirds of that,
+# the three replicas' sum cannot be met by two contexts
+FLEET_CONTEXT_MIB = 480
+# the traced request's id, sent to the door as the caller's traceparent,
+# and the seconds its replica half may take to join the door's trace
+FLEET_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+FLEET_TRACE_WAIT_S = 20
+# a replica at brownout level 2 or more keeps 5% of its traces
+# (obs/brownout.py); a level steps down after 5 s clear, so the traced
+# request waits this long at most for every live replica to be below 2
+FLEET_BROWNOUT_WAIT_S = 30
+
+# a replica's process under replica_watch: chip_smoke is imported from the
+# directory given first, then runs the replica's module
+REPLICA_ENTRY = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+                 "import chip_smoke; chip_smoke.replica_watch()")
+WATCH_CMD = "watch"
+REPLICA_MODULE = "gatekeeper_tpu_torch.fleet.replica"
+
+
+def replica_watch():
+    """A fleet replica's process under phase 12's watch (REPLICA_ENTRY),
+    which then runs the replica's module as ``python -m`` runs it.  It
+    keeps the collector's pauses (a GcPauses with stamps), every
+    TorchDriver.review_batch's review count with the launches that call
+    made, and, for FLEET_TRACE_ID's trace, whether the tracer kept it.
+    The command {"cmd": "watch"} on stdin is answered here with all of
+    that, the launch counts, the driver's device and the card memory the
+    process's allocator holds; every other line goes on to the replica's
+    command loop."""
+    import runpy
+    import threading
+
+    import torch
+
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.obs import brownout
+    from gatekeeper_tpu_torch.obs import trace as obstrace
+    from gatekeeper_tpu_torch.ops.driver import TorchDriver
+
+    pauses = GcPauses(keep=True)
+    gc.callbacks.append(pauses)
+    calls, devices, traced = {}, set(), []
+    # the driver evaluates one batch at a time under its own lock; this
+    # one makes each call's launches its own
+    lock = threading.Lock()
+    review_batch = TorchDriver.review_batch
+
+    def counted(self, reviews, tracing=False):
+        with lock:
+            before = dict(gdev.launches)
+            try:
+                return review_batch(self, reviews, tracing=tracing)
+            finally:
+                made = {k: v - before[k] for k, v in gdev.launches.items()
+                        if v != before[k]}
+                key = json.dumps([len(reviews), made], sort_keys=True)
+                calls[key] = calls.get(key, 0) + 1
+                devices.add(str(self.device))
+
+    TorchDriver.review_batch = counted
+    tracer = obstrace.get_tracer()
+    complete = tracer.complete
+
+    def kept(trace):
+        complete(trace)
+        if trace.trace_id == FLEET_TRACE_ID:
+            with tracer._lock:
+                held = any(t is trace for t in tracer._ring)
+            traced.append({"held": held, "sample_rate": tracer.sample_rate,
+                           "brownout_level": brownout.get_controller().level,
+                           "spans": [s["name"] for s in trace.spans]})
+
+    tracer.complete = kept
+
+    def answer(cmd):
+        with lock:
+            got = [json.loads(k) + [n] for k, n in sorted(calls.items())]
+        cuda = torch.cuda.is_initialized()
+        print(json.dumps({
+            "event": "watch", "pid": os.getpid(), "calls": got,
+            "launches": {k: v for k, v in gdev.launches.items() if v},
+            "devices": sorted(devices), "cuda": cuda,
+            "allocated_mib": (torch.cuda.memory_allocated() / 2**20
+                              if cuda else 0.0),
+            "reserved_mib": (torch.cuda.memory_reserved() / 2**20
+                             if cuda else 0.0),
+            "pauses": pauses.stamps, "traced": traced,
+            "reply_to": cmd.get("id")}), flush=True)
+
+    class Commands:
+        """The replica's stdin less the watch command."""
+
+        def __init__(self, stdin):
+            self.stdin = stdin
+
+        def __iter__(self):
+            for line in self.stdin:
+                try:
+                    cmd = json.loads(line)
+                except ValueError:
+                    cmd = None
+                if isinstance(cmd, dict) and cmd.get("cmd") == WATCH_CMD:
+                    answer(cmd)
+                    continue
+                yield line
+
+    sys.stdin = Commands(sys.stdin)
+    runpy.run_module(REPLICA_MODULE, run_name="__main__", alter_sys=True)
+
+
+class WatchedSpawns:
+    """While active, every replica the fleet's spawn helpers start runs
+    its module (``-m gatekeeper_tpu_torch.fleet.replica``, the same
+    arguments) under replica_watch: the helpers' subprocess module is
+    swapped for one whose Popen rewrites the command and stamps the start
+    (``started``: pid -> wall time)."""
+
+    def __init__(self):
+        self.started = {}
+
+    def __enter__(self):
+        from gatekeeper_tpu_torch.fleet import replica
+
+        def popen(cmd, **kw):
+            i = cmd.index("-m")
+            if cmd[i + 1] != REPLICA_MODULE:
+                raise AssertionError(f"not a replica's command: {cmd}")
+            cmd = cmd[:i] + ["-c", REPLICA_ENTRY, ROOT] + cmd[i + 2:]
+            t = time.time()
+            proc = subprocess.Popen(cmd, **kw)
+            self.started[proc.pid] = t
+            return proc
+
+        self._saved = replica.subprocess
+        replica.subprocess = types.SimpleNamespace(
+            Popen=popen, PIPE=subprocess.PIPE,
+            TimeoutExpired=subprocess.TimeoutExpired)
+        return self
+
+    def __exit__(self, *exc):
+        from gatekeeper_tpu_torch.fleet import replica
+
+        replica.subprocess = self._saved
+        return False
+
+    def pauses(self, handle, watched: dict) -> dict:
+        """A replica's collector pauses before its ready line, from its
+        watch."""
+        return GcPauses.before(watched["pauses"],
+                               self.started[handle.proc.pid]
+                               + handle.spawn_s)
+
+
+def watch_replica(h) -> dict:
+    """A replica's watch (replica_watch's answer)."""
+    got = h.command({"cmd": WATCH_CMD}, timeout_s=120)
+    if got.get("pid") != h.proc.pid:
+        raise AssertionError(f"replica {h.replica_id}'s watch: {got}")
+    return got
+
+
+def check_on_card(h, watched: dict) -> dict:
+    """A replica's driver on the card, its allocator holding memory
+    there -> what it holds."""
+    if watched["devices"] != ["cuda:0"] or not watched["cuda"] or \
+            watched["allocated_mib"] <= 0:
+        raise AssertionError(
+            f"replica {h.replica_id} is not on the card: devices "
+            f"{watched['devices']}, cuda {watched['cuda']}, allocated "
+            f"{watched['allocated_mib']} MiB")
+    return {"devices": watched["devices"],
+            "allocated_mib": watched["allocated_mib"],
+            "reserved_mib": watched["reserved_mib"]}
+
+
+def check_replica_launches(h, watched: dict, streams: int) -> dict:
+    """A replica's watch: every review_batch launched K1 and K9 once (K9
+    packing, on an admission batch of up to FLEET_ADMISSION_MAX reviews;
+    K9 then K10 on a stream chunk), ``streams`` stream commands' chunks
+    (their warm-up chunk included), and no launch outside a review_batch
+    -> its launches, its admission batches and chunks."""
+    n, chunk = FLEET_STREAM
+    want_chunks = streams * (1 + n // chunk + bool(n % chunk))
+    total, batches, reviews, chunks = {}, 0, 0, 0
+    for size, made, count in watched["calls"]:
+        if size == chunk:
+            want, chunks = FLEET_KERNELS, chunks + count
+        elif 0 < size <= FLEET_ADMISSION_MAX:
+            want = FLEET_ADMISSION_KERNELS
+            batches, reviews = batches + count, reviews + size * count
+        else:
+            raise AssertionError(f"replica {h.replica_id}: {count} "
+                                 f"review_batch calls of {size}")
+        if made != want:
+            raise AssertionError(
+                f"replica {h.replica_id}: {count} review_batch calls of "
+                f"{size} launched {made}, not {want}")
+        for k, v in made.items():
+            total[k] = total.get(k, 0) + v * count
+    if chunks != want_chunks or not batches or \
+            total != watched["launches"]:
+        raise AssertionError(
+            f"replica {h.replica_id}: {chunks} stream chunks (not "
+            f"{want_chunks}), {batches} admission batches, launches "
+            f"{watched['launches']} against its batches' {total}")
+    return {"launches": total, "admission_batches": batches,
+            "admission_reviews": reviews, "stream_chunks": chunks}
+
+
+def compute_apps() -> dict:
+    """pid -> MiB of device memory, of each process nvidia-smi lists on
+    the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    apps = {}
+    for ln in out.stdout.strip().splitlines():
+        pid, _, mib = ln.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = float(mib.strip() or 0)
+    return apps
+
+
+def kernel_cache_counts(port: int) -> dict:
+    """outcome -> count of the "kernels" cache in a replica's /metrics."""
+    import re
+
+    counts = {"hit": 0, "miss": 0}
+    for ln in metrics_text(port).splitlines():
+        m = re.match(r"\w*cache_requests_total\{([^}]*)\}\s+(\S+)", ln)
+        if not m:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+        if labels.get("cache") == "kernels":
+            counts[labels.get("outcome", "")] = float(m.group(2))
+    return counts
+
+
+def _post(port: int, body: bytes, headers=None) -> tuple:
+    """One plain-HTTP admission -> (status, headers, body, ms)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/admit", body=body, headers={
+            "Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, (
+            time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _check_fleet_answer(uid: str, data: bytes, sig) -> bool:
+    """A replica's or a door's body for request ``uid`` equal to phase
+    3's results ``sig`` for its pod -> denied."""
+    resp = json.loads(data)["response"]
+    allowed, msg = expected_response(sig)
+    status = resp.get("status") or {}
+    if resp.get("uid") != uid or resp["allowed"] != allowed or \
+            status.get("message") != msg or \
+            (not allowed and status.get("code") != 403):
+        raise AssertionError(f"{uid}: {resp} is not phase 3's "
+                             f"({allowed}, {msg!r})")
+    return not allowed
+
+
+def fleet_requests(pods, batch) -> tuple:
+    """Phase 3's 256 pods and its batch pods as admission bodies -> (the
+    pods', the batch's): the same bytes for every replica and door."""
+    return ([_admission(f"fleet-{i}", p) for i, p in enumerate(pods)],
+            [_admission(f"fleet-batch-{i}", p) for i, p in enumerate(batch)])
+
+
+def fleet_pass(port: int, label: str, bodies, sigs, smi: str) -> tuple:
+    """The bodies one at a time to ``port`` -> (their answers, denials);
+    each answer equal to phase 3's; p50 and p99 logged."""
+    out, lat, denied, rids = [], [], 0, {}
+    for i, body in enumerate(bodies):
+        st, hd, data, ms = _post(port, body)
+        if st != 200:
+            raise AssertionError(f"{label} {i}: HTTP {st}: {data[:200]!r}")
+        denied += _check_fleet_answer(f"fleet-{i}", data, sigs[i])
+        rid = hd.get("X-GK-Replica")
+        rids[rid] = rids.get(rid, 0) + 1
+        out.append(data)
+        lat.append(ms)
+    log("fleet_requests", path=label, n=len(lat),
+        p50_ms=statistics.median(lat), p99_ms=percentile(lat, 99),
+        max_ms=max(lat), denied=denied, replicas=rids, card=smi)
+    return out, denied
+
+
+def fleet_burst(port: int, label: str, bodies, sigs, smi: str) -> dict:
+    """PROCESS_BURST's clients, each its requests one at a time on its
+    own connections, to ``port`` -> the answers by index."""
+    import threading
+
+    n_threads, each = PROCESS_BURST
+    got, errors, lat = {}, [], []
+
+    def client_thread(t):
+        try:
+            for j in range(each):
+                i = t * each + j
+                st, _hd, data, ms = _post(port, bodies[i])
+                if st != 200:
+                    raise AssertionError(f"HTTP {st}")
+                _check_fleet_answer(f"fleet-batch-{i}", data, sigs[i])
+                got[i] = data
+                lat.append(ms)
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client_thread, args=(t,))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{label} burst: {errors[:3]}")
+    log("fleet_burst", path=label, clients=n_threads, requests=len(got),
+        seconds=wall, requests_per_s=len(got) / wall,
+        p50_ms=statistics.median(lat), p99_ms=percentile(lat, 99),
+        max_ms=max(lat), card=smi)
+    return got
+
+
+def fleet_stream(handles, smi: str) -> dict:
+    """The stream command on one replica alone, then on every replica at
+    once -> their replies."""
+    import threading
+
+    n, chunk = FLEET_STREAM
+    cmd = {"cmd": "stream", "n": n, "chunk": chunk}
+    alone = handles[0].command(cmd, timeout_s=FLEET_SPAWN_S)
+    replies, errors = {}, []
+
+    def one(h):
+        try:
+            replies[h.replica_id] = h.command(cmd, timeout_s=FLEET_SPAWN_S)
+        except Exception as e:  # surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=one, args=(h,)) for h in handles]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise AssertionError(f"the stream failed: {errors}")
+    t0 = max(r["t0_wall"] for r in replies.values())
+    t1 = min(r["t1_wall"] for r in replies.values())
+    first = min(r["t0_wall"] for r in replies.values())
+    last = max(r["t1_wall"] for r in replies.values())
+    total = sum(r["n"] for r in replies.values())
+    log("fleet_stream", n=n, chunk=chunk,
+        alone={"replica": alone["replica_id"], "s": alone["s"],
+               "reviews_per_s": alone["reviews_per_s"]},
+        together={rid: {"s": r["s"], "reviews_per_s": r["reviews_per_s"]}
+                  for rid, r in sorted(replies.items())},
+        together_sum_reviews_per_s=sum(r["reviews_per_s"]
+                                       for r in replies.values()),
+        overlap_s=t1 - t0, span_s=last - first,
+        together_reviews_per_s_over_span=total / (last - first),
+        card=smi)
+    return {"alone": alone, "together": replies}
+
+
+def fleet_kernels(client, smi: str) -> Capture:
+    """One review_batch of the stream's chunk of stored pods through phase
+    3's client, recorded -> its Capture, for holding K1, K9 and K10
+    against their plain versions at the shape the replicas' stream gives
+    them (the replicas' own launches are counted in their processes)."""
+    from gatekeeper_tpu_torch.fleet.replica import _stream_requests
+
+    gdev = _dev()
+    n, chunk = FLEET_STREAM
+    reqs = _stream_requests(types.SimpleNamespace(client=client), k=chunk)
+    if len(reqs) != chunk:
+        raise AssertionError(f"{len(reqs)} stored pods for a chunk of "
+                             f"{chunk}")
+    gdev.reset_launches()
+    with Capture(names=("match", "program_pack", "packbits")) as cap:
+        t0 = time.perf_counter()
+        client.driver.review_batch(reqs)
+        wall = time.perf_counter() - t0
+    got = {k: v for k, v in gdev.launches.items() if v}
+    if got != FLEET_KERNELS:
+        raise AssertionError(f"a review_batch of {chunk} launched {got}, "
+                             f"not {FLEET_KERNELS}")
+    log("fleet_parent_batch", reviews=chunk, seconds=wall, launches=got,
+        card=smi)
+    return cap
+
+
+def _joined(door_port: int, trace_id: str, wait_s: float):
+    """The door's /debug/fleet-traces entry for ``trace_id`` once it
+    holds a replica's half -> (the entry or None, the last payload)."""
+    import urllib.request
+
+    payload = {}
+    deadline = time.perf_counter() + wait_s
+    while time.perf_counter() < deadline:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{door_port}/debug/fleet-traces",
+                timeout=120) as r:
+            payload = json.loads(r.read())
+        entry = next((t for t in payload["traces"]
+                      if t["trace_id"] == trace_id
+                      and len(t["processes"]) > 1), None)
+        if entry is not None:
+            return entry, payload
+        time.sleep(0.5)
+    return None, payload
+
+
+def fleet_trace(door_port: int, collector_targets, live, body: bytes,
+                smi: str) -> dict:
+    """One admission through the door with a caller's traceparent, then
+    the door's /debug/fleet-traces -> the joined trace's stages.  The
+    first trace that does not join within FLEET_TRACE_WAIT_S fails the
+    phase, with what each side held: the door's wire spans (a retry onto
+    another replica shows as a second proxy_connect), the replicas the
+    collector could not fetch, whether the replica's tracer kept the
+    trace (its watch), the replicas' brownout levels and this process's
+    collector pauses in the wait.  It is sent once every live replica is
+    below brownout level 2, where a replica keeps every trace."""
+    from gatekeeper_tpu_torch.fleet.frontdoor import WIRE_STAGES
+    from gatekeeper_tpu_torch.obs import trace as obstrace
+    from gatekeeper_tpu_torch.obs.fleetobs import TraceCollector
+
+    collector = TraceCollector(collector_targets, timeout_s=10.0).install()
+    t0 = time.perf_counter()
+    while True:
+        levels = {h.replica_id: h.command({"cmd": "ping"}, timeout_s=60)
+                  .get("brownout_level") for h in live}
+        if max(levels.values()) < 2:
+            break
+        if time.perf_counter() - t0 > FLEET_BROWNOUT_WAIT_S:
+            raise AssertionError(f"the replicas stay browned out: {levels}")
+        time.sleep(0.5)
+    brownout_wait_s = time.perf_counter() - t0
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        t0 = time.perf_counter()
+        st, hd, _data, _ms = _post(door_port, body, {
+            "traceparent": f"00-{FLEET_TRACE_ID}-00f067aa0ba902b7-01"})
+        if st != 200 or hd.get("X-GK-Trace-Id") != FLEET_TRACE_ID:
+            raise AssertionError(f"the traced request: {st}, {hd}")
+        rid = hd["X-GK-Replica"]
+        entry, payload = _joined(door_port, FLEET_TRACE_ID,
+                                 FLEET_TRACE_WAIT_S)
+        wait_s = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(pauses)
+    kept = {h.replica_id: watch_replica(h)["traced"] for h in live}
+    if entry is None:
+        wire = [t for t in collector.tracer.traces()
+                if t["trace_id"] == FLEET_TRACE_ID]
+        raise AssertionError(
+            f"the replica half of trace {FLEET_TRACE_ID} (answered by "
+            f"{rid}) never joined the door's: door spans "
+            f"{[(s['name'], s.get('attrs')) for t in wire for s in t['spans']]}"
+            f", failed fetches {payload.get('failed_replicas')}, the "
+            f"replicas' tracers {kept}, brownout levels before {levels}, "
+            f"this process's collector pauses {pauses.take()}")
+
+    def stages(process):
+        return {(s.get("attrs") or {}).get("stage") for s in entry["spans"]
+                if s.get("process") == process} - {None}
+
+    door, replica = stages("frontdoor"), stages(rid)
+    dispatch = [s for s in entry["spans"] if s.get("process") == rid
+                and s["name"] == "tpu.dispatch"]
+    if not door or not door <= set(WIRE_STAGES) or \
+            not {obstrace.PACK, obstrace.DISPATCH} <= replica or \
+            not dispatch or dispatch[0]["attrs"].get("tier") != "torch" or \
+            [k["held"] for k in kept[rid]] != [True]:
+        raise AssertionError(f"the joined trace: door {door}, replica "
+                             f"{replica}, dispatch {dispatch}, the "
+                             f"replica's tracer {kept[rid]}")
+    out = {"replica": rid, "door_stages": sorted(door),
+           "replica_stages": sorted(replica), "joined_s": wait_s,
+           "brownout_levels": levels, "brownout_wait_s": brownout_wait_s,
+           "gc": pauses.take(),
+           "dispatch_ms": dispatch[0]["duration_ms"],
+           "dispatch_rows": dispatch[0]["attrs"].get("rows"), "card": smi}
+    log("fleet_trace", **out)
+    return out
+
+
+def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
+                process, smi: str):
+    """Phase 12: three webhook replicas (python -m
+    gatekeeper_tpu_torch.fleet.replica, --driver torch on the card)
+    restore phase 10's snapshot and load phase 11's sealed kernels ->
+    (the replicas' launches, each counted in its own process: every
+    replica's last watch, the killed one's before its kill; the Capture
+    of the parent's review at the stream's shape)."""
+    import signal
+
+    import torch
+
+    from gatekeeper_tpu_torch.fleet import (EventFrontDoor, FrontDoor,
+                                            ReplicaSupervisor, spawn_fleet)
+
+    snap_dir = os.path.join(ROOT, "build", "process_snapshots")
+    cache_dir = os.path.join(ROOT, "build", "restart_kernel_cache")
+    # what the replicas inherit: the card they may see, and whether a
+    # seal key is set (never its value)
+    log("fleet_env", cuda_visible_devices=os.environ.get(
+        "CUDA_VISIBLE_DEVICES"), seal_key_set=bool(os.environ.get(
+            "GK_SEAL_KEY")))
+    gdev = _dev()
+    n_sealed = len(gdev.KERNEL_NAMES)
+    bodies, batch_bodies = fleet_requests(pods, batch)
+    watch = WatchedSpawns()
+    # the doors and the trace collector run in this process, which holds
+    # phases 3-11's clients (5.6M objects; one full collection took 5.1 s
+    # beside an NVIDIA H100), where a door's own process holds none of
+    # them: frozen, they are out of the collector's generations while it
+    # drives the fleet
+    t0 = time.perf_counter()
+    gc.collect()
+    gc.freeze()
+    log("fleet_gc_freeze", full_collection_ms=(time.perf_counter() - t0)
+        * 1e3, frozen_objects=gc.get_freeze_count())
+    handles, doors, sup, fresh, pids = [], [], None, None, []
+    watched = {}  # pid -> the replica's last watch
+    torch.cuda.synchronize()
+    free0, total = torch.cuda.mem_get_info()
+    apps0 = compute_apps()
+    try:
+        with watch:
+            t0 = time.perf_counter()
+            handles = spawn_fleet(FLEET_REPLICAS, snapshot_dir=snap_dir,
+                                  cache_dir=cache_dir,
+                                  timeout_s=FLEET_SPAWN_S, sequential=False)
+            spawn_wall = time.perf_counter() - t0
+            pids = [h.proc.pid for h in handles]
+            free1, _ = torch.cuda.mem_get_info()
+            apps = compute_apps()
+            # nvidia-smi lists this process's pid unless the card's
+            # processes live in another pid namespace: then each replica
+            # says where its driver runs and what its allocator holds
+            visible = os.getpid() in apps0 or os.getpid() in apps
+            ready = []
+            for h in handles:
+                if h.ready["restore_outcome"] != "restored" or \
+                        h.ready["templates"] != args.templates:
+                    raise AssertionError(f"replica {h.replica_id}: "
+                                         f"{h.ready}")
+                cache = kernel_cache_counts(h.metrics_port)
+                if cache != {"hit": n_sealed, "miss": 0}:
+                    raise AssertionError(f"replica {h.replica_id} built "
+                                         f"kernels: {cache}")
+                if visible and h.proc.pid not in apps:
+                    raise AssertionError(f"replica {h.replica_id} (pid "
+                                         f"{h.proc.pid}) is not on the "
+                                         f"card: {apps}")
+                card = check_on_card(h, watch_replica(h))
+                ready.append({"replica": h.replica_id, "pid": h.proc.pid,
+                              "spawn_s": h.spawn_s, "ready_s": h.ready_s,
+                              "device_mib": apps.get(h.proc.pid),
+                              "kernel_cache": cache,
+                              "namespaces_seeded":
+                                  h.ready["namespaces_seeded"], **card})
+            # every replica's context beside what its allocator reserves
+            taken = (free0 - free1) / 2**20
+            need = sum(r["reserved_mib"] for r in ready) + \
+                FLEET_REPLICAS * FLEET_CONTEXT_MIB
+            if taken < need:
+                raise AssertionError(f"the replicas took {taken} MiB of the "
+                                     f"card, less than {need}")
+            log("fleet_ready", replicas=ready, spawn_wall_s=spawn_wall,
+                sequential=False, pids_visible=visible,
+                compute_apps_before=apps0, compute_apps_after=apps,
+                device_mib_taken=taken, device_mib_least=need,
+                device_mib_total=total / 2**20,
+                cold_ready_s=process["ready_s"],
+                warm_ready_s=process.get("warm_ready_s"), card=smi)
+
+            # phase 3's pods to every replica, and through both doors:
+            # every body the same bytes, each equal to phase 3's results
+            want, denied = fleet_pass(handles[0].port, "r0", bodies,
+                                      review_sigs, smi)
+            for h in handles[1:]:
+                got, _ = fleet_pass(h.port, h.replica_id, bodies,
+                                    review_sigs, smi)
+                if got != want:
+                    raise AssertionError(f"{h.replica_id}'s bodies differ")
+            threaded = FrontDoor([h.backend() for h in handles]).start()
+            doors.append(threaded)
+            evdoor = EventFrontDoor([h.wire_backend()
+                                     for h in handles]).start()
+            doors.append(evdoor)
+            for door, label in ((threaded, "frontdoor"),
+                                (evdoor, "evdoor")):
+                got, _ = fleet_pass(door.port, label, bodies, review_sigs,
+                                    smi)
+                if got != want:
+                    raise AssertionError(f"the {label}'s bodies differ")
+            burst = {}
+            for door, label in ((threaded, "frontdoor"),
+                                (evdoor, "evdoor")):
+                got = fleet_burst(door.port, label, batch_bodies,
+                                  batch_sigs, smi)
+                if burst and got != burst:
+                    raise AssertionError(f"the {label}'s burst differs")
+                burst = got
+
+            # the stream command: one replica alone, then all at once;
+            # then each replica's launches, counted in its process (the
+            # one killed below included)
+            fleet_stream(handles, smi)
+            counted = {}
+            for i, h in enumerate(handles):
+                watched[h.proc.pid] = watch_replica(h)
+                counted[h.replica_id] = check_replica_launches(
+                    h, watched[h.proc.pid], streams=2 if i == 0 else 1)
+            log("fleet_launches", at="after the stream", replicas=counted,
+                card=smi)
+
+            # self-heal: SIGKILL one replica under the supervisor
+            sup = ReplicaSupervisor(snapshot_dir=snap_dir,
+                                    cache_dir=cache_dir,
+                                    spawn_timeout_s=FLEET_SPAWN_S,
+                                    probe_timeout_s=2.0, miss_threshold=3)
+            for h in handles:
+                sup.adopt(h)
+            sup.start_monitor()
+            victim = handles[1]
+            free_a, _ = torch.cuda.mem_get_info()
+            t0 = time.perf_counter()
+            os.killpg(victim.proc.pid, signal.SIGKILL)
+            # what one replica held: freed with its context, seconds
+            # before its respawn can take a context again
+            time.sleep(2.0)
+            freed_mib = (torch.cuda.mem_get_info()[0] - free_a) / 2**20
+            deadline = t0 + FLEET_SPAWN_S
+            while time.perf_counter() < deadline:
+                st = sup.status()[victim.replica_id]
+                if st["restarts"] and st["state"] == "running":
+                    break
+                time.sleep(0.1)
+            back_s = time.perf_counter() - t0
+            status = sup.status()
+            others = {rid: s["restarts"] for rid, s in status.items()
+                      if rid != victim.replica_id}
+            if status[victim.replica_id]["restarts"] != 1 or any(
+                    others.values()):
+                raise AssertionError(f"the respawns: {status}")
+            fresh = next(h for h in sup.handles()
+                         if h.replica_id == victim.replica_id)
+            pids.append(fresh.proc.pid)
+            cache = kernel_cache_counts(fresh.metrics_port)
+            if fresh.ready["restore_outcome"] != "restored" or \
+                    cache != {"hit": n_sealed, "miss": 0}:
+                raise AssertionError(f"the respawn: {fresh.ready}, {cache}")
+            fresh_card = check_on_card(fresh, watch_replica(fresh))
+            got, _ = fleet_pass(fresh.port, "respawned", bodies,
+                                review_sigs, smi)
+            if got != want:
+                raise AssertionError("the respawned replica's bodies differ")
+            drained = sup.drain(handles[2].replica_id, deadline_ms=2000.0)
+            if drained.get("event") != "drained":
+                raise AssertionError(f"the drain: {drained}")
+            log("fleet_self_heal", replica=victim.replica_id,
+                killed_to_running_s=back_s, device_mib_freed=freed_mib,
+                last_restart_s=status[victim.replica_id]["last_restart_s"],
+                ready_s=fresh.ready_s, spawn_s=fresh.spawn_s,
+                respawned=fresh_card, restarts=status, drain=drained,
+                card=smi)
+
+            # one trace across the hop, through a door over the live
+            # replicas (the drained one answers no admission)
+            live = [h for h in sup.handles()
+                    if h.replica_id != handles[2].replica_id]
+            door = FrontDoor([h.backend() for h in live],
+                             probe_interval_s=3600.0).start()
+            doors.append(door)
+            fleet_trace(door.port, sup.trace_targets, live, bodies[0], smi)
+            if {rid: s["restarts"] for rid, s in sup.status().items()
+                    if rid != victim.replica_id} != others:
+                raise AssertionError(f"a respawn the phase did not cause: "
+                                     f"{sup.status()}")
+
+            # every live replica's launches at the end
+            counted = {}
+            for h in sup.handles():
+                streams = 0 if h is fresh else 2 if h is handles[0] else 1
+                watched[h.proc.pid] = watch_replica(h)
+                counted[h.replica_id] = check_replica_launches(
+                    h, watched[h.proc.pid], streams)
+            log("fleet_launches", at="the end", replicas=counted, card=smi)
+    finally:
+        for door in doors:
+            door.stop()
+        if sup is not None:
+            sup.stop()
+        for h in handles:
+            h.stop()
+        gc.unfreeze()
+    # the replicas' contexts leave the card: their pids leave nvidia-smi's
+    # list, and the device memory they took is free again (this process
+    # allocated none since free0)
+    deadline = time.perf_counter() + 30
+    while True:
+        apps = compute_apps()
+        free2, _ = torch.cuda.mem_get_info()
+        left = [p for p in apps if p in pids]
+        held_mib = (free0 - free2) / 2**20
+        if not left and held_mib < 256 or time.perf_counter() > deadline:
+            break
+        time.sleep(0.5)
+    if held_mib >= 256:
+        raise AssertionError(f"{held_mib} MiB of the card still taken "
+                             f"after the replicas stopped")
+    alive = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    if left or alive:
+        raise AssertionError(f"replicas left: on the card {left}, alive "
+                             f"{alive}")
+    launches = dict.fromkeys(gdev.LAUNCHERS, 0)
+    for w in watched.values():
+        for k, v in w["launches"].items():
+            launches[k] += v
+    log("fleet_stopped", pids=pids, compute_apps=apps,
+        device_mib_still_taken=held_mib, launches=launches,
+        gc_before_ready={f"{h.replica_id}:{h.proc.pid}":
+                         watch.pauses(h, watched[h.proc.pid])
+                         for h in handles + [fresh]}, card=smi)
+    return launches, fleet_kernels(client, smi)
+
 
 
 SPLIT_MODES = ("op_by_op", "k9")
@@ -5082,11 +5894,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     restart_launches = restart_phase(args, client, churn, process)
     log("restart", seconds=time.perf_counter() - t0)
+
+    # 12. the fleet: webhook replicas restoring phase 10's snapshot with
+    # phase 11's sealed kernels; K1, K9 and K10 held at the stream's shape
+    t0 = time.perf_counter()
+    fleet_launches, fleet_cap = fleet_phase(
+        args, client, pods, review_sigs, batch, batch_sigs, process, smi)
+    merge_rows(kernel_rows, check_kernels(
+        fleet_cap, REPS, timed=("match", "program_pack", "packbits"),
+        phase="kernel_fleet"))
+    del fleet_cap
+    log("fleet", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
                            + process_launches[name]
-                           + restart_launches[name])
+                           + restart_launches[name] + fleet_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

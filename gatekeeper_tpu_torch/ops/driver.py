@@ -96,6 +96,8 @@ from ..parallel.mesh import (
     visible_devices,
 )
 from ..device import kernels, select_device
+from ..metrics.catalog import DISPATCH_M, PACK_M, record_stage
+from ..obs import trace as obstrace
 from ..target.match import constraint_matches, needs_autoreject
 from ..target.target import K8sValidationTarget
 from .auditpack import AuditPackCache
@@ -617,19 +619,42 @@ class TorchDriver(InterpDriver):
         Both masks leave the device as one bit-packed uint8 array, packed
         by K9's launch and unpacked on the host, as in TpuDriver.  Under a
         mesh the review batch is evaluated in row slabs, one a shard
-        (sharded_masks)."""
+        (sharded_masks).
+
+        The pack (host) and the dispatch (upload, K1, K9, the packed
+        download, the unpack) are recorded as the stage spans and
+        histograms TpuDriver records; the download is the dispatch's
+        synchronisation point."""
+        t0 = time.perf_counter()
         mesh = self._mesh()
+        review_pack = self._review_pack(reviews)
+        side, rv, cols, rows = review_pack
+        t1 = time.perf_counter()
         if mesh is not None:
-            return sharded_masks(self, reviews, mesh)
-        side, rv, cols, rows = self._review_pack(reviews)
-        ordered, cp, _groups, _specs, crow = side
-        placed = self._constraint_device(side)
-        rv_d = state_from_numpy(rv, self.device)
-        cols_d = state_from_numpy(cols, self.device)
-        out = packed_empty(cp.arrays["valid"].shape[0], rows, self.device)
-        self._eval(side, rv_d, cols_d, placed, pack_out=out)
-        packed = out.cpu().numpy()
-        mask_np, rej_np = unpack_review_masks([packed], rows, crow, rows)
+            ordered, mask_np, rej_np = sharded_masks(
+                self, reviews, mesh, review_pack=review_pack)
+        else:
+            ordered, cp, _groups, _specs, crow = side
+            placed = self._constraint_device(side)
+            rv_d = state_from_numpy(rv, self.device)
+            cols_d = state_from_numpy(cols, self.device)
+            out = packed_empty(cp.arrays["valid"].shape[0], rows,
+                               self.device)
+            self._eval(side, rv_d, cols_d, placed, pack_out=out)
+            packed = out.cpu().numpy()
+            mask_np, rej_np = unpack_review_masks([packed], rows, crow, rows)
+        t2 = time.perf_counter()
+        # spans mirror into every request trace this batch serves; the
+        # histograms record the same intervals.  tier "torch" is the
+        # device path's name (--driver torch); the port has no breaker
+        obstrace.record_span("tpu.pack", t0, t1, stage=obstrace.PACK,
+                             reviews=len(reviews))
+        obstrace.record_span("tpu.dispatch", t1, t2,
+                             stage=obstrace.DISPATCH, tier="torch",
+                             rows=rows)
+        record_stage(PACK_M, t1 - t0, {"path": "review"})
+        record_stage(DISPATCH_M, t2 - t1, {"path": "review",
+                                           "tier": "torch"})
         return ordered, mask_np, rej_np
 
     # ---- referential policies (ops/joinkernel.py) -------------------------

@@ -497,15 +497,17 @@ class ShardedMask:
         return np.concatenate([s[c].cpu().numpy() for s in self.slabs])
 
 
-def _shard_evals(driver, reviews, mesh: TorchMesh, finish, pack=False):
+def _shard_evals(driver, reviews, mesh: TorchMesh, finish, pack=False,
+                 review_pack=None):
     """The review-mode evaluation of ``reviews`` in row slabs, one a
     shard: each shard's (mask, autoreject, packed) on its device goes
     through ``finish`` there (packed: both masks packed by K9's launch
     where ``pack``, else None), and every shard's launches are queued,
     under the driver's guarded mesh dispatch, before any result is read
     -> (ordered, crow, rows, slab, [finish's tensors on the host as
-    numpy] one list a shard)."""
-    side, rv, cols, rows = driver._review_pack(reviews)
+    numpy] one list a shard).  ``review_pack``: the driver's
+    ``_review_pack(reviews)`` where the caller made it already."""
+    side, rv, cols, rows = review_pack or driver._review_pack(reviews)
     shards, target = shard_review_side(mesh, rows, rv, cols)
     slab = target // int(mesh.devices.size)
     C = side[1].arrays["valid"].shape[0]
@@ -528,7 +530,7 @@ def _shard_evals(driver, reviews, mesh: TorchMesh, finish, pack=False):
     return side[0], side[4], rows, slab, out
 
 
-def sharded_masks(driver, reviews, mesh: TorchMesh):
+def sharded_masks(driver, reviews, mesh: TorchMesh, review_pack=None):
     """compute_masks, sharded over the mesh: each shard evaluates its row
     slab (match kernel + every violation-program group) on its device, and
     its K9 launch bit-packs its two masks there; each shard's download is
@@ -537,7 +539,8 @@ def sharded_masks(driver, reviews, mesh: TorchMesh):
     trimmed back to the single-device bucket so results compare bit for
     bit."""
     ordered, crow, rows, slab, outs = _shard_evals(
-        driver, reviews, mesh, lambda m, a, p: (p,), pack=True)
+        driver, reviews, mesh, lambda m, a, p: (p,), pack=True,
+        review_pack=review_pack)
     # crow folds the group-major pad rows out (driver._constraint_side)
     mask, rej = unpack_review_masks([p for (p,) in outs], slab, crow, rows)
     return ordered, mask, rej

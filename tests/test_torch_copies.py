@@ -4,9 +4,9 @@ provenance tags (issue, PR and review numbers in comments and docstrings,
 SCRUB) are dropped, except the functions named in CHANGED, which the
 port changed on purpose (the driver wiring, the parser and the refused
 flags of main.py, compilestats' pytree walk without JAX, the code
-fingerprint over the kernels' sources, and where the snapshot writer and
-loader move the resident mask between the host and the device).  A
-reader of the port reads only those."""
+fingerprint over the kernels' sources, where the snapshot writer and
+loader move the resident mask between the host and the device, and the
+fleet replica's driver flags).  A reader of the port reads only those."""
 
 import ast
 import pathlib
@@ -45,6 +45,10 @@ COPIED = (
     "snapshot/__init__.py", "snapshot/format.py", "snapshot/writer.py",
     "snapshot/loader.py",
     "main.py",
+    "fleet/__init__.py", "fleet/wireproto.py", "fleet/evloop.py",
+    "fleet/wirelistener.py", "fleet/frontdoor.py", "fleet/evdoor.py",
+    "fleet/replica.py", "fleet/supervisor.py",
+    "obs/fleetobs.py", "util/overloadcheck.py",
 )
 
 # file -> the top-level names (functions, classes' methods as
@@ -87,6 +91,18 @@ CHANGED = {
         # the mesh's shards, without jax.device_put
         "SnapshotLoader._restore_delta",
     },
+    "fleet/replica.py": {
+        # --driver interp|torch (default torch) and --torch-device
+        # (default cuda), as main.build_parser has them: a replica runs
+        # the card's kernels unless told otherwise, and without a card
+        # it fails to start (TorchDriver raises; no quiet fallback)
+        "_child_parser",
+        # both flags passed on to the App; GK_AOT_READ_MOSTLY dropped,
+        # since the kernel cache has no entries a replica could prune
+        # (a library's name hashes its sources, a broken seal is rebuilt
+        # under a temporary name and renamed into place)
+        "main",
+    },
 }
 
 # file -> (JAX text, port text): a change of a whole statement.  The
@@ -111,6 +127,12 @@ SCRUB = (
     (r"the PR (\d+)\n(\s*)(#?\s*)", r"the\n\2\3"),
     (r" / PR \d+ ", " / "),
     (r" \(round-\d+ VERDICT: [^)]*\)", ""),
+    (r" ISSUE \d+,\n(\s*)docs/", r"\n\1docs/"),
+    (r" \(ISSUE \d+,\n(\s*)# ([^)]*)\)", r"\n\1# (\2)"),
+    (r"the PR \d+ slow-client", "the slow-client"),
+    (r"\(PR \d+ contract, ", "("),
+    (r" \(the PR \d+ machinery\)", ""),
+    (r"the PR \d+ contention", "spawn_fleet's contention"),
 )
 TAGS = re.compile(r"ISSUE \d|\bPR \d|VERDICT")
 
