@@ -22,8 +22,10 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      and once a review in its review mode, where it packs the review's
      masks in the same launch), K10 never on a review (its side has
      groups) and never in a sweep, and vexpr.eval_program never (NoIR).
-     Then the same reviews again and one batch of 256 pods, K9's packing
-     calls recorded
+     Then the same pods again, each a request-memo hit (no launch, the
+     same results, its own p50 and p99), no batch diverted from the card
+     and the breaker closed; then the same reviews with the memos emptied
+     and one batch of 256 pods, K9's packing calls recorded
   4. each kernel against its plain version on the card, on the inputs the
      main path gave it, exactly (every output is bool or int32): K1 and K9
      on the cold sweep (every group) and on one one-pod review, K2 and K3
@@ -121,7 +123,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      (GK_VIRTUAL_DEVICES), and at up to 4 cards where more are visible.
      At each width a cold and a warm forced full sweep, whose results,
      totals, counts and [C, 1+K] first candidates must equal width 1's
-     bit for bit, K1, K9 and K4 launched once a shard, K7 once a shard
+     bit for bit (the memos emptied before each review batch), K1, K9 and
+     K4 launched once a shard, K7 once a shard
      and its merge once a join plan; churn of d = 1 and 16 through the
      delta path, delta_rows the dirty rows (with the readers of the key
      groups they touch), delta_shards and K5's launches their owning
@@ -144,12 +147,18 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      phase 3's corpus, a Config that syncs Pods, and the ~100,000 pods
      phase 3's client holds by now.  Its time from construction to
      /readyz, split into the kernels' load, template ingest and the pods'
-     sync; a cold audit cycle and warm ones; phase 3's 256 pods as
-     admission requests one at a time over one keep-alive HTTPS
-     connection, its batch pods from 8 client threads of 32 requests, and
-     64 requests sent while a forced full audit cycle holds the driver
-     (each answer equal to phase 3's results for its pod, none an error,
-     K1 and K9's review mode launched once for each review_batch call);
+     sync; its background calibration awaited (the model, its launches
+     counted apart: K1 and K9 on each of its seven compute_masks, K10
+     after K9 on the warm-up of all its objects and at 128 reviews); a cold audit cycle and warm ones; phase
+     3's 256 pods as admission requests one at a time over one keep-alive
+     HTTPS connection, then the same pods again (each a request-memo hit,
+     no evaluation, its own p50 and p99), its batch pods from 8 client
+     threads of 32 requests (the adaptive batcher awake: its batch sizes
+     and requests/s), and 64 pods it has not seen sent while a forced
+     full audit cycle holds the driver (each answer equal to phase 3's
+     client's results for its pod, none an error, K1 and K9's review mode
+     launched once for each review_batch call with a memo miss, no batch
+     diverted, the breaker closed);
      churn of d = 1 and 16 pods written through the store, each cycle on
      the delta path, then a full cycle (K6); every cycle's constraint
      totals equal to phase 3's client's sweep of the same inventory.  The
@@ -186,25 +195,46 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      the launches it made, and answers a watch command on its pipe: each
      replica's driver on cuda:0 with memory in its allocator, the card's
      memory taken at least every replica's reserve and a context each;
-     the collector's pauses in each before its ready line.  Phase 3's
-     256 pods to every replica, through the threaded FrontDoor and
-     through the EventFrontDoor (framed chunks to each WireListener):
-     every body the same bytes, each equal to phase 3's results; p50 and
-     p99 one at a time and a burst of 8 clients through each door.  The
+     the collector's pauses in each before its ready line; each
+     replica's background calibration awaited.  Phase 3's 256 pods to
+     every replica (every body the same bytes, each equal to phase 3's
+     results) and again to the first (each a request-memo hit, the same
+     bytes); pods of their own through the threaded FrontDoor and through
+     the EventFrontDoor (framed chunks to each WireListener), each equal
+     to phase 3's client's results; p50 and p99 one at a time and a burst
+     of 8 clients of pods no replica has seen through each door.  The
      stream command (8,192 reviews in chunks of 2,048) on one replica,
      then on the three at once; then every admission batch of every
-     replica must have launched K1 and K9 (packing) once, every stream
-     chunk (the warm-up's included) K1, K9 and K10 once, and no launch
-     outside them.  Under a ReplicaSupervisor one replica is SIGKILLed:
+     replica that evaluated a memo miss must have launched K1 and K9
+     (packing) once, one whose reviews all hit nothing, every stream
+     chunk (the warm-up's included) K1, K9 and K10 once, its one
+     calibration the known launches, no launch outside them, and no
+     batch diverted (route_decisions_total in its /metrics).  Under a ReplicaSupervisor one replica is SIGKILLed:
      it must come back restored and on the card, answer the 256 pods
      byte for byte, no other replica respawned; drain replies drained.
-     One request with a traceparent through a door: /debug/fleet-traces
+     One request of a pod no replica has seen, with a traceparent,
+     through a door: /debug/fleet-traces
      joins the door's wire stages with the replica's pack and dispatch,
      the first miss failing.  The live replicas' launches checked again;
      the kernels line counts the replicas' own.  Every replica stopped,
      the card's memory back; then phase 3's client reviews one chunk of
      2,048 stored pods, K1, K9 and K10 once each, held exactly against
      the plain versions
+ 13. the serving seam, on phase 3's client: calibrate_routing (its model,
+     its wall, K1 and K9 on each of its seven calls and K10 after K9 on
+     the warm-up and at 128 reviews) and predicted_batch_ms at 1, 8 and 64 reviews beside
+     review_batch walls of fresh pods, flagged at the stored corpus's
+     share (0.05) and at 0.5; 64 fresh pods one at a time (each
+     a request-memo miss, K1 and K9 once) and again (each a hit: no
+     launch, the same bytes), then a real change of a constraint that
+     flagged them: each stale entry repaired on the host, equal to the
+     card's answers once the memos are emptied.  Then the breaker:
+     TPU_DISPATCH errors injected through the fault plane (before any
+     launch): the three failed reviews answer byte-equal to their answers
+     with the breaker closed, the breaker opens, each divert counted as
+     device_failed or breaker_open, no launch while it is open; the
+     schedule cleared, the probe closes it (K1 and K9 once), and a review
+     launches K1 and K9 again
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON; the
@@ -3060,7 +3090,10 @@ def mesh_masks(client, driver, width: int) -> dict:
         p["metadata"]["name"] = f"mesh-admission-{i}"
     driver.set_mesh(True, width=1)
     _o, mask, rej = driver.compute_masks(reviews)
+    # the memos emptied before each review_batch: both evaluate
+    forget_reviews(driver)
     want = _review_bytes(client.review_batch(copy.deepcopy(pods)))
+    forget_reviews(driver)
     driver.set_mesh(True, width=width)
     names = ("program", "program_pack", "packbits")
 
@@ -3277,6 +3310,116 @@ PROCESS_READY_S = 600
 PROCESS_KERNELS = ("match", "program", "program_pack", "reduction",
                    "program_delta", "scatter")
 POD_GVK = ("", "v1", "Pod")
+# the background calibration every App runs at start
+# (TorchDriver.calibrate_routing's default runs): one warm-up call of its
+# CAL_RUNS * (1 + CAL_LARGE) objects (K1, K9, K10), then CAL_RUNS timed
+# calls of compute_masks and the render at one review and at CAL_LARGE,
+# each K1 and K9; K9 packs at one review (8 rows) and past
+# PACK_IN_K9_MAX_ROWS K10 packs after it
+CAL_RUNS = 3
+CAL_LARGE = 128
+# the longest an App's background calibration may take to set its model
+CAL_WAIT_S = 300
+# the route ledger's reasons for a batch the breaker diverted to the
+# interpreter: any outside phase 13 fails the run
+DIVERT_REASONS = ("device_failed", "breaker_open")
+
+
+def calibration_launches() -> dict:
+    """The launches of one calibrate_routing at the default runs."""
+    n = CAL_RUNS
+    return {"match": 2 * n + 1, "program_pack": n, "program": n + 1,
+            "packbits": n + 1}
+
+
+def check_calibration(evals: list) -> None:
+    """``evals``, the launches of each compute_masks of one calibration,
+    are the warm-up of them all and CAL_RUNS calls at one review, then
+    at CAL_LARGE."""
+    n = CAL_RUNS
+    large = {"match": 1, "program": 1, "packbits": 1}
+    want = [large] + [{"match": 1, "program_pack": 1}] * n + [large] * n
+    if evals != want:
+        raise AssertionError(f"the calibration's evaluations launched "
+                             f"{evals}, not {want}")
+
+
+def await_calibration(driver) -> float:
+    """Wait until an App's background calibration has set ``driver``'s
+    service model -> the seconds waited."""
+    t0 = time.perf_counter()
+    while driver._route_cal is None:
+        if time.perf_counter() - t0 > CAL_WAIT_S:
+            raise AssertionError(f"no calibration after {CAL_WAIT_S} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def forget_reviews(driver) -> None:
+    """Empty ``driver``'s request and review memos, as its reset does: the
+    next review of a pod it has answered evaluates on the card again."""
+    with driver._lock:
+        driver._request_memo.clear()
+        driver._review_memo.clear()
+
+
+def diverts() -> dict:
+    """'tier|reason' -> this process's route decisions of a divert
+    reason (route_decisions_total)."""
+    from gatekeeper_tpu_torch.metrics.views import global_registry
+
+    rows = global_registry().view_rows("route_decisions_total")
+    return {f"{t}|{r}": n for (t, r), n in rows.items()
+            if r in DIVERT_REASONS and n}
+
+
+def check_no_divert(where: str, *drivers) -> None:
+    """No batch or sweep of this process was diverted, and each driver's
+    breaker is closed."""
+    got = diverts()
+    states = [d.breaker.state for d in drivers]
+    if got or any(s != "closed" for s in states):
+        raise AssertionError(f"{where}: diverts {got}, breakers {states}")
+
+
+def replica_diverts(port: int) -> dict:
+    """A replica's route decisions of a divert reason, from its
+    /metrics."""
+    import re
+
+    out = {}
+    for ln in metrics_text(port).splitlines():
+        m = re.match(r"\w*route_decisions_total\{([^}]*)\}\s+(\S+)", ln)
+        if not m:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+        if labels.get("reason") in DIVERT_REASONS and float(m.group(2)):
+            out[f"{labels.get('tier')}|{labels['reason']}"] = float(
+                m.group(2))
+    return out
+
+
+def fresh_pods(n: int, seed: int, tag: str, rate: float = 0.5) -> list:
+    """``n`` synthetic pods named ``tag``-i, about ``rate`` of them
+    flagged: content no App, replica or memo has seen."""
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    pods = syn.make_pods(n, seed=seed, violation_rate=rate)
+    for i, p in enumerate(pods):
+        p["metadata"]["name"] = f"{tag}-{i}"
+    return pods
+
+
+def results_of(client, pods) -> list:
+    """Phase 3's client's results for ``pods`` (the answers an App must
+    give), in batches of at most the request memo's bound."""
+    import copy
+
+    out = []
+    for i in range(0, len(pods), 64):
+        out += [results_sig(r.results()) for r in
+                client.review_batch(copy.deepcopy(pods[i:i + 64]))]
+    return out
 
 
 def results_sig(results) -> list:
@@ -3310,17 +3453,22 @@ class KubeWriter:
 
 
 class ProcessSpy:
-    """Wraps the App driver's review_batch and compute_masks: each review
-    batch's results by request uid and its size, and the launches each
-    review evaluation made.  compute_masks runs under the driver's lock, so
-    no sweep's launches fall inside it."""
+    """Wraps the App driver's review_batch, _review_batch_eval (the
+    evaluation of a batch's memo misses) and compute_masks: each review
+    batch's results by request uid and its size, the batches that
+    evaluated misses, and the launches each evaluation made (the
+    background calibration's too).  compute_masks runs under the driver's
+    lock, so no sweep's launches fall inside it."""
 
     def __init__(self, driver):
         self.driver = driver
         self.sizes, self.results, self.per_eval = [], {}, []
+        self.missed = []  # the review count of each batch's misses
         self._batch = driver.review_batch
+        self._eval = driver._review_batch_eval
         self._masks = driver.compute_masks
         driver.review_batch = self.review_batch
+        driver._review_batch_eval = self.review_batch_eval
         driver.compute_masks = self.compute_masks
 
     def review_batch(self, reviews, tracing=False):
@@ -3332,6 +3480,10 @@ class ProcessSpy:
             uid = review["uid"]
             self.results[uid] = results_sig(results)
         return out
+
+    def review_batch_eval(self, reviews, tracing, memo_reviews=None):
+        self.missed.append(len(reviews))
+        return self._eval(reviews, tracing, memo_reviews=memo_reviews)
 
     def compute_masks(self, reviews):
         before = dict(_dev().launches)
@@ -3574,6 +3726,11 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     # App's store is filled with
     force_full(driver)
     _resp, ref_totals = client.audit_capped(CAP)
+    # pods the App has not seen, for the requests sent during an audit
+    # cycle, with their answers from phase 3's client (outside the
+    # counted run)
+    during_pods = fresh_pods(PROCESS_DURING_AUDIT, SEED + 93, "during")
+    during_sigs = results_of(client, during_pods)
     t0 = time.perf_counter()
     kube, constraints, n_pods = process_store(churn, args.templates)
     log("process_store", seconds=time.perf_counter() - t0, pods=n_pods,
@@ -3634,6 +3791,16 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
             start_s=t_started - t_built, templates_ingested_s=marks[
                 "templates"], pods_synced_s=marks["pods"],
             ready_s=marks["ready"], pods=n_pods)
+        # the App's background calibration, awaited before any counted
+        # traffic: its evaluations are known and counted apart
+        cal_wait_s = await_calibration(adriver)
+        cal_evals, spy.per_eval = spy.per_eval, []
+        check_calibration(cal_evals)
+        log("process_calibration", model=adriver._route_cal,
+            waited_after_ready_s=cal_wait_s,
+            launches=calibration_launches(),
+            predicted_ms={n: adriver.predicted_batch_ms(n)
+                          for n in (1, 8, 32, 64)}, **pauses.take())
 
         # the audit: a cold cycle (a full sweep) and warm ones, each
         # equal to phase 3's sweep of the same inventory
@@ -3657,6 +3824,25 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
         log("process_reviews", n=len(lat), p50_ms=statistics.median(lat),
             p99_ms=percentile(lat, 99), max_ms=max(lat), denied=denied,
             batches=len(spy.sizes), slowest_ms=sorted(lat)[-5:],
+            **pauses.take())
+        # the same pods again, one at a time over the same connection:
+        # each a request-memo hit, measured in a pass of its own, with no
+        # evaluation and the same answers
+        evals0, missed0 = len(spy.per_eval), len(spy.missed)
+        rep_want, rep_answers, rep_lat = {}, {}, []
+        for i, pod in enumerate(pods):
+            uid = f"repeat-{i}"
+            rep_want[uid] = review_sigs[i]
+            rep_answers[uid], ms = admit(conn, uid, pod)
+            rep_lat.append(ms)
+        check_answers(rep_answers, spy, rep_want)
+        if len(spy.per_eval) != evals0 or len(spy.missed) != missed0:
+            raise AssertionError("a repeated pod was evaluated again")
+        want.update(rep_want)
+        answers.update(rep_answers)
+        log("process_reviews_repeated", n=len(rep_lat),
+            p50_ms=statistics.median(rep_lat),
+            p99_ms=percentile(rep_lat, 99), max_ms=max(rep_lat),
             **pauses.take())
 
         # a burst: phase 3's batch pods from client threads, each on its
@@ -3691,12 +3877,17 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
         answers.update({uid: r for uid, (r, _ms) in burst.items()})
         burst_lat = [ms for _r, ms in burst.values()]
         sizes = spy.sizes[sizes0:]
+        mb = app.micro_batcher
         log("process_burst", clients=n_threads, requests=len(burst),
             seconds=burst_s, requests_per_s=len(burst) / burst_s,
             p50_ms=statistics.median(burst_lat),
             p99_ms=percentile(burst_lat, 99), max_ms=max(burst_lat),
             batches=len(sizes), batch_sizes=sorted(sizes),
-            mean_batch=len(burst) / len(sizes), **pauses.take())
+            mean_batch=len(burst) / len(sizes),
+            batcher={"adaptive": mb.adaptive, "target": mb._target_batch,
+                     "deadline_ms": mb._deadline_s * 1e3,
+                     "offered_rps": mb._load_rps},
+            **pauses.take())
 
         # requests while an audit cycle holds the driver: a full sweep
         # (forced) in a thread, and PROCESS_DURING_AUDIT requests sent once
@@ -3723,8 +3914,8 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
         t0 = time.perf_counter()
         for i in range(PROCESS_DURING_AUDIT):
             uid = f"during-{i}"
-            want[uid] = review_sigs[i]
-            answers[uid], ms = admit(conn, uid, pods[i])
+            want[uid] = during_sigs[i]
+            answers[uid], ms = admit(conn, uid, during_pods[i])
             during.append((time.perf_counter() - t0, ms))
         th.join()
         adriver.audit_capped = sweep
@@ -3739,16 +3930,22 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
                                       if t < audit_wall[0]),
             slowest_ms=sorted(lat_d)[-5:], **pauses.take())
         denied = check_answers(answers, spy, want)
+        # K1 and K9's review mode once for each review_batch call with a
+        # miss; a call whose reviews all hit the memo launches nothing
         evals = spy.per_eval
         want_eval = {"match": 1, "program_pack": 1}
         bad = [e for e in evals if e != want_eval]
-        if bad or len(evals) != len(spy.sizes):
+        if bad or len(evals) != len(spy.missed) or \
+                len(spy.missed) > len(spy.sizes):
             raise AssertionError(f"a review evaluation launched {bad[:3]}: "
                                  f"K1 and K9's review mode once each for "
-                                 f"each of {len(spy.sizes)} review_batch "
-                                 f"calls ({len(evals)} evaluations)")
+                                 f"each of {len(spy.missed)} review_batch "
+                                 f"calls with a miss ({len(evals)} "
+                                 f"evaluations)")
         log("process_admission", requests=len(answers), denied=denied,
-            review_batch_calls=len(spy.sizes), evaluations=len(evals),
+            review_batch_calls=len(spy.sizes),
+            calls_with_a_miss=len(spy.missed),
+            reviews_missed=sum(spy.missed), evaluations=len(evals),
             launches_per_evaluation=want_eval)
 
         # churn written through the store, each d's cycles on the delta
@@ -3788,6 +3985,7 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
             if ln.startswith("# TYPE "))
         if app.audit_manager.consecutive_failures:
             raise AssertionError("an audit cycle failed")
+        check_no_divert("the process", driver, adriver)
         # the snapshot of the inventory as the last cycle left it, for
         # phase 11's restart; the resident mask is what it must restore
         written = adriver._delta_state.mask_src.get()
@@ -3808,9 +4006,11 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     if missing:
         raise AssertionError(f"kernels never launched by the process: "
                              f"{missing}")
-    if launches["packbits"] or launches["delta"]:
-        raise AssertionError(f"K10 or K5 launched in the process: "
-                             f"{launches}")
+    # K10 only in the calibration's calls past PACK_IN_K9_MAX_ROWS
+    if launches["packbits"] != calibration_launches()["packbits"] or \
+            launches["delta"]:
+        raise AssertionError(f"K10 beside the calibration's, or K5, "
+                             f"launched in the process: {launches}")
     # K9's delta mode: once for each of the App's delta cycles
     n_delta = sum(1 for c in cycles if c["path"] == "delta")
     if launches["program_delta"] != n_delta:
@@ -3923,9 +4123,11 @@ class SweepSpy:
 
 def restart_app(flags, kube, n_templates: int, n_constraints: int,
                 n_pods: int):
-    """Construct and start an App over ``kube`` and wait until it serves
-    and holds the store's pods -> (app, its marks: construction, start,
-    and the seconds from construction to each readiness mark)."""
+    """Construct and start an App over ``kube`` and wait until it serves,
+    holds the store's pods and has calibrated its driver in the
+    background -> (app, its marks: construction, start, the seconds from
+    construction to each readiness mark, and the calibration's wait
+    after them)."""
     from gatekeeper_tpu_torch.main import App, build_parser
 
     t_start = time.perf_counter()
@@ -3939,6 +4141,7 @@ def restart_app(flags, kube, n_templates: int, n_constraints: int,
                             n_pods)
         conn.close()
         synced(app)
+        marks["calibration_wait_s"] = await_calibration(app.client.driver)
     except BaseException:
         app.stop()
         raise
@@ -4000,6 +4203,11 @@ def restart_process(args, client, churn, process) -> dict:
             raise AssertionError(f"the restart restored "
                                  f"{app.snapshot_restore_outcome}, "
                                  f"{spy.calls}")
+        # the restored App's calibration, before its first cycle
+        cal_launches = {k: v for k, v in gdev.launches.items() if v}
+        if cal_launches != calibration_launches():
+            raise AssertionError(f"the restored App's calibration launched "
+                                 f"{cal_launches}")
         cycles = []
         with SweepSpy(adriver) as sweeps:
             rec = cycle(app, "first", cycles, want_totals, constraints)
@@ -4029,7 +4237,8 @@ def restart_process(args, client, churn, process) -> dict:
     finally:
         app.stop()
     want_launch = {"match": 1, "program_delta": 1}
-    got = {k: v for k, v in launches.items() if v}
+    got = {k: v - cal_launches.get(k, 0) for k, v in launches.items()
+           if v != cal_launches.get(k, 0)}
     if got != want_launch:
         raise AssertionError(f"the restored App's first cycle launched "
                              f"{got}, not K1 and K9's delta mode once")
@@ -4039,7 +4248,8 @@ def restart_process(args, client, churn, process) -> dict:
         delta_restored=loader.delta_restored, churn=ops,
         warm_marks=warm, cold_ready_s=process["ready_s"],
         start_split=split.split(), gc_until_ready=ready_gc,
-        first_cycle=rec, launches=launches, mask_equal_on_card=True)
+        first_cycle=rec, launches=launches, calibration=cal_launches,
+        model=adriver._route_cal, mask_equal_on_card=True)
     return launches
 
 
@@ -4445,11 +4655,13 @@ def replica_watch():
     which then runs the replica's module as ``python -m`` runs it.  It
     keeps the collector's pauses (a GcPauses with stamps), every
     TorchDriver.review_batch's review count with the launches that call
-    made, and, for FLEET_TRACE_ID's trace, whether the tracer kept it.
-    The command {"cmd": "watch"} on stdin is answered here with all of
-    that, the launch counts, the driver's device and the card memory the
-    process's allocator holds; every other line goes on to the replica's
-    command loop."""
+    made and whether it evaluated memo misses (_review_batch_eval), every
+    background calibrate_routing with its model and launches, and, for
+    FLEET_TRACE_ID's trace, whether the tracer kept it.  The command
+    {"cmd": "watch"} on stdin is answered here with all of that, the
+    launch counts, the driver's device, its breaker's state and the card
+    memory the process's allocator holds; every other line goes on to the
+    replica's command loop."""
     import runpy
     import threading
 
@@ -4462,25 +4674,52 @@ def replica_watch():
 
     pauses = GcPauses(keep=True)
     gc.callbacks.append(pauses)
-    calls, devices, traced = {}, set(), []
+    calls, devices, traced, cals, drivers = {}, set(), [], [], []
     # the driver evaluates one batch at a time under its own lock; this
-    # one makes each call's launches its own
+    # one makes each call's launches, and the calibration's, its own
     lock = threading.Lock()
     review_batch = TorchDriver.review_batch
+    review_batch_eval = TorchDriver._review_batch_eval
+    calibrate = TorchDriver.calibrate_routing
+    evals = [0]
 
     def counted(self, reviews, tracing=False):
         with lock:
             before = dict(gdev.launches)
+            evals[0] = 0
             try:
                 return review_batch(self, reviews, tracing=tracing)
             finally:
                 made = {k: v - before[k] for k, v in gdev.launches.items()
                         if v != before[k]}
-                key = json.dumps([len(reviews), made], sort_keys=True)
+                key = json.dumps([len(reviews), made, evals[0]],
+                                 sort_keys=True)
                 calls[key] = calls.get(key, 0) + 1
                 devices.add(str(self.device))
+                if not any(d is self for d in drivers):
+                    drivers.append(self)
+
+    def evaluated(self, *a, **kw):
+        evals[0] += 1
+        return review_batch_eval(self, *a, **kw)
+
+    def calibrated(self, *a, **kw):
+        with lock:
+            before = dict(gdev.launches)
+            model = None
+            try:
+                model = calibrate(self, *a, **kw)
+                return model
+            finally:
+                cals.append({"model": model, "launches": {
+                    k: v - before[k] for k, v in gdev.launches.items()
+                    if v != before[k]}})
+                if not any(d is self for d in drivers):
+                    drivers.append(self)
 
     TorchDriver.review_batch = counted
+    TorchDriver._review_batch_eval = evaluated
+    TorchDriver.calibrate_routing = calibrated
     tracer = obstrace.get_tracer()
     complete = tracer.complete
 
@@ -4508,6 +4747,8 @@ def replica_watch():
             "reserved_mib": (torch.cuda.memory_reserved() / 2**20
                              if cuda else 0.0),
             "pauses": pauses.stamps, "traced": traced,
+            "calibrations": list(cals),
+            "breakers": [d.breaker.state for d in drivers],
             "reply_to": cmd.get("id")}), flush=True)
 
     class Commands:
@@ -4597,37 +4838,70 @@ def check_on_card(h, watched: dict) -> dict:
 
 
 def check_replica_launches(h, watched: dict, streams: int) -> dict:
-    """A replica's watch: every review_batch launched K1 and K9 once (K9
-    packing, on an admission batch of up to FLEET_ADMISSION_MAX reviews;
-    K9 then K10 on a stream chunk), ``streams`` stream commands' chunks
-    (their warm-up chunk included), and no launch outside a review_batch
-    -> its launches, its admission batches and chunks."""
+    """A replica's watch: every review_batch that evaluated launched K1
+    and K9 once (K9 packing, on an admission batch of up to
+    FLEET_ADMISSION_MAX reviews; K9 then K10 on a stream chunk), one whose
+    reviews all hit the request memo launched nothing, ``streams`` stream
+    commands' chunks (their warm-up chunk included), its one background
+    calibration the known launches (an attempt before any constraint
+    none), no launch outside them, and its breaker closed -> its
+    launches, its admission batches, memo-hit batches and chunks."""
     n, chunk = FLEET_STREAM
     want_chunks = streams * (1 + n // chunk + bool(n % chunk))
-    total, batches, reviews, chunks = {}, 0, 0, 0
-    for size, made, count in watched["calls"]:
-        if size == chunk:
+    total, batches, reviews, chunks, hits = {}, 0, 0, 0, 0
+    for size, made, evaluated, count in watched["calls"]:
+        if size == chunk and evaluated == 1:
             want, chunks = FLEET_KERNELS, chunks + count
-        elif 0 < size <= FLEET_ADMISSION_MAX:
+        elif 0 < size <= FLEET_ADMISSION_MAX and evaluated == 1:
             want = FLEET_ADMISSION_KERNELS
             batches, reviews = batches + count, reviews + size * count
+        elif 0 < size <= FLEET_ADMISSION_MAX and evaluated == 0:
+            want, hits = {}, hits + count
         else:
             raise AssertionError(f"replica {h.replica_id}: {count} "
-                                 f"review_batch calls of {size}")
+                                 f"review_batch calls of {size} with "
+                                 f"{evaluated} evaluations")
         if made != want:
             raise AssertionError(
                 f"replica {h.replica_id}: {count} review_batch calls of "
                 f"{size} launched {made}, not {want}")
         for k, v in made.items():
             total[k] = total.get(k, 0) + v * count
+    models = [c for c in watched["calibrations"] if c["model"]]
+    if len(models) != 1 or models[0]["launches"] != calibration_launches() \
+            or any(c["launches"] for c in watched["calibrations"]
+                   if not c["model"]):
+        raise AssertionError(f"replica {h.replica_id}'s calibrations: "
+                             f"{watched['calibrations']}")
+    for k, v in models[0]["launches"].items():
+        total[k] = total.get(k, 0) + v
     if chunks != want_chunks or not batches or \
             total != watched["launches"]:
         raise AssertionError(
             f"replica {h.replica_id}: {chunks} stream chunks (not "
             f"{want_chunks}), {batches} admission batches, launches "
-            f"{watched['launches']} against its batches' {total}")
+            f"{watched['launches']} against its batches' and "
+            f"calibration's {total}")
+    if watched["breakers"] != ["closed"]:
+        raise AssertionError(f"replica {h.replica_id}'s breaker: "
+                             f"{watched['breakers']}")
     return {"launches": total, "admission_batches": batches,
-            "admission_reviews": reviews, "stream_chunks": chunks}
+            "admission_reviews": reviews, "memo_hit_batches": hits,
+            "stream_chunks": chunks, "model": models[0]["model"]}
+
+
+def await_replica_calibration(h) -> dict:
+    """Poll a replica's watch until its background calibration has set a
+    model -> that watch."""
+    t0 = time.perf_counter()
+    while True:
+        got = watch_replica(h)
+        if any(c["model"] for c in got["calibrations"]):
+            return got
+        if time.perf_counter() - t0 > CAL_WAIT_S:
+            raise AssertionError(f"replica {h.replica_id} never "
+                                 f"calibrated: {got['calibrations']}")
+        time.sleep(0.5)
 
 
 def compute_apps() -> dict:
@@ -4696,6 +4970,15 @@ def fleet_requests(pods, batch) -> tuple:
     pods', the batch's): the same bytes for every replica and door."""
     return ([_admission(f"fleet-{i}", p) for i, p in enumerate(pods)],
             [_admission(f"fleet-batch-{i}", p) for i, p in enumerate(batch)])
+
+
+def fleet_fresh(client, n: int, seed: int, tag: str, batch: bool = False):
+    """``n`` pods no replica has seen as admission bodies, with phase 3's
+    client's results for them -> (bodies, results)."""
+    pods = fresh_pods(n, seed, tag)
+    uid = "fleet-batch-{}" if batch else "fleet-{}"
+    return ([_admission(uid.format(i), p) for i, p in enumerate(pods)],
+            results_of(client, pods))
 
 
 def fleet_pass(port: int, label: str, bodies, sigs, smi: str) -> tuple:
@@ -4844,6 +5127,22 @@ def _joined(door_port: int, trace_id: str, wait_s: float):
     return None, payload
 
 
+def replica_status(port: int) -> dict:
+    """A replica's /statusz: its brownout level and signals, and each
+    SLO objective's burn rates and firing alerts."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz",
+                                timeout=60) as r:
+        st = json.loads(r.read())
+    slo = st.get("slo") or {}
+    return {"brownout": st.get("brownout"),
+            "slo": {name: {k: o.get(k) for k in ("burn_rates", "alerts",
+                                                 "events_6h")}
+                    for name, o in (slo.get("objectives") or {}).items()}
+            if isinstance(slo.get("objectives"), dict) else slo}
+
+
 def fleet_trace(door_port: int, collector_targets, live, body: bytes,
                 smi: str) -> dict:
     """One admission through the door with a caller's traceparent, then
@@ -4853,8 +5152,13 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
     another replica shows as a second proxy_connect), the replicas the
     collector could not fetch, whether the replica's tracer kept the
     trace (its watch), the replicas' brownout levels and this process's
-    collector pauses in the wait.  It is sent once every live replica is
-    below brownout level 2, where a replica keeps every trace."""
+    collector pauses in the wait.  A replica at brownout level 2 or more
+    keeps 5% of its traces: the request waits up to FLEET_BROWNOUT_WAIT_S
+    for every live replica to be below 2, then goes through a door over
+    the live replicas below it (one whose SLO burn holds it at level 3
+    for minutes after the stream takes no part); none below it fails the
+    phase."""
+    from gatekeeper_tpu_torch.fleet import FrontDoor
     from gatekeeper_tpu_torch.fleet.frontdoor import WIRE_STAGES
     from gatekeeper_tpu_torch.obs import trace as obstrace
     from gatekeeper_tpu_torch.obs.fleetobs import TraceCollector
@@ -4864,12 +5168,24 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
     while True:
         levels = {h.replica_id: h.command({"cmd": "ping"}, timeout_s=60)
                   .get("brownout_level") for h in live}
-        if max(levels.values()) < 2:
+        if max(levels.values()) < 2 or \
+                time.perf_counter() - t0 > FLEET_BROWNOUT_WAIT_S:
             break
-        if time.perf_counter() - t0 > FLEET_BROWNOUT_WAIT_S:
-            raise AssertionError(f"the replicas stay browned out: {levels}")
         time.sleep(0.5)
     brownout_wait_s = time.perf_counter() - t0
+    keep = [h for h in live if levels[h.replica_id] < 2]
+    # what holds a browned-out replica there: its /statusz (the ladder's
+    # signals, the SLO objectives' burn rates and firing alerts)
+    held = {h.replica_id: replica_status(h.port) for h in live
+            if levels[h.replica_id] >= 2}
+    if not keep:
+        raise AssertionError(f"the replicas stay browned out: {levels}, "
+                             f"{held}")
+    own = None
+    if len(keep) < len(live):
+        own = FrontDoor([h.backend() for h in keep],
+                        probe_interval_s=3600.0).start()
+        door_port = own.port
     pauses = GcPauses()
     gc.callbacks.append(pauses)
     try:
@@ -4884,6 +5200,8 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
         wait_s = time.perf_counter() - t0
     finally:
         gc.callbacks.remove(pauses)
+        if own is not None:
+            own.stop()
     kept = {h.replica_id: watch_replica(h)["traced"] for h in live}
     if entry is None:
         wire = [t for t in collector.tracer.traces()
@@ -4913,6 +5231,8 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
     out = {"replica": rid, "door_stages": sorted(door),
            "replica_stages": sorted(replica), "joined_s": wait_s,
            "brownout_levels": levels, "brownout_wait_s": brownout_wait_s,
+           "door_replicas": [h.replica_id for h in keep],
+           "browned_out": held,
            "gc": pauses.take(),
            "dispatch_ms": dispatch[0]["duration_ms"],
            "dispatch_rows": dispatch[0]["attrs"].get("rows"), "card": smi}
@@ -4945,6 +5265,16 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
     gdev = _dev()
     n_sealed = len(gdev.KERNEL_NAMES)
     bodies, batch_bodies = fleet_requests(pods, batch)
+    # every pass that measures the device path sends pods its replicas
+    # have not seen (a repeat replays from the request memo): the doors'
+    # one-at-a-time passes and the event door's burst get pods of their
+    # own, their answers from phase 3's client; the repeats are a pass
+    # of their own
+    fresh = {label: fleet_fresh(client, len(pods), SEED + seed, label)
+             for label, seed in (("frontdoor", 92), ("evdoor", 91))}
+    fresh["evdoor_burst"] = fleet_fresh(client, len(batch), SEED + 90,
+                                        "evdoor-burst", batch=True)
+    trace_body = fleet_fresh(client, 1, SEED + 89, "fleet-trace")[0][0]
     watch = WatchedSpawns()
     # the doors and the trace collector run in this process, which holds
     # phases 3-11's clients (5.6M objects; one full collection took 5.1 s
@@ -4956,7 +5286,7 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
     gc.freeze()
     log("fleet_gc_freeze", full_collection_ms=(time.perf_counter() - t0)
         * 1e3, frozen_objects=gc.get_freeze_count())
-    handles, doors, sup, fresh, pids = [], [], None, None, []
+    handles, doors, sup, respawn, pids = [], [], None, None, []
     watched = {}  # pid -> the replica's last watch
     torch.cuda.synchronize()
     free0, total = torch.cuda.mem_get_info()
@@ -4989,7 +5319,10 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                     raise AssertionError(f"replica {h.replica_id} (pid "
                                          f"{h.proc.pid}) is not on the "
                                          f"card: {apps}")
-                card = check_on_card(h, watch_replica(h))
+                # its background calibration, before any counted traffic
+                t_cal = time.perf_counter()
+                card = check_on_card(h, await_replica_calibration(h))
+                card["calibration_wait_s"] = time.perf_counter() - t_cal
                 ready.append({"replica": h.replica_id, "pid": h.proc.pid,
                               "spawn_s": h.spawn_s, "ready_s": h.ready_s,
                               "device_mib": apps.get(h.proc.pid),
@@ -5011,8 +5344,10 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                 cold_ready_s=process["ready_s"],
                 warm_ready_s=process.get("warm_ready_s"), card=smi)
 
-            # phase 3's pods to every replica, and through both doors:
-            # every body the same bytes, each equal to phase 3's results
+            # phase 3's pods to every replica: every body the same bytes,
+            # each equal to phase 3's results; then the same pods to r0
+            # again, each a request-memo hit, the same bytes; then pods
+            # of their own through each door, each equal to phase 3's
             want, denied = fleet_pass(handles[0].port, "r0", bodies,
                                       review_sigs, smi)
             for h in handles[1:]:
@@ -5020,6 +5355,10 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                                     review_sigs, smi)
                 if got != want:
                     raise AssertionError(f"{h.replica_id}'s bodies differ")
+            got, _ = fleet_pass(handles[0].port, "r0_repeated", bodies,
+                                review_sigs, smi)
+            if got != want:
+                raise AssertionError("r0's repeated bodies differ")
             threaded = FrontDoor([h.backend() for h in handles]).start()
             doors.append(threaded)
             evdoor = EventFrontDoor([h.wire_backend()
@@ -5027,18 +5366,11 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             doors.append(evdoor)
             for door, label in ((threaded, "frontdoor"),
                                 (evdoor, "evdoor")):
-                got, _ = fleet_pass(door.port, label, bodies, review_sigs,
-                                    smi)
-                if got != want:
-                    raise AssertionError(f"the {label}'s bodies differ")
-            burst = {}
-            for door, label in ((threaded, "frontdoor"),
-                                (evdoor, "evdoor")):
-                got = fleet_burst(door.port, label, batch_bodies,
-                                  batch_sigs, smi)
-                if burst and got != burst:
-                    raise AssertionError(f"the {label}'s burst differs")
-                burst = got
+                fleet_pass(door.port, label, *fresh[label], smi)
+            for door, label, (b_bodies, b_sigs) in (
+                    (threaded, "frontdoor", (batch_bodies, batch_sigs)),
+                    (evdoor, "evdoor", fresh["evdoor_burst"])):
+                fleet_burst(door.port, label, b_bodies, b_sigs, smi)
 
             # the stream command: one replica alone, then all at once;
             # then each replica's launches, counted in its process (the
@@ -5081,15 +5413,17 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             if status[victim.replica_id]["restarts"] != 1 or any(
                     others.values()):
                 raise AssertionError(f"the respawns: {status}")
-            fresh = next(h for h in sup.handles()
-                         if h.replica_id == victim.replica_id)
-            pids.append(fresh.proc.pid)
-            cache = kernel_cache_counts(fresh.metrics_port)
-            if fresh.ready["restore_outcome"] != "restored" or \
+            respawn = next(h for h in sup.handles()
+                           if h.replica_id == victim.replica_id)
+            pids.append(respawn.proc.pid)
+            cache = kernel_cache_counts(respawn.metrics_port)
+            if respawn.ready["restore_outcome"] != "restored" or \
                     cache != {"hit": n_sealed, "miss": 0}:
-                raise AssertionError(f"the respawn: {fresh.ready}, {cache}")
-            fresh_card = check_on_card(fresh, watch_replica(fresh))
-            got, _ = fleet_pass(fresh.port, "respawned", bodies,
+                raise AssertionError(f"the respawn: {respawn.ready}, "
+                                     f"{cache}")
+            fresh_card = check_on_card(respawn,
+                                       await_replica_calibration(respawn))
+            got, _ = fleet_pass(respawn.port, "respawned", bodies,
                                 review_sigs, smi)
             if got != want:
                 raise AssertionError("the respawned replica's bodies differ")
@@ -5099,7 +5433,7 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             log("fleet_self_heal", replica=victim.replica_id,
                 killed_to_running_s=back_s, device_mib_freed=freed_mib,
                 last_restart_s=status[victim.replica_id]["last_restart_s"],
-                ready_s=fresh.ready_s, spawn_s=fresh.spawn_s,
+                ready_s=respawn.ready_s, spawn_s=respawn.spawn_s,
                 respawned=fresh_card, restarts=status, drain=drained,
                 card=smi)
 
@@ -5110,19 +5444,25 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             door = FrontDoor([h.backend() for h in live],
                              probe_interval_s=3600.0).start()
             doors.append(door)
-            fleet_trace(door.port, sup.trace_targets, live, bodies[0], smi)
+            fleet_trace(door.port, sup.trace_targets, live, trace_body,
+                        smi)
             if {rid: s["restarts"] for rid, s in sup.status().items()
                     if rid != victim.replica_id} != others:
                 raise AssertionError(f"a respawn the phase did not cause: "
                                      f"{sup.status()}")
 
-            # every live replica's launches at the end
+            # every live replica's launches at the end, and no divert
             counted = {}
             for h in sup.handles():
-                streams = 0 if h is fresh else 2 if h is handles[0] else 1
+                streams = 0 if h is respawn else 2 if h is handles[0] \
+                    else 1
                 watched[h.proc.pid] = watch_replica(h)
                 counted[h.replica_id] = check_replica_launches(
                     h, watched[h.proc.pid], streams)
+                if replica_diverts(h.metrics_port):
+                    raise AssertionError(
+                        f"replica {h.replica_id} diverted batches: "
+                        f"{replica_diverts(h.metrics_port)}")
             log("fleet_launches", at="the end", replicas=counted, card=smi)
     finally:
         for door in doors:
@@ -5165,9 +5505,203 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
         device_mib_still_taken=held_mib, launches=launches,
         gc_before_ready={f"{h.replica_id}:{h.proc.pid}":
                          watch.pauses(h, watched[h.proc.pid])
-                         for h in handles + [fresh]}, card=smi)
+                         for h in handles + [respawn]}, card=smi)
     return launches, fleet_kernels(client, smi)
 
+
+
+# ---- phase 13: the serving seam (the breaker, the memos, the model) ---------
+
+# batch sizes whose predicted_batch_ms is printed beside measured
+# review_batch walls of fresh pods, and the walls measured at each
+SEAM_PREDICT = (1, 8, 64)
+SEAM_WALLS = 8
+# the flagged shares of those pods: the stored corpus's (the content the
+# calibration times) and phase 3's admissions'
+SEAM_RATES = (0.05, 0.5)
+# one-pod reviews of the memo's pass (misses, then hits)
+SEAM_MEMO_PODS = 64
+# one-pod reviews of the breaker's pass: the failed ones (the breaker's
+# threshold), those while it is open, and one after it closed
+SEAM_BREAKER_OPEN = 4
+# the breaker's cooldown and probe interval in the phase (5 s by
+# default), and the longest its probe may take to close it
+SEAM_PROBE_S = 0.5
+SEAM_CLOSE_WAIT_S = 60
+
+
+def review_launches(n: int) -> dict:
+    """The launches of one evaluation of ``n`` reviews: K1 and K9 packing,
+    or past PACK_IN_K9_MAX_ROWS rows K1, K9 and K10."""
+    from gatekeeper_tpu_torch.ops import program
+    from gatekeeper_tpu_torch.ops.pack import _bucket
+
+    if _bucket(n, 8) <= program.PACK_IN_K9_MAX_ROWS:
+        return {"match": 1, "program_pack": 1}
+    return {"match": 1, "program": 1, "packbits": 1}
+
+
+def serving_phase(client, driver, smi: str) -> dict:
+    """Phase 13 on phase 3's client -> the launches of its run.  The
+    calibration (its model, its wall and its launches) and its prediction
+    beside measured walls; the request memo (misses, hits, a real
+    constraint change); the breaker under injected dispatch errors (the
+    fault plane's TPU_DISPATCH, Python exceptions raised before any
+    launch, so the card's context stays sound)."""
+    import copy
+
+    from gatekeeper_tpu_torch import faults
+    from gatekeeper_tpu_torch.faults import FaultRule
+
+    gdev = _dev()
+    gdev.reset_launches()
+    check_no_divert("before the serving seam", driver)
+
+    def made_by(fn):
+        before = dict(gdev.launches)
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, {k: v - before[k] for k, v in gdev.launches.items()
+                         if v != before[k]}
+
+    def one(pod):
+        """One review of a copy of ``pod`` -> (its bytes, ms, launches)."""
+        out, ms, made = made_by(lambda: client.review(copy.deepcopy(pod)))
+        return _review_bytes([out])[0], ms, made
+
+    # the calibration: its model, wall and launches, then its prediction
+    # beside review_batch walls of fresh pods
+    cal, cal_ms, made = made_by(driver.calibrate_routing)
+    if made != calibration_launches() or cal is None:
+        raise AssertionError(f"the calibration launched {made}: {cal}")
+    model = []
+    for rate, n in ((r, n) for r in SEAM_RATES for n in SEAM_PREDICT):
+        pods = fresh_pods(n * SEAM_WALLS, SEED + 80 + n,
+                          f"seam-wall-{rate}-{n}", rate)
+        walls = []
+        for j in range(SEAM_WALLS):
+            batch = copy.deepcopy(pods[j * n:(j + 1) * n])
+            _out, ms, made = made_by(lambda: client.review_batch(batch))
+            if made != review_launches(n):
+                raise AssertionError(f"a review_batch of {n} fresh pods "
+                                     f"launched {made}")
+            walls.append(ms)
+        predicted = driver.predicted_batch_ms(n)
+        model.append({"rate": rate, "reviews": n, "predicted_ms": predicted,
+                      "p50_ms": statistics.median(walls),
+                      "ratio": predicted / statistics.median(walls),
+                      "min_ms": min(walls), "max_ms": max(walls)})
+    log("serving_calibration", model=cal, wall_ms=cal_ms,
+        launches=calibration_launches(), predicted_vs_measured=model,
+        card=smi)
+
+    # the memo: fresh pods one at a time (each a miss, K1 and K9 once),
+    # the same pods again (each a hit: no launch, the same bytes)
+    pods = fresh_pods(SEAM_MEMO_PODS, SEED + 70, "seam-memo")
+    first, miss_lat, hit_lat = [], [], []
+    for pod in pods:
+        got, ms, made = one(pod)
+        if made != review_launches(1):
+            raise AssertionError(f"a memo miss launched {made}")
+        first.append(got)
+        miss_lat.append(ms)
+    for i, pod in enumerate(pods):
+        got, ms, made = one(pod)
+        if made or got != first[i]:
+            raise AssertionError(f"a memo hit launched {made} or answered "
+                                 f"otherwise")
+        hit_lat.append(ms)
+    # a real constraint change (the enforcement action of a constraint
+    # that flagged these pods): each stored entry misses at its epoch and
+    # is repaired, the changed constraint evaluated again on the host;
+    # the repaired answers equal the card's after the memos are emptied
+    kind, name = next(json.loads(b)[:2] for sig in first for b in sig
+                      if json.loads(b)[3] == "deny")
+    stored = driver.constraints[kind][name]
+    changed = copy.deepcopy(stored)
+    changed["spec"]["enforcementAction"] = "dryrun"
+    client.add_constraint(changed)
+    repaired_keys = []
+    eval_one = driver._eval_one_key
+    driver._eval_one_key = lambda k, n_, *a, **kw: (
+        repaired_keys.append((k, n_)) or eval_one(k, n_, *a, **kw))
+    try:
+        repaired = [one(pod) for pod in pods]
+    finally:
+        del driver._eval_one_key
+    forget_reviews(driver)
+    evaluated = [one(pod) for pod in pods]
+    client.add_constraint(copy.deepcopy(stored))
+    if any(made for _b, _ms, made in repaired) or \
+            set(repaired_keys) != {(kind, name)} or \
+            len(repaired_keys) != len(pods) or \
+            [b for b, _ms, _m in repaired] != [b for b, _ms, _m in evaluated] \
+            or [b for b, _ms, _m in repaired] == first or \
+            any(m != review_launches(1) for _b, _ms, m in evaluated):
+        raise AssertionError(f"the memo after a change of {kind}/{name}: "
+                             f"repaired {len(repaired_keys)} entries")
+    log("serving_memo", pods=len(pods),
+        miss_p50_ms=statistics.median(miss_lat),
+        miss_p99_ms=percentile(miss_lat, 99),
+        hit_p50_ms=statistics.median(hit_lat),
+        hit_p99_ms=percentile(hit_lat, 99),
+        changed=f"{kind}/{name}", repaired=len(repaired_keys),
+        repaired_p50_ms=statistics.median(ms for _b, ms, _m in repaired),
+        changed_answers=sum(b != f for (b, _ms, _m), f
+                            in zip(repaired, first)), card=smi)
+
+    # the breaker: its answers with the breaker closed, then the same pods
+    # (the memos emptied) under injected dispatch errors
+    br = driver.breaker
+    br.cooldown_s = br.probe_interval_s = SEAM_PROBE_S
+    n_fail = br.failure_threshold
+    pods = fresh_pods(n_fail + SEAM_BREAKER_OPEN + 1, SEED + 60,
+                      "seam-breaker")
+    closed = [one(pod)[0] for pod in pods]
+    forget_reviews(driver)
+    plane = faults.install(seed=SEED)
+    try:
+        plane.add(faults.TPU_DISPATCH, FaultRule(mode="error"))
+        t_inject = time.perf_counter()
+        failed = [one(pod) for pod in pods[:n_fail]]
+        open_s = time.perf_counter() - t_inject
+        state_after = br.state
+        diverted = [one(pod) for pod in pods[n_fail:-1]]
+        counts = diverts()
+        before = dict(gdev.launches)
+        plane.clear(faults.TPU_DISPATCH)
+        t_clear = time.perf_counter()
+        while br.state != "closed":
+            if time.perf_counter() - t_clear > SEAM_CLOSE_WAIT_S:
+                raise AssertionError(f"the probe never closed the breaker: "
+                                     f"{br.status()}")
+            time.sleep(0.01)
+        closed_s = time.perf_counter() - t_clear
+        probe = {k: v - before[k] for k, v in gdev.launches.items()
+                 if v != before[k]}
+    finally:
+        faults.uninstall()
+    after = one(pods[-1])
+    answers = [b for b, _ms, _m in failed + diverted] + [after[0]]
+    want_counts = {"interp|device_failed": n_fail,
+                   "interp|breaker_open": len(diverted)}
+    if state_after != "open" or answers != closed or \
+            any(m for _b, _ms, m in failed + diverted) or \
+            counts != want_counts or probe != review_launches(1) or \
+            after[2] != review_launches(1):
+        raise AssertionError(
+            f"the breaker: {state_after} after {n_fail} failures, answers "
+            f"equal {answers == closed}, diverts {counts} (want "
+            f"{want_counts}), launches while failing "
+            f"{[m for _b, _ms, m in failed + diverted]}, the probe's "
+            f"{probe}, after {after[2]}")
+    log("serving_breaker", threshold=n_fail, inject_to_open_s=open_s,
+        clear_to_closed_s=closed_s, diverts=counts,
+        diverted_p50_ms=statistics.median(ms for _b, ms, _m in diverted),
+        probe_launches=probe, after_launches=after[2],
+        status=br.status(), card=smi)
+    return dict(gdev.launches)
 
 
 SPLIT_MODES = ("op_by_op", "k9")
@@ -5339,7 +5873,8 @@ def review_split(client, driver) -> dict:
                 mark("unpack")
                 resps = driver._render_masked(
                     reviews, ordered, m_np, r_np,
-                    driver._inventory_for_render())
+                    driver._inventory_for_render(),
+                    memo=size <= driver.REQUEST_MEMO_BATCH_MAX)
                 mark("render")
                 rec["total"].append((t[-1] - t[0]) * 1e3)
                 t0 = time.perf_counter()
@@ -5621,6 +6156,21 @@ def main(argv=None) -> int:
                              f"{missing}")
     log("launches", main_path=launches, per_sweep=per_sweep,
         per_review={k: v / len(pods) for k, v in review_launches.items()})
+    # the same pods again: each a request-memo hit (no launch, the same
+    # results), measured in a pass of its own
+    before_repeats = dict(gdev.launches)
+    rep_lat = []
+    for i, pod in enumerate(pods):
+        t0 = time.perf_counter()
+        out = client.review(pod)
+        rep_lat.append((time.perf_counter() - t0) * 1e3)
+        if results_sig(out.results()) != review_sigs[i]:
+            raise AssertionError(f"the repeat of pod {i} answers otherwise")
+    if dict(gdev.launches) != before_repeats:
+        raise AssertionError("a repeated review launched a kernel")
+    log("reviews_repeated", n=len(pods), p50_ms=statistics.median(rep_lat),
+        p99_ms=percentile(rep_lat, 99), max_ms=max(rep_lat))
+    check_no_divert("the main path", driver)
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -5653,8 +6203,10 @@ def main(argv=None) -> int:
     with Capture(names=("match", "program_pack")) as review_cap:
         client.review(pod)
     # K9's packing call on every review of phase 3: the same pods again,
-    # recorded (the counted loop is not, so its latencies carry no copies),
-    # then one batch of REVIEWS pods (R = 256)
+    # the memos emptied so each evaluates, recorded (the counted loop is
+    # not, so its latencies carry no copies), then one batch of REVIEWS
+    # pods (R = 256)
+    forget_reviews(driver)
     with Capture(names=("program_pack", "packbits")) as fold_cap:
         for p in pods:
             client.review(p)
@@ -5905,11 +6457,17 @@ def main(argv=None) -> int:
         phase="kernel_fleet"))
     del fleet_cap
     log("fleet", seconds=time.perf_counter() - t0)
+
+    # 13. the serving seam: the calibration, the memo and the breaker
+    t0 = time.perf_counter()
+    serving_launches = serving_phase(client, driver, smi)
+    log("serving", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
                            + process_launches[name]
-                           + restart_launches[name] + fleet_launches[name])
+                           + restart_launches[name] + fleet_launches[name]
+                           + serving_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

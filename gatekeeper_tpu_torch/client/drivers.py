@@ -543,6 +543,12 @@ class InterpDriver:
         TPU driver overrides this with a cap-bounded render over the device
         candidate mask."""
         results, trace = self.audit(tracing=tracing)
+        kept, totals = self._cap_results(results, cap)
+        return kept, totals, trace
+
+    def _cap_results(self, results: List[Result], cap: int):
+        """An uncapped audit's results -> (at most ``cap`` of them per
+        constraint, the exact totals of every registered constraint)."""
         totals: Dict[Tuple[str, str], Tuple[int, str]] = {}
         with self._lock:
             for kind in self.constraints:
@@ -558,7 +564,7 @@ class InterpDriver:
             if per.get(key, 0) < cap:
                 per[key] = per.get(key, 0) + 1
                 kept.append(r)
-        return kept, totals, trace
+        return kept, totals
 
     def dump(self) -> str:
         from ..engine.value import thaw

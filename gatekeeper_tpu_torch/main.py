@@ -222,12 +222,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on internal error or deadline exhaustion, ALLOW "
                         "the request with an audit annotation instead of "
                         "denying (default: fail closed)")
-    p.add_argument("--breaker-failure-threshold", type=int, default=None,
-                   help="not supported by the port (it has no circuit "
-                        "breaker): refused when given (ROADMAP A6)")
-    p.add_argument("--breaker-cooldown-s", type=float, default=None,
-                   help="not supported by the port (it has no circuit "
-                        "breaker): refused when given (ROADMAP A6)")
+    p.add_argument("--breaker-failure-threshold", type=int, default=3,
+                   help="consecutive device failures before the circuit "
+                        "breaker trips to the interpreter")
+    p.add_argument("--breaker-cooldown-s", type=float, default=5.0,
+                   help="seconds the tripped breaker waits before running "
+                        "half-open recovery probes")
     p.add_argument("--mesh-watchdog-s", type=float,
                    default=float(os.environ.get("GK_MESH_WATCHDOG_S", "30")),
                    help="budget for one mesh-collective audit dispatch; a "
@@ -270,8 +270,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="audit freshness SLO: maximum age of the last "
                         "successful sweep (0 = 5x --audit-interval)")
     p.add_argument("--slo-trip-breaker", action="store_true",
-                   help="not supported by the port (it has no circuit "
-                        "breaker): refused when given (ROADMAP A6)")
+                   help="trip the circuit breaker to the interpreter when "
+                        "the admission-latency SLO fast-burn alert fires "
+                        "(default: report only)")
     # state snapshot & warm resume (docs/snapshots.md)
     p.add_argument("--snapshot-dir", default="",
                    help="directory for serving-state snapshots: a restart "
@@ -316,14 +317,6 @@ def build_parser() -> argparse.ArgumentParser:
 UNPORTED_FLAGS = (
     ("--jax-profile-port", lambda a: bool(getattr(a, "jax_profile_port", 0)),
      "A8 (a device profiler hook)"),
-    ("--breaker-failure-threshold",
-     lambda a: getattr(a, "breaker_failure_threshold", None) is not None,
-     "A6 (the breaker)"),
-    ("--breaker-cooldown-s",
-     lambda a: getattr(a, "breaker_cooldown_s", None) is not None,
-     "A6 (the breaker)"),
-    ("--slo-trip-breaker", lambda a: bool(getattr(a, "slo_trip_breaker", 0)),
-     "A6 (the breaker)"),
 )
 
 
@@ -584,6 +577,9 @@ class App:
             driver = TorchDriver(
                 device=getattr(args, "torch_device", "cuda"),
                 mesh_watchdog_s=getattr(args, "mesh_watchdog_s", None),
+                breaker_threshold=getattr(
+                    args, "breaker_failure_threshold", None),
+                breaker_cooldown_s=getattr(args, "breaker_cooldown_s", None),
             )
         else:
             driver = InterpDriver()
@@ -949,16 +945,19 @@ class App:
         )
 
     def _start_routing_calibration(self):
-        """Background startup calibration of the driver's interp-vs-device
-        routing cost model (TpuDriver.calibrate_routing): waits for the
-        first templates to sync + compile, then measures once.  Retries a
-        few times because an empty cluster has nothing to calibrate
-        against yet."""
+        """Background startup calibration of the driver's device service
+        model (TorchDriver.calibrate_routing): waits until the App is
+        ready (its templates and data synced, as /readyz says), then
+        measures once; a model measured while the constraint side still
+        changes would price neither that side nor the one served.
+        Retries a few times because an empty cluster has nothing to
+        calibrate against yet."""
         driver = self.client.driver
         if not hasattr(driver, "calibrate_routing"):
             return  # interp driver
-        if getattr(driver, "DEVICE_MIN_CELLS", 0) == 0:
-            return  # forced-device configuration
+        # TorchDriver prices one tier, the device, and has no
+        # forced-device setting to skip the calibration for: it always
+        # measures the model the micro-batcher adapts with
 
         from .ops.deltasweep import BG_STOP
 
@@ -970,13 +969,12 @@ class App:
                 if stopped():
                     return
                 try:
-                    # the 30s ready-wait in interruptible 2s slices, so
-                    # interpreter exit never stalls behind it
-                    for _ in range(15):
-                        if stopped():
+                    # readiness, in interruptible slices, so interpreter
+                    # exit never stalls behind it
+                    while not (driver.wait_ready(timeout=2.0)
+                               and self.tracker.satisfied()):
+                        if stopped() or BG_STOP.wait(0.5):
                             return
-                        if driver.wait_ready(timeout=2.0):
-                            break
                     if driver.calibrate_routing() is not None:
                         cal = driver._route_cal
                         log.info(

@@ -23,8 +23,19 @@ This is the main path of gatekeeper_tpu/ops/driver.py TpuDriver with its
 semantics kept — the group-major padded constraint layout, review-mode
 evaluation (join nodes resolve to their polarity default), masks gathered
 through ``crow``, the capped render and its "exact"/"resources" totals —
-and its serving machinery left out: every review evaluates on the device,
-with no tier routing, request memo, circuit breaker or compile cache.
+and its serving seam: the whole-request and review memos (a repeated
+admission replays without a launch), the circuit breaker (ops/breaker.py)
+and the device's service model (calibrate_routing, predicted_batch_ms,
+set_offered_load, set_brownout_pin), each batch's route recorded in the
+route ledger (obs/routeledger.py).  The device is the one priced tier:
+every route resolves to it, under the reason its pricing gives.  The
+interpreter serves traced reviews and the batches the breaker diverts
+(reason ``device_failed`` or ``breaker_open``, logged at warning).  Only
+an unavailable device diverts: the fault plane's TPU_DISPATCH point
+(DeviceUnavailable) or a stalled mesh dispatch (MeshDispatchStall); a
+kernel's launch failure or a CUDA error reaches the caller, and the
+kernel wrappers and compute_masks catch nothing.  Left out: the numpy
+host tier (ops/npside.py) and the compile cache.
 
 Audits are incremental, as in TpuDriver: a full sweep keeps its [C, R]
 mask resident and rebases the host-side DeltaState (ops/deltasweep.py);
@@ -53,13 +64,14 @@ delta sweep evaluates its dirty rows on the mesh's first device and K5
 gathers their before-columns on their owning shards.  compute_masks, and
 so review_batch, evaluates the review batch in row slabs too, as
 TpuDriver's _dispatch does: K1 -> K9 (packing) on each shard, each
-shard's packed mask unpacked to its own slab.  Left out: the mesh's
-metrics and flight-recorder events, and the circuit breaker that a stalled
-dispatch trips there (a stall degrades the mesh and raises).
+shard's packed mask unpacked to its own slab.  A stalled dispatch
+narrows the mesh and trips the breaker.  Left out: the mesh's metrics and
+flight-recorder events.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import threading
@@ -69,6 +81,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import deadline as _deadline
+from .. import faults
 from ..client.drivers import (
     CompiledTemplate,
     InterpDriver,
@@ -96,7 +110,7 @@ from ..parallel.mesh import (
     visible_devices,
 )
 from ..device import kernels, select_device
-from ..metrics.catalog import DISPATCH_M, PACK_M, record_stage
+from ..metrics.catalog import DISPATCH_M, PACK_M, record_cache, record_stage
 from ..obs import trace as obstrace
 from ..target.match import constraint_matches, needs_autoreject
 from ..target.target import K8sValidationTarget
@@ -113,6 +127,7 @@ from .reduction import packed_reduction
 from .scatter import scatter_rows
 from .vectorizer import vectorize
 from .program import bind_group, lookup_joins, program_eval
+from .renderplan import strip_request_meta
 from .progcode import encode
 from .vexpr import EvalEnv, VProgram
 
@@ -120,6 +135,26 @@ log = logging.getLogger("gatekeeper_tpu_torch.driver")
 
 # _bound_plans miss sentinel (None is a valid cached "no plan")
 _PLAN_MISS = object()
+
+
+class DeviceUnavailable(RuntimeError):
+    """The device took no dispatch: the fault plane's TPU_DISPATCH point
+    fired.  With MeshDispatchStall, the only failures the serving methods
+    hand to the breaker and divert; a kernel's launch failure or a CUDA
+    error reaches the caller."""
+
+
+# what review_batch, audit and audit_capped divert to the interpreter
+_DIVERTED = (DeviceUnavailable, MeshDispatchStall)
+
+
+def _fire_dispatch(**ctx):
+    """The fault plane's TPU_DISPATCH point: what it injects is raised as
+    DeviceUnavailable."""
+    try:
+        faults.fire(faults.TPU_DISPATCH, **ctx)
+    except Exception as e:
+        raise DeviceUnavailable(f"{type(e).__name__}: {e}") from e
 
 
 def _evaluated_part(constraint):
@@ -162,8 +197,28 @@ class TorchDriver(InterpDriver):
     # state is rebased (bounds row_cols host memory at ~ROWS_MAX x C bytes)
     DELTA_ROW_COLS_MAX = 8192
 
+    # the memos' bounds: whole-request entries (one per unique object
+    # content) and review-memo cells (each retains a frozen admission
+    # object); at the bound a memo is cleared wholesale
+    REQUEST_MEMO_MAX = 8192
+    REVIEW_MEMO_MAX = 16_384
+    # batches up to this size are admission traffic: they probe and feed
+    # the whole-request memo; larger (streaming) chunks skip both
+    REQUEST_MEMO_BATCH_MAX = 64
+    # constraint-side change log entries kept for the request memo's
+    # repair (past it, the older half is dropped)
+    CS_LOG_MAX = 4096
+    # a load hint older than this is stale; a priced tier must sustain
+    # the offered load with this much headroom; tier capacity is priced
+    # at the largest batch the micro-batcher coalesces
+    LOAD_HINT_TTL_S = 5.0
+    LOAD_HEADROOM = 1.25
+    ROUTE_MAX_BATCH = 256.0
+
     def __init__(self, target: Optional[K8sValidationTarget] = None,
-                 device=None, mesh_watchdog_s: Optional[float] = None):
+                 device=None, mesh_watchdog_s: Optional[float] = None,
+                 breaker_threshold: Optional[int] = None,
+                 breaker_cooldown_s: Optional[float] = None):
         super().__init__(target)
         self.device = select_device(device)
         # several devices: the audit sweep's row axis sharded over a mesh
@@ -253,6 +308,57 @@ class TorchDriver(InterpDriver):
         self.side_stats: Dict[str, float] = {
             "repacks": 0, "pack_ms": 0.0, "uploads": 0, "upload_ms": 0.0,
         }
+        # the review-path render memo, keyed by content (kind, constraint
+        # name, frozen review without its uid), valid for one
+        # constraint-side epoch; and the whole-request memo: content ->
+        # (epoch, {(kind, name): [(msg, details, action), ...]}, flat
+        # replay list), whose entries of older epochs are repaired through
+        # the constraint-side change log (only the constraints that
+        # changed re-evaluate)
+        self._review_memo: Dict[Tuple, list] = {}
+        self._review_memo_epoch = -1
+        self._request_memo: Dict[object, tuple] = {}
+        # (kind, name) of constraints whose cells are not content-
+        # determined, maintained by the mutators (_memoable_update)
+        self._memoable_false: set = set()
+        self._cs_change_log: List[Tuple[int, str, Optional[str]]] = []
+        self._cs_log_floor = 0  # entries with epoch > floor are complete
+        self._n_constraints_cache: Optional[Tuple[int, int]] = None
+        # the device's measured service model (calibrate_routing), the
+        # micro-batcher's offered-load hint (reviews/s, monotonic stamp)
+        # and the brownout pin (obs/brownout.py level 3)
+        self._route_cal: Optional[Dict[str, float]] = None
+        self._offered_load: Optional[tuple] = None
+        self._brownout_pin = False
+        # every batch's route and the reason that decided it
+        # (/debug/routez, route_decisions_total); GK_ROUTE_LEDGER=0 stops
+        # the recording
+        from ..obs.routeledger import RouteLedger, set_active
+
+        self.route_ledger = RouteLedger().attach(self)
+        self.route_ledger.enabled = (
+            os.environ.get("GK_ROUTE_LEDGER", "1") != "0"
+        )
+        set_active(self.route_ledger)
+        # circuit breaker over the device path: after N consecutive
+        # failures the serving methods divert to the interpreter, which
+        # renders the same results (the device mask only ever prunes the
+        # interpreter's walk); a background probe runs one real review on
+        # the device and one success closes it (ops/breaker.py)
+        from .breaker import CircuitBreaker
+
+        if breaker_threshold is None:
+            breaker_threshold = int(
+                os.environ.get("GK_BREAKER_THRESHOLD", "3"))
+        if breaker_cooldown_s is None:
+            breaker_cooldown_s = float(
+                os.environ.get("GK_BREAKER_COOLDOWN_S", "5.0"))
+        self.breaker = CircuitBreaker(
+            failure_threshold=breaker_threshold,
+            cooldown_s=breaker_cooldown_s,
+            probe_fn=self._breaker_probe,
+            on_transition=self._on_breaker_transition,
+        )
 
     # ---- lifecycle --------------------------------------------------------
 
@@ -266,17 +372,130 @@ class TorchDriver(InterpDriver):
             kernels()
         return True
 
+    # ---- circuit breaker ---------------------------------------------------
+
+    # the review the recovery probe evaluates: the real device path,
+    # whatever templates are installed
+    _PROBE_REVIEW = {
+        "kind": {"group": "", "version": "v1", "kind": "Pod"},
+        "name": "gk-breaker-probe", "namespace": "default",
+        "operation": "CREATE",
+        "object": {
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": "gk-breaker-probe",
+                         "namespace": "default", "labels": {}},
+            "spec": {"containers": [{"name": "c", "image": "probe.io/x:1"}]},
+        },
+    }
+
+    def _breaker_probe(self):
+        """One real review through compute_masks (half-open recovery), on
+        the card, through the seams production traffic takes (any
+        installed fault-plane schedule included), so the breaker closes
+        exactly when the device answers again."""
+        with self._lock:
+            if not any(self.constraints.values()):
+                # nothing to evaluate: the dispatch seam and the kernels'
+                # load are the probe
+                if faults.ENABLED:
+                    _fire_dispatch()
+                self.wait_ready()
+                return
+            self.compute_masks([copy.deepcopy(self._PROBE_REVIEW)])
+
+    def _on_breaker_transition(self, old: str, new: str):
+        # also invoked with old == new by the probe loop as a periodic
+        # metrics refresh while degraded: record always, log on change
+        if old != new:
+            log.warning(
+                "circuit breaker %s -> %s%s", old, new,
+                " (serving from the interpreter)" if new != "closed" else "",
+            )
+            # the flight recorder: the edge lands in the incident ring, and
+            # an open edge dumps the ring.  Guarded: this runs inside the
+            # device-failure handling, where a recorder defect must never
+            # fail a request
+            try:
+                from ..obs import flightrec
+
+                flightrec.record(
+                    flightrec.BREAKER_TRANSITION, old=old, new=new,
+                    trips=self.breaker.trips,
+                )
+                if new == "open":
+                    flightrec.dump("breaker_open")
+            except Exception:
+                log.debug("flight-recorder feed failed on breaker edge",
+                          exc_info=True)
+        try:
+            from ..metrics.catalog import record_breaker
+
+            record_breaker(self.breaker.status())
+        except Exception:
+            log.debug("breaker state metric recording failed",
+                      exc_info=True)
+
+    def breaker_status(self) -> dict:
+        """Health-endpoint view of the degradation ladder."""
+        return self.breaker.status()
+
+    def _record_device_failure(self, e: BaseException):
+        """Feed one device-path failure to the breaker.  A
+        MeshDispatchStall trips it at once: a wedged dispatch wedges the
+        next ones too.  The stall site has already narrowed the mesh
+        (_guarded_mesh_dispatch), so the rebasing full sweep runs at the
+        new width once the probe closes the breaker."""
+        self.breaker.record_failure(e)
+        if isinstance(e, MeshDispatchStall):
+            self.breaker.trip()
+
+    # ---- the request memo's bookkeeping ------------------------------------
+
+    def _log_cs_change(self, kind: str, name: Optional[str]):
+        """(epoch after the change, kind, name or None for the whole
+        kind): the request memo repairs an entry by re-evaluating only
+        the constraints changed since it was stored."""
+        self._cs_change_log.append((self._cs_epoch, kind, name))
+        if len(self._cs_change_log) > self.CS_LOG_MAX:
+            drop = len(self._cs_change_log) // 2
+            self._cs_log_floor = self._cs_change_log[drop - 1][0]
+            del self._cs_change_log[:drop]
+
+    def _memoable_update(self, kind: str, name: Optional[str]):
+        """Maintain the set of constraints whose cells are not
+        content-determined, so _request_memoable is O(1) (caller holds
+        the lock)."""
+        tmpl = self.templates.get(kind)
+        names = (
+            [name] if name is not None
+            else list(self.constraints.get(kind, {}))
+        )
+        for n in names:
+            c = self.constraints.get(kind, {}).get(n)
+            key = (kind, n)
+            if c is not None and not self._cell_memoable(tmpl, c):
+                self._memoable_false.add(key)
+            else:
+                self._memoable_false.discard(key)
+
     def put_template(self, kind: str, artifact: CompiledTemplate):
         with self._lock:
             super().put_template(kind, artifact)
             self.programs[kind] = vectorize(artifact.policy)
             self._cs_epoch += 1
+            self._memoable_update(kind, None)
+            self._log_cs_change(kind, None)
 
     def delete_template(self, kind: str) -> bool:
         with self._lock:
             self.programs.pop(kind, None)
             out = super().delete_template(kind)
             self._cs_epoch += 1
+            # the base delete cascades the kind's constraints away
+            self._memoable_false = {
+                key for key in self._memoable_false if key[0] != kind
+            }
+            self._log_cs_change(kind, None)
             return out
 
     def put_constraint(self, kind: str, name: str, constraint: dict):
@@ -295,15 +514,21 @@ class TorchDriver(InterpDriver):
                 # serves the first sweep, where TpuDriver rebases it once
                 # the stored status has moved.  The identity guard: the
                 # same dict mutated in place compares equal to itself and
-                # must still invalidate
+                # must still invalidate.  The memos follow the same rule:
+                # no epoch, no change-log entry, so a status write
+                # flushes no memoized review
                 return
             super().put_constraint(kind, name, constraint)
             self._cs_epoch += 1
+            self._memoable_update(kind, name)
+            self._log_cs_change(kind, name)
 
     def delete_constraint(self, kind: str, name: str) -> bool:
         with self._lock:
             out = super().delete_constraint(kind, name)
             self._cs_epoch += 1
+            self._memoable_update(kind, name)
+            self._log_cs_change(kind, name)
             return out
 
     def reset(self):
@@ -323,6 +548,12 @@ class TorchDriver(InterpDriver):
             self._bound_plans.clear()
             self._bound_plans_epoch = -1
             self._cs_epoch += 1
+            # wholesale wipe: the change log cannot describe a reset
+            self._request_memo.clear()
+            self._review_memo.clear()
+            self._memoable_false.clear()
+            self._cs_change_log.clear()
+            self._cs_log_floor = self._cs_epoch
 
     # ---- the mesh (parallel/mesh.py) ---------------------------------------
 
@@ -381,6 +612,8 @@ class TorchDriver(InterpDriver):
         timeout = self.mesh_watchdog_s or 0.0
         if timeout <= 0:
             with DISPATCH_LOCK:
+                if faults.ENABLED:
+                    faults.fire(faults.MESH_DISPATCH_STALL)
                 return thunk()
 
         def _stall(where: str) -> MeshDispatchStall:
@@ -401,6 +634,8 @@ class TorchDriver(InterpDriver):
 
         def run():
             try:
+                if faults.ENABLED:
+                    faults.fire(faults.MESH_DISPATCH_STALL)
                 box["out"] = thunk()
             except BaseException as e:  # surfaced on the caller's side
                 box["err"] = e
@@ -630,6 +865,8 @@ class TorchDriver(InterpDriver):
         review_pack = self._review_pack(reviews)
         side, rv, cols, rows = review_pack
         t1 = time.perf_counter()
+        if faults.ENABLED:
+            _fire_dispatch()
         if mesh is not None:
             ordered, mask_np, rej_np = sharded_masks(
                 self, reviews, mesh, review_pack=review_pack)
@@ -646,12 +883,12 @@ class TorchDriver(InterpDriver):
         t2 = time.perf_counter()
         # spans mirror into every request trace this batch serves; the
         # histograms record the same intervals.  tier "torch" is the
-        # device path's name (--driver torch); the port has no breaker
+        # device path's name (--driver torch)
         obstrace.record_span("tpu.pack", t0, t1, stage=obstrace.PACK,
                              reviews=len(reviews))
         obstrace.record_span("tpu.dispatch", t1, t2,
                              stage=obstrace.DISPATCH, tier="torch",
-                             rows=rows)
+                             breaker=self.breaker.state, rows=rows)
         record_stage(PACK_M, t1 - t0, {"path": "review"})
         record_stage(DISPATCH_M, t2 - t1, {"path": "review",
                                            "tier": "torch"})
@@ -1010,26 +1247,570 @@ class TorchDriver(InterpDriver):
     def review_batch(self, reviews: List[dict], tracing: bool = False):
         """N admission reviews in one device evaluation: the mask is
         [C, N], then each review's positive cells render on the host.
-        Traced reviews take the interpreter walk, which emits the trace."""
+        This is the micro-batching seam the webhook server drives.
+
+        A batch of up to REQUEST_MEMO_BATCH_MAX reviews first probes the
+        whole-request memo: the hits replay (no launch, no render) and
+        the misses evaluate as one sub-batch.  Traced reviews take the
+        interpreter walk, which emits the trace."""
         if not reviews:
             return []
-        if tracing:
-            return [InterpDriver.review(self, r, tracing=True)
-                    for r in reviews]
-        with self._lock:
-            ordered, mask, autoreject = self.compute_masks(reviews)
-            return self._render_masked(
-                reviews, ordered, mask, autoreject,
-                self._inventory_for_render(),
+        if tracing or len(reviews) > self.REQUEST_MEMO_BATCH_MAX:
+            return self._review_batch_eval(reviews, tracing)
+        # the probe's frozen memo keys ride along, so the miss path never
+        # freezes the same review twice
+        t0 = time.perf_counter()
+        probed = [self._request_memo_hit(r) for r in reviews]
+        served: List = [p[0] for p in probed]
+        misses = [i for i, s in enumerate(served) if s is None]
+        obstrace.record_span(
+            "memo.lookup", t0, time.perf_counter(),
+            stage=obstrace.CACHE_LOOKUP,
+            hits=len(reviews) - len(misses), misses=len(misses),
+        )
+        record_cache("request_memo", True, len(reviews) - len(misses))
+        record_cache("request_memo", False, len(misses))
+        if misses:
+            evaled = self._review_batch_eval(
+                [reviews[i] for i in misses], tracing,
+                memo_reviews=[probed[i][1] for i in misses],
+            )
+            for j, i in enumerate(misses):
+                served[i] = evaled[j]
+        return [s if isinstance(s, tuple) else (s, None) for s in served]
+
+    def _review_batch_eval(self, reviews: List[dict], tracing: bool,
+                           memo_reviews: Optional[list] = None):
+        """Price and evaluate a batch (no memo probe: review_batch served
+        the hits).  The device is the one priced tier; the batch diverts
+        to the interpreter only while the breaker is open or when the
+        device was unavailable (DeviceUnavailable, MeshDispatchStall),
+        and every batch lands in the route ledger with the tier that
+        evaluated it.  Any other failure of the device path raises."""
+        n_constraints = self._n_constraints_total()
+        cells = len(reviews) * max(n_constraints, 1)
+        _route, reason, lam, priced = self._route_decision(
+            cells, n_reviews=len(reviews),
+            want_priced=self.route_ledger.enabled,
+        )
+
+        def _record(tier):
+            self.route_ledger.record(
+                tier, reason, cells, len(reviews), lam, priced
             )
 
-    def _render_masked(self, reviews, ordered, mask_np, rej_np, inventory):
+        if tracing:
+            _record("interp")  # traced reviews take the interpreter walk
+            return [InterpDriver.review(self, r, tracing=True)
+                    for r in reviews]
+        if not self.breaker.allow():
+            # checked only here, right before the device attempt, so a
+            # granted half-open trial is always followed by the attempt
+            # that records its outcome
+            reason = "breaker_open"
+            log.warning("circuit breaker open: serving %d review(s) from "
+                        "the interpreter", len(reviews))
+            _record("interp")
+            return self._interp_serve(reviews, memo_reviews)
+        _record("device")
+        with self._lock:
+            try:
+                ordered, mask, autoreject = self.compute_masks(reviews)
+            except _DIVERTED as e:
+                # the failure feeds the breaker and this batch is served by
+                # the interpreter, outside the lock (per-review locking)
+                self._record_device_failure(e)
+                log.warning(
+                    "device evaluation failed (%s: %s); serving %d "
+                    "review(s) from the interpreter",
+                    type(e).__name__, e, len(reviews),
+                )
+            else:
+                self.breaker.record_success()
+                # admission-sized batches read and feed the review memo
+                # and the request memo, so a repeat replays next time;
+                # streaming chunks skip both (review_batch evaluates
+                # them directly)
+                admission = len(reviews) <= self.REQUEST_MEMO_BATCH_MAX
+                out = self._render_masked(
+                    reviews, ordered, mask, autoreject,
+                    self._inventory_for_render(), memo_keys=memo_reviews,
+                    memo=admission,
+                )
+                if admission and self._memoable_synced():
+                    for ri, review in enumerate(reviews):
+                        mk = memo_reviews[ri] if memo_reviews else None
+                        self._store_request_memo(
+                            review, out[ri][0], mk[1] if mk else None,
+                        )
+                return out
+        # the amended entry names the tier that evaluated: device ->
+        # device_failed (-> breaker_open) in causal order.  No entry when
+        # the deadline check raises: nothing was served
+        reason = "device_failed"
+        if _deadline.expired():
+            raise _deadline.DeadlineExceeded(
+                "deadline exhausted during device-failure fallback"
+            )
+        _record("interp")
+        return self._interp_serve(reviews, memo_reviews)
+
+    def _interp_serve(self, reviews: List[dict],
+                      memo_reviews: Optional[list] = None):
+        """The interpreter serving a diverted batch, through the
+        content-keyed memos, with the stage span whose tier and breaker
+        state make the divert visible in the trace."""
+        with obstrace.span("eval.interp", stage=obstrace.RENDER,
+                           tier="interp", breaker=self.breaker.state):
+            return [
+                self._interp_review_memo(
+                    r, memo_reviews[i] if memo_reviews else None
+                )
+                for i, r in enumerate(reviews)
+            ]
+
+    @staticmethod
+    def _cell_memoable(tmpl, constraint: dict) -> bool:
+        """A (constraint, object) verdict is content-determined iff the
+        template's policy is memo-safe and inventory-free and the match
+        spec carries no namespaceSelector (presence, not truthiness: an
+        empty selector still consults the mutable namespace cache)."""
+        if tmpl is None:
+            return False
+        if not getattr(tmpl.policy, "memo_safe", False):
+            return False
+        if getattr(tmpl.policy, "uses_inventory", True):
+            return False
+        match = constraint_match_spec(constraint)
+        return "namespaceSelector" not in match
+
+    def _cell_violations(self, constraint: dict, kind: str, review: dict,
+                         frozen_review, inventory, memo_review=None,
+                         rowview=None) -> list:
+        """One cell's violations through the review memo when the cell is
+        content-determined (_cell_memoable), keyed on the review without
+        its uid; else evaluated."""
+        tmpl = self.templates.get(kind)
+        if not self._cell_memoable(tmpl, constraint):
+            return self._eval_cell(constraint, kind, review, frozen_review,
+                                   inventory, rowview)
+        if self._review_memo_epoch != self._cs_epoch:
+            self._review_memo.clear()
+            self._review_memo_epoch = self._cs_epoch
+        if memo_review is None:
+            if frozen_review is None:
+                frozen_review = rowview.frozen()
+            memo_review = strip_request_meta(frozen_review)
+        mkey = (kind, _constraint_name(constraint), memo_review)
+        violations = self._review_memo.get(mkey)
+        if violations is None:
+            violations = self._eval_cell(constraint, kind, review,
+                                         frozen_review, inventory, rowview)
+            if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
+                self._review_memo.clear()
+            self._review_memo[mkey] = violations
+        return violations
+
+    def _walk_one(self, results: List[Result], kind: str,
+                  constraint: dict, review: dict, frozen_review,
+                  memo_review, inventory, cached_ns, rowview):
+        """One constraint of the interpreter's walk: its autoreject, then
+        its violations (the match re-checked inside)."""
+        if needs_autoreject(constraint, review, cached_ns):
+            results.append(
+                Result(
+                    msg="Namespace is not cached in OPA.",
+                    metadata={"details": {}},
+                    constraint=constraint,
+                    review=review,
+                    enforcement_action=self._enforcement_action(constraint),
+                )
+            )
+        self._append_violation_results(
+            results, self._cell_violations(
+                constraint, kind, review, frozen_review, inventory,
+                memo_review=memo_review, rowview=rowview),
+            constraint, kind, review,
+        )
+
+    def _interp_review_memo(self, review: dict, memo_key=None):
+        """InterpDriver.review's results served through the content-keyed
+        memos: cells seen before replay from the review memo, and a
+        content-determined result is stored in the request memo.  It
+        walks every constraint in (kind, name) order, as InterpDriver
+        does."""
+        from ..engine.value import freeze
+        from .renderplan import RowView
+
+        with self._lock:
+            inventory = self._inventory_for_render()
+            cached_ns = self.store.cached_namespace
+            if memo_key is not None:
+                frozen_review, memo_review = memo_key
+            else:
+                frozen_review = freeze(review)
+                memo_review = strip_request_meta(frozen_review)
+            # synced under this lock hold: the store below must never
+            # keep a verdict of a constraint side before an epoch bump
+            memoable = self._memoable_synced()
+            rowview = RowView(review, frozen_review)
+            results: List[Result] = []
+            for kind, _name, constraint in self._ordered_constraints():
+                self._walk_one(results, kind, constraint, review,
+                               frozen_review, memo_review, inventory,
+                               cached_ns, rowview)
+            if memoable:
+                self._store_request_memo(review, results, memo_review)
+            return results, None
+
+    def _memoable_synced(self) -> bool:
+        """Whether a whole request's verdict depends only on its content:
+        every installed template's policy is memo-safe and
+        inventory-free, and no constraint carries a namespaceSelector.
+        O(1): the mutators maintain _memoable_false.  Answered under the
+        same lock hold as the evaluation whose results are stored."""
+        return not self._memoable_false
+
+    def _request_memo_hit(self, review: dict):
+        """Serve a review wholly from the request memo, repairing a stale
+        entry through the constraint-side change log -> (results, memo
+        key) on a hit, (None, memo key) on a miss, (None, None) when the
+        constraint side is not memoable.  The (frozen review, key) pair
+        travels to the miss path, so the review is frozen once."""
+        from ..engine.value import freeze
+
+        with self._lock:
+            if not self._memoable_synced():
+                return None, None
+            frozen_review = freeze(review)
+            memo_review = strip_request_meta(frozen_review)
+            memo_key = (frozen_review, memo_review)
+            hit = self._request_memo.get(memo_review)
+            if hit is None:
+                return None, memo_key
+            if hit[0] != self._cs_epoch:
+                per_key = self._repair_memo_entry(
+                    hit[0], hit[1], review, frozen_review, memo_review,
+                    self._inventory_for_render(),
+                    self.store.cached_namespace,
+                )
+                if per_key is None:
+                    return None, memo_key  # the log overran: evaluate
+                # flattened once per repair, so each replay at this epoch
+                # is O(violations)
+                flat = [
+                    (kind, name, entry)
+                    for kind in sorted(self.constraints)
+                    for name in sorted(self.constraints[kind])
+                    for entry in per_key.get((kind, name), ())
+                ]
+                hit = (self._cs_epoch, per_key, flat)
+                self._request_memo[memo_review] = hit
+            # rebuilt per hit down to the details: a consumer's mutation
+            # of a replayed result must never reach a later replay
+            out = [
+                Result(
+                    msg=msg,
+                    metadata={"details": copy.deepcopy(details)},
+                    constraint=self.constraints[kind][name],
+                    review=review,
+                    enforcement_action=action,
+                )
+                for kind, name, (msg, details, action) in hit[2]
+            ]
+            return out, memo_key
+
+    def _eval_one_key(self, kind, name, review, frozen_review, memo_review,
+                      inventory, cached_ns, rowview=None):
+        """One constraint's walk for the request memo's repair -> its
+        memoized (msg, details, action) list, or None when the
+        constraint no longer exists."""
+        constraint = self.constraints.get(kind, {}).get(name)
+        if constraint is None:
+            return None
+        out: List[Result] = []
+        self._walk_one(out, kind, constraint, review, frozen_review,
+                       memo_review, inventory, cached_ns, rowview)
+        return [
+            (r.msg, copy.deepcopy((r.metadata or {}).get("details", {})),
+             r.enforcement_action)
+            for r in out
+        ]
+
+    def _repair_memo_entry(self, entry_epoch, per_key, review,
+                           frozen_review, memo_review, inventory,
+                           cached_ns):
+        """Bring a stale request-memo entry current by re-evaluating only
+        the constraints the change log records after entry_epoch -> the
+        repaired per-key dict, or None when the log no longer covers the
+        entry."""
+        if entry_epoch < self._cs_log_floor:
+            return None
+        from .renderplan import RowView
+
+        rowview = RowView(review, frozen_review)
+        changed_kinds = set()
+        changed_keys = set()
+        for ep, kind, name in reversed(self._cs_change_log):
+            if ep <= entry_epoch:
+                break
+            if name is None:
+                changed_kinds.add(kind)
+            else:
+                changed_keys.add((kind, name))
+        per_key = dict(per_key)
+        for kind in changed_kinds:
+            for k in [k for k in per_key if k[0] == kind]:
+                del per_key[k]
+            for name in self.constraints.get(kind, {}):
+                res = self._eval_one_key(
+                    kind, name, review, frozen_review, memo_review,
+                    inventory, cached_ns, rowview=rowview,
+                )
+                if res:
+                    per_key[(kind, name)] = res
+        for kind, name in changed_keys:
+            if kind in changed_kinds:
+                continue
+            res = self._eval_one_key(
+                kind, name, review, frozen_review, memo_review, inventory,
+                cached_ns, rowview=rowview,
+            )
+            if res:
+                per_key[(kind, name)] = res
+            else:
+                per_key.pop((kind, name), None)
+        return per_key
+
+    def _store_request_memo(self, review: dict, results: List[Result],
+                            memo_review=None):
+        """Store one review's exact results as a request-memo entry
+        (caller holds the lock and checked _memoable_synced).  The flat
+        replay list is sorted by (kind, name), so a replay orders as the
+        path that stored or repaired it did."""
+        from ..engine.value import freeze
+
+        if len(self._request_memo) >= self.REQUEST_MEMO_MAX:
+            self._request_memo.clear()
+        if memo_review is None:
+            memo_review = strip_request_meta(freeze(review))
+        per_key: Dict[Tuple[str, str], list] = {}
+        for r in results:
+            key = (r.constraint.get("kind", ""),
+                   (r.constraint.get("metadata") or {}).get("name", ""))
+            entry = (r.msg,
+                     copy.deepcopy((r.metadata or {}).get("details", {})),
+                     r.enforcement_action)
+            per_key.setdefault(key, []).append(entry)
+        flat = [
+            (kind, name, entry)
+            for kind, name in sorted(per_key)
+            for entry in per_key[(kind, name)]
+        ]
+        self._request_memo[memo_review] = (self._cs_epoch, per_key, flat)
+
+    # ---- the device's service model ----------------------------------------
+
+    def _calibration_reviews(self, n: int) -> List[dict]:
+        """``n`` admission reviews of distinct objects for the
+        calibration: the first ``n`` the cache holds (this cluster's
+        content: its flagged share, which the render pays for, and its
+        strings, which the audit pack has interned), else, in a cache
+        smaller than that, pods no call has seen, as TpuDriver's
+        calibration makes them.  A snapshot's restore leaves plain-dict
+        leaves in the cache until something freezes them."""
+        from ..engine.value import thaw
+
+        out: List[dict] = []
+        with self._lock:
+            for obj, api, kind, name, ns in self.store.iter_objects():
+                if len(out) == n:
+                    break
+                obj = copy.deepcopy(obj) if type(obj) is dict else thaw(obj)
+                review = self.target.make_audit_review(
+                    obj, api, kind, name, ns)
+                review["operation"] = "CREATE"
+                out.append(review)
+        if len(out) == n:
+            return out
+        return [{
+            "kind": {"group": "", "version": "v1", "kind": "Pod"},
+            "name": f"gk-route-cal-{i}", "namespace": "default",
+            "operation": "CREATE",
+            "object": {
+                "apiVersion": "v1", "kind": "Pod",
+                "metadata": {"name": f"gk-route-cal-{i}",
+                             "namespace": "default",
+                             "labels": {"cal": str(i)}},
+                "spec": {"containers": [
+                    {"name": "c", "image": f"cal.io/x:{i}"}]},
+            },
+        } for i in range(n)]
+
+    def calibrate_routing(self, runs: int = 3) -> Optional[dict]:
+        """Measure the device's affine service model once: the floor and
+        the per-cell rate of the path an admission batch takes past the
+        memos, compute_masks and the render of its positive cells, at a
+        one-review batch (the admission shape) and at 128 reviews, each
+        the median of ``runs`` calls, the driver lock held for each.  The
+        calls take distinct objects (_calibration_reviews: the cache's,
+        else fresh pods), each evaluated once before, untimed, in one
+        warm-up call of them all: the timed calls price objects whose
+        strings are interned, as the audit pack interns the cache's, not
+        the constraint side's re-pack a new string costs once.  The
+        render keys no memo.
+        -> {"rtt_ms", "device_cells_per_ms"}, also kept as the model
+        predicted_batch_ms and the route pricing read; None when no
+        constraint is installed.  Called explicitly (the App calibrates
+        in the background once it is ready), never implicitly."""
+        with self._lock:
+            n_constraints = sum(len(v) for v in self.constraints.values())
+            if n_constraints == 0:
+                return None
+        b_large = 128
+
+        def evaluate(reviews):
+            ordered, mask, autoreject = self.compute_masks(reviews)
+            self._render_masked(reviews, ordered, mask, autoreject,
+                                self._inventory_for_render(), memo=False)
+
+        pool = self._calibration_reviews(runs * (1 + b_large))
+        with self._lock:
+            evaluate(pool)  # the warm-up
+        pool = iter(pool)
+
+        def device_ms(batch):
+            ts = []
+            for _ in range(runs):
+                reviews = [copy.deepcopy(next(pool)) for _ in range(batch)]
+                with self._lock:
+                    t0 = time.perf_counter()
+                    evaluate(reviews)
+                    ts.append(time.perf_counter() - t0)
+            # the median: a dispatch's run-to-run spread is cost every
+            # real request pays
+            return float(np.median(ts)) * 1e3
+
+        ms_small, ms_large = device_ms(1), device_ms(b_large)
+        cells_small, cells_large = n_constraints, b_large * n_constraints
+        per_cell = max((ms_large - ms_small)
+                       / max(cells_large - cells_small, 1), 1e-9)
+        floor = max(ms_small - per_cell * cells_small, 1e-3)
+        cal = {
+            "rtt_ms": floor,  # the affine intercept: the dispatch floor
+            "device_cells_per_ms": 1.0 / per_cell,
+        }
+        self._route_cal = cal
+        return cal
+
+    def set_offered_load(self, rps: Optional[float]):
+        """Offered-load hint from the micro-batcher (reviews/s): with a
+        fresh hint and a calibration, the route prices sustainable
+        throughput, not this batch's latency alone."""
+        if rps and rps > 0:
+            self._offered_load = (float(rps), time.monotonic())
+        else:
+            self._offered_load = None
+
+    def _load_hint(self) -> Optional[float]:
+        h = self._offered_load
+        if h is None:
+            return None
+        rps, t = h
+        return rps if time.monotonic() - t <= self.LOAD_HINT_TTL_S else None
+
+    def set_brownout_pin(self, active: bool):
+        """Brownout ladder level 3 (obs/brownout.py): pin the route to the
+        tier of most throughput, unconditionally.  The port prices one
+        tier, so the pin changes the reason its batches record
+        (``brownout_pin``), never the tier."""
+        self._brownout_pin = bool(active)
+
+    def _tier_models(self, per_review_cells: int):
+        """[(tier, floor_ms, per_review_ms)] from the calibration: the
+        affine service model the route pricing and the batcher's
+        adaptation share.  One tier, the device."""
+        cal = self._route_cal
+        if cal is None:
+            return []
+        return [("device", cal["rtt_ms"],
+                 per_review_cells / cal["device_cells_per_ms"])]
+
+    def _route_decision(self, cells: int, n_reviews: int = 1,
+                        want_priced: bool = True):
+        """The pricing of one batch -> (route, reason, lam, priced): the
+        tier, the reason that decided it (obs/routeledger.py REASONS),
+        the offered-load hint consulted and the priced tier table
+        [{tier, floor_ms, per_review_ms, predicted_ms, mu_rps}].  Pure:
+        the caller records it.  The port prices one tier, so the route is
+        always the device and the reason is TpuDriver's branch: the pin,
+        no calibration, no load hint (latency), a load the device
+        sustains with LOAD_HEADROOM (load_aware), or one it does not
+        (saturated)."""
+        cal = self._route_cal
+        if cal is None:
+            return "device", "uncalibrated_prior", None, []
+        floor = cal["rtt_ms"]
+        per_review_ms = (max(cells // max(n_reviews, 1), 1)
+                         / cal["device_cells_per_ms"])
+        B = self.ROUTE_MAX_BATCH
+        mu = B / max(floor + B * per_review_ms, 1e-9)  # reviews per ms
+        lam = self._load_hint()
+        if self._brownout_pin:
+            reason = "brownout_pin"
+        elif not lam:
+            reason = "latency"
+        elif mu >= lam / 1e3 * self.LOAD_HEADROOM:
+            reason = "load_aware"
+        else:
+            reason = "saturated"
+        priced = [{
+            "tier": "device",
+            "floor_ms": round(floor, 4),
+            "per_review_ms": round(per_review_ms, 6),
+            "predicted_ms": round(
+                floor + cells / cal["device_cells_per_ms"], 4),
+            "mu_rps": round(mu * 1e3, 1),
+        }] if want_priced else []
+        return "device", reason, lam, priced
+
+    def _n_constraints_total(self) -> int:
+        """Installed constraint count, cached per epoch."""
+        with self._lock:
+            cached = self._n_constraints_cache
+            if cached is not None and cached[0] == self._cs_epoch:
+                return cached[1]
+            n = sum(len(v) for v in self.constraints.values())
+            self._n_constraints_cache = (self._cs_epoch, n)
+            return n
+
+    def predicted_batch_ms(self, n_reviews: int) -> Optional[float]:
+        """Predicted service time (ms) of an n-review batch on the
+        device: the micro-batcher's adaptation model.  None until
+        calibrate_routing has run."""
+        if self._route_cal is None:
+            return None
+        per_review = max(self._n_constraints_total(), 1)
+        models = self._tier_models(per_review)
+        if not models:
+            return None
+        return min(
+            floor + n_reviews * per_ms for _t, floor, per_ms in models
+        )
+
+    def _render_masked(self, reviews, ordered, mask_np, rej_np, inventory,
+                       memo_keys=None, memo: bool = True):
         """Sparse render of the (review, constraint) cells the mask marked
         positive, review-major so each review's results keep the dense
         loop's order; reviews with no positive cell cost no host work.
-        Plan cells render inline, the interpreter tail through the
-        bounded render pool; Results are assembled in cell order
-        (autoreject entries first per cell).  Caller holds the lock."""
+        A content-determined cell replays from the review memo (and a
+        second cell of the same content in the batch takes the first's
+        result); plan cells render inline, the interpreter tail through
+        the bounded render pool; Results are assembled in cell order
+        (autoreject entries first per cell), the memo stores made on this
+        thread.  ``memo_keys``: each review's (frozen, key) pair from the
+        request memo's probe; ``memo`` False renders every cell without
+        keying it (a streaming chunk).  Caller holds the lock."""
         from .renderplan import RenderPool, RowView
 
         out: List = [([], None) for _ in reviews]
@@ -1042,7 +1823,13 @@ class TorchDriver(InterpDriver):
         cached_ns = self.store.cached_namespace
         rows: Dict[int, RowView] = {}
         resolved: Dict[int, list] = {}
-        deferred: List[Tuple[int, int, int]] = []
+        stores: List[Tuple] = []  # (memo key, cell idx)
+        deferred: List[Tuple[int, int, int, Optional[tuple]]] = []
+        seen_mkey: Dict[Tuple, int] = {}
+        aliases: Dict[int, int] = {}
+        if self._review_memo_epoch != self._cs_epoch:
+            self._review_memo.clear()
+            self._review_memo_epoch = self._cs_epoch
         for idx, (ri, i) in enumerate(cells):
             if not mflags[idx]:
                 continue  # autoreject-only cell: handled at assembly
@@ -1050,10 +1837,27 @@ class TorchDriver(InterpDriver):
             review = reviews[ri]
             row = rows.get(ri)
             if row is None:
-                row = rows[ri] = RowView(review)
+                mk = memo_keys[ri] if memo_keys else None
+                row = RowView(review, mk[0] if mk else None)
+                if mk is not None:
+                    row._memo_frozen = mk[1]
+                rows[ri] = row
+            mkey = None
+            if memo and (kind, name) not in self._memoable_false and \
+                    kind in self.templates:
+                mkey = (kind, name, row.memo_frozen())
+                hit = self._review_memo.get(mkey)
+                if hit is not None:
+                    resolved[idx] = hit
+                    continue
+                src = seen_mkey.get(mkey)
+                if src is not None:
+                    aliases[idx] = src  # same batch, same content cell
+                    continue
+                seen_mkey[mkey] = idx
             plan = self._render_plan_for(kind, name, constraint)
             if plan is None:
-                deferred.append((idx, ri, i))
+                deferred.append((idx, ri, i, mkey))
                 continue
             # the mask cell already includes the packed match; the native
             # re-check is only needed where packing can over-approximate it
@@ -1063,16 +1867,26 @@ class TorchDriver(InterpDriver):
                 resolved[idx] = plan.apply(row)
             else:
                 resolved[idx] = []
+            if mkey is not None:
+                stores.append((mkey, idx))
         if deferred:
             thunks = [
                 (lambda c=ordered[i][2], k=ordered[i][0], r=reviews[ri],
                         f=rows[ri].frozen():
                  self._eval_cell(c, k, r, f, inventory, allow_plan=False))
-                for _idx, ri, i in deferred
+                for _idx, ri, i, _mkey in deferred
             ]
             evaled = RenderPool.map_ordered(thunks)
-            for (idx, _ri, _i), violations in zip(deferred, evaled):
+            for (idx, _ri, _i, mkey), violations in zip(deferred, evaled):
                 resolved[idx] = violations
+                if mkey is not None:
+                    stores.append((mkey, idx))
+        for idx, src in aliases.items():
+            resolved[idx] = resolved[src]
+        for mkey, idx in stores:
+            if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
+                self._review_memo.clear()
+            self._review_memo[mkey] = resolved[idx]
         for idx, (ri, i) in enumerate(cells):
             kind, _name, constraint = ordered[i]
             review = reviews[ri]
@@ -1247,6 +2061,8 @@ class TorchDriver(InterpDriver):
                     "pack_ms": 0.0, "device_ms": 0.0, "cached": 1.0,
                 }
                 return self._audit_cache[1]
+        if faults.ENABLED:
+            _fire_dispatch(path="audit")
         t0 = time.perf_counter()
         side = self._synced_side()
         ap = self._audit_pack
@@ -1542,7 +2358,49 @@ class TorchDriver(InterpDriver):
             st.pending_mask_rows = set(st.row_cols)
         return reviews, ordered, host
 
+    def _audit_divert(self, reason: str, tracing: bool, capped=None):
+        """An audit served by the interpreter: recorded in the route
+        ledger with its reason (outside the serving tier's flip
+        tracking) and logged at warning."""
+        log.warning("audit served from the interpreter (%s)", reason)
+        rows = self._audit_pack.n_rows
+        self.route_ledger.record(
+            "interp", reason, max(rows, 1) * max(self._n_constraints_total(),
+                                                 1),
+            max(rows, 1), None, None, track_flips=False,
+        )
+        results, trace = InterpDriver.audit(self, tracing=tracing)
+        if capped is None:
+            return results, trace
+        kept, totals = self._cap_results(results, capped)
+        return kept, totals, trace
+
+    def _guarded_audit(self, sweep, tracing: bool, capped=None):
+        """A device audit behind the breaker: while it is open, and when
+        the device was unavailable (DeviceUnavailable, MeshDispatchStall),
+        the interpreter serves the audit (_audit_divert).  Any other
+        failure of the sweep raises.  Only a sweep that ran on the device
+        resets the breaker's failure streak: a cache-served or empty
+        sweep did not reach it."""
+        if not self.breaker.allow():
+            return self._audit_divert("breaker_open", tracing, capped)
+        self.last_sweep_stats = {}  # stale stats must not decide `cached`
+        try:
+            out = sweep()
+        except _DIVERTED as e:
+            self._record_device_failure(e)
+            log.warning("device audit failed (%s: %s)", type(e).__name__, e)
+            return self._audit_divert("device_failed", tracing, capped)
+        stats = self.last_sweep_stats
+        if stats and not stats.get("cached"):
+            self.breaker.record_success()
+        return out
+
     def audit(self, tracing: bool = False):
+        return self._guarded_audit(lambda: self._audit_device(tracing),
+                                   tracing)
+
+    def _audit_device(self, tracing: bool = False):
         with self._lock:
             reviews, ordered, mask = self._audit_masks()
             if not reviews:
@@ -1624,6 +2482,10 @@ class TorchDriver(InterpDriver):
         resources, an over-approximation."""
         if cap is None or cap <= 0:
             return InterpDriver.audit_capped(self, cap or 0, tracing=tracing)
+        return self._guarded_audit(
+            lambda: self._audit_capped_device(cap, tracing), tracing, cap)
+
+    def _audit_capped_device(self, cap: int, tracing: bool = False):
         with self._lock:
             K = self._audit_topk(cap)
             trace: List[str] = [] if tracing else None

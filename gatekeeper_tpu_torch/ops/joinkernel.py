@@ -771,8 +771,11 @@ def gv_twin_corner(js: "JoinState", plans, ap, row: int) -> bool:
 
 
 def note_false_positive(kind: str, name: str, row: int):
-    """Under GK_JOIN_ASSERT, raise on an exact-join-plan cell whose
-    interpreter render produced nothing."""
+    """Record (and under GK_JOIN_ASSERT raise on) an exact-join-plan cell
+    whose interpreter render produced nothing."""
+    from ..metrics.catalog import record_join_divergence
+
+    record_join_divergence(kind)
     if assert_enabled():
         raise JoinDivergence(
             f"join plan flagged ({kind}/{name}, row {row}) but the "

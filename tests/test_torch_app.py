@@ -393,9 +393,6 @@ def test_the_driver_is_torch_on_the_card_by_default():
 
 @pytest.mark.parametrize("flags,item", [
     (["--jax-profile-port", "9999"], "A8"),
-    (["--breaker-failure-threshold", "3"], "A6"),
-    (["--breaker-cooldown-s", "5"], "A6"),
-    (["--slo-trip-breaker"], "A6"),
 ])
 def test_flags_the_port_lacks_are_refused(flags, item):
     with pytest.raises(ValueError, match=f"{flags[0]} .*ROADMAP {item}"):

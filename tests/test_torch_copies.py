@@ -2,8 +2,8 @@
 package's after the package name is replaced and the JAX package's
 provenance tags (issue, PR and review numbers in comments and docstrings,
 SCRUB) are dropped, except the functions named in CHANGED, which the
-port changed on purpose (the driver wiring, the parser and the refused
-flags of main.py, compilestats' pytree walk without JAX, the code
+port changed on purpose (the driver wiring, the parser, the refused
+flags and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
 fingerprint over the kernels' sources, where the snapshot writer and
 loader move the resident mask between the host and the device, and the
 fleet replica's driver flags).  A reader of the port reads only those."""
@@ -49,6 +49,7 @@ COPIED = (
     "fleet/wirelistener.py", "fleet/frontdoor.py", "fleet/evdoor.py",
     "fleet/replica.py", "fleet/supervisor.py",
     "obs/fleetobs.py", "util/overloadcheck.py",
+    "ops/breaker.py",
 )
 
 # file -> the top-level names (functions, classes' methods as
@@ -65,6 +66,9 @@ CHANGED = {
         # the kernels loaded (wait_ready) before anything serves; the jax
         # profiler server left out
         "App.start", "App.stop",
+        # calibrates TorchDriver too, which has no DEVICE_MIN_CELLS (no
+        # forced-device setting to skip the calibration for)
+        "App._start_routing_calibration",
     },
     "obs/compilestats.py": {
         # sums nbytes over tensors and numpy arrays without jax's pytrees

@@ -28,6 +28,7 @@ door's wire stages with the replica's admission trace, which holds
 one replica with a small pending bound answers only accepted, shed or
 expired, every accepted verdict the oracle's."""
 
+import copy
 import http.client
 import json
 import os
@@ -295,7 +296,7 @@ def test_torch_driver_records_the_review_stages():
     assert by_name["tpu.dispatch"]["stage"] == obstrace.DISPATCH
     assert by_name["tpu.dispatch"]["tier"] == "torch"
     assert by_name["tpu.dispatch"]["rows"] >= 5
-    assert "breaker" not in by_name["tpu.dispatch"]
+    assert by_name["tpu.dispatch"]["breaker"] == "closed"
     for name, tags in (("tpu_pack_seconds", ("review",)),
                        ("tpu_dispatch_seconds", ("review", "torch"))):
         rows = _global().view_rows(name)
@@ -309,7 +310,11 @@ def test_one_trace_joins_the_door_and_the_replica(fleet):
                      probe_interval_s=3600.0).start()
     try:
         tid = "4bf92f3577b34da6a3ce929d0e0e4736"
-        st, hd, _data = _post(door.port, fleet["bodies"][0], {
+        # a pod no replica has answered: a repeat replays from the
+        # request memo, which packs and dispatches nothing
+        body = json.dumps({"request": _fresh(fleet["reqs"], 0,
+                                             "trace")}).encode()
+        st, hd, _data = _post(door.port, body, {
             "traceparent": f"00-{tid}-00f067aa0ba902b7-01"})
         assert st == 200 and hd["X-GK-Trace-Id"] == tid
         rid = hd["X-GK-Replica"]
@@ -340,11 +345,22 @@ def test_one_trace_joins_the_door_and_the_replica(fleet):
         door.stop()
 
 
+def _fresh(reqs, n: int, tag: str) -> dict:
+    """Request ``n`` of a pass: request n of ``reqs`` under a name of its
+    own, so no replica has answered it (its request memo holds none)."""
+    req = copy.deepcopy(reqs[n % len(reqs)])
+    name = f"{tag}-{n}"
+    req["uid"] = req["name"] = req["object"]["metadata"]["name"] = name
+    return req
+
+
 def test_a_saturation_burst_sheds_and_never_diverges(fleet):
+    """Every request of the burst is a pod the replica has not seen, so
+    each one evaluates (a repeat would replay from the request memo,
+    outside the driver's lock); each accepted answer carries the
+    oracle's verdict and equals the other replica's direct answer."""
     h = fleet["handles"][0]
-    reqs, bodies = fleet["reqs"], fleet["bodies"]
-    want = [json.loads(d)["response"]
-            for d in fleet["direct"][h.replica_id]]
+    reqs = fleet["reqs"]
     results, lock = [], threading.Lock()
     stop = time.monotonic() + 1.5
     n_clients = 12
@@ -352,10 +368,11 @@ def test_a_saturation_burst_sheds_and_never_diverges(fleet):
     def slam(tid):
         i = tid
         while time.monotonic() < stop:
-            idx = i % len(reqs)
+            idx = i
             i += n_clients
+            body = json.dumps({"request": _fresh(reqs, idx, "burst")})
             try:
-                st, _hd, data = _post(h.port, bodies[idx])
+                st, _hd, data = _post(h.port, body.encode())
             except OSError:
                 st, data = 0, b""
             kind, out = overloadcheck.classify_response(st, data)
@@ -373,12 +390,19 @@ def test_a_saturation_burst_sheds_and_never_diverges(fleet):
     assert kinds and overloadcheck.PROBLEM not in kinds, results[:3]
     # the bound engaged, and the replica still served
     assert overloadcheck.SHED in kinds and overloadcheck.ACCEPTED in kinds
-    verdicts = _verdicts(_loaded(Client(driver=InterpDriver()),
-                                 fleet["objs"]), reqs)
-    for kind, out, idx in results:
-        if kind == overloadcheck.ACCEPTED:
-            assert overloadcheck.verdict_matches(out, verdicts[idx]), idx
-            assert out == want[idx]
+    oracle = _loaded(Client(driver=InterpDriver()), fleet["objs"])
+    accepted = [(out, idx) for kind, out, idx in results
+                if kind == overloadcheck.ACCEPTED]
+    fresh = [_fresh(reqs, idx, "burst") for _out, idx in accepted]
+    verdicts = _verdicts(oracle, fresh)
+    # the other replica has seen none of the burst: its direct answers
+    other = fleet["handles"][1]
+    for (out, idx), req, want in zip(accepted, fresh, verdicts):
+        assert overloadcheck.verdict_matches(out, want), idx
+        st, _hd, data = _post(other.port,
+                              json.dumps({"request": req}).encode())
+        assert st == 200, idx
+        assert out == json.loads(data)["response"], idx
 
 
 def test_the_supervisor_respawns_a_killed_replica_warm(fleet):

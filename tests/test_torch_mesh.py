@@ -676,7 +676,8 @@ class TestDispatchWatchdog:
 
     def test_a_stalled_review_degrades_the_mesh(self):
         """A review batch's shard evaluations run under the same guarded
-        dispatch as the sweeps."""
+        dispatch as the sweeps: the stall narrows the mesh and trips the
+        breaker, and the interpreter answers the stalled batch."""
         client = _port(4, 16, 4)
         driver = client.driver
         driver.mesh_watchdog_s = 0.2
@@ -686,18 +687,22 @@ class TestDispatchWatchdog:
             release.wait(10)
             raise RuntimeError("the abandoned dispatch")
 
+        oracle = jsyn.build_oracle(4, 16)
+        pods = _review_pods(2)
         driver._eval = wedged
         try:
-            with pytest.raises(pm.MeshDispatchStall):
-                client.review(_review_pods(1)[0])
+            stalled = client.review(copy.deepcopy(pods[0]))
         finally:
             release.set()
             del driver._eval
         assert driver.mesh_layout() == 2
-        oracle = jsyn.build_oracle(4, 16)
-        pod = _review_pods(1)[0]
-        assert _review_sig([client.review(copy.deepcopy(pod))]) == \
-            _review_sig([oracle.review(pod)])
+        assert driver.breaker.state == "open"
+        assert driver.route_ledger.last() == ("interp", "device_failed")
+        assert _review_sig([stalled]) == _review_sig([oracle.review(pods[0])])
+        assert driver.breaker.probe_now()
+        assert _review_sig([client.review(copy.deepcopy(pods[1]))]) == \
+            _review_sig([oracle.review(pods[1])])
+        assert driver.route_ledger.last()[0] == "device"
 
     def test_a_stalled_sweep_degrades_then_sweeps_narrower(self):
         pair = _pair(4, 16, 4)
@@ -711,10 +716,15 @@ class TestDispatchWatchdog:
 
         driver._sweep_shards = wedged
         try:
-            with pytest.raises(pm.MeshDispatchStall):
-                pair[0].audit_capped(CAP)
+            got_r, got_t = pair[0].audit_capped(CAP)
         finally:
             release.set()
             del driver._sweep_shards
+        # the interpreter answered the stalled sweep; the breaker is open
+        want_r, want_t = pair[1].audit_capped(CAP)
+        assert sig(got_r.results()) == sig(want_r.results())
+        assert got_t == want_t
         assert driver.mesh_layout() == 2
+        assert driver.breaker.state == "open"
+        assert driver.breaker.probe_now()
         assert _with_oracle(pair)["shards"] == 2.0

@@ -4,6 +4,7 @@ card, so that two checkouts can be compared in turns on one card.
 
     python3 tools/review_turns.py --root DIR [--templates 500]
                                   [--pods 100000] [--reviews 256]
+                                  [--stream 8192] [--model]
 
 DIR holds a checkout's gatekeeper_tpu_torch/ (this tree, or an earlier
 commit unpacked with git archive into a git-ignored directory).  The script
@@ -13,7 +14,15 @@ sweep, then --reviews admission reviews of unique pods (the same seeded
 pods as phase 3), each timed on the host clock around client.review.  It
 prints one JSON line: the card as nvidia-smi names it with its power
 limit, DIR, the p50, p99 (nearest rank) and max in ms, and the launches
-per review.  Run it old, new, new, old in one command to compare:
+per review, and the collector's pauses in the reviews (chip_smoke's
+GcPauses).  --stream N then times N reviews of the stored pods in chunks
+of 2,048 through review_batch, after one warm-up chunk, as a fleet
+replica's ``stream`` command does (reviews/s).  --model, where DIR's
+driver has calibrate_routing, calibrates it and prints its
+predicted_batch_ms beside the median wall of 8 review_batch calls of
+fresh pods at 1, 8 and 64 reviews, for pods flagged at the stored
+corpus's rate (0.05) and at 0.5.  Run it old, new, new, old in one
+command to compare:
 
     for r in build/parent . . build/parent; do
         python3 tools/review_turns.py --root $r; done
@@ -22,6 +31,7 @@ per review.  Run it old, new, new, old in one command to compare:
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.util
 import json
 import os
@@ -47,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--templates", type=int, default=500)
     ap.add_argument("--pods", type=int, default=100_000)
     ap.add_argument("--reviews", type=int, default=256)
+    ap.add_argument("--stream", type=int, default=0)
+    ap.add_argument("--model", action="store_true")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -69,20 +81,96 @@ def main(argv=None) -> int:
                          violation_rate=0.5)
     gdev.reset_launches()
     lat = []
-    for i, pod in enumerate(pods):
-        pod["metadata"]["name"] = f"admission-{i}"
-        t0 = time.perf_counter()
-        client.review(pod)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    print(json.dumps({
+    pauses = cs.GcPauses()
+    gc.callbacks.append(pauses)
+    try:
+        for i, pod in enumerate(pods):
+            pod["metadata"]["name"] = f"admission-{i}"
+            t0 = time.perf_counter()
+            client.review(pod)
+            lat.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gc.callbacks.remove(pauses)
+    out = {
         "root": args.root, "card": cs.nvidia_smi_line(),
         "torch_name": torch.cuda.get_device_name(0), "n": len(lat),
         "p50_ms": statistics.median(lat), "p99_ms": cs.percentile(lat, 99),
         "max_ms": max(lat),
         "launches_per_review": {k: v / len(lat)
                                 for k, v in gdev.launches.items() if v},
-    }), flush=True)
+        "gc": pauses.take(),
+    }
+    if args.stream:
+        out["stream"] = stream(client.driver, args.stream, 2048)
+    if args.model:
+        out["model"] = model(client.driver, syn, cs.SEED)
+    print(json.dumps(out), flush=True)
     return 0
+
+
+def stream(driver, n: int, chunk: int) -> dict:
+    """n admission reviews of the stored pods in chunks through
+    review_batch, after one warm-up chunk -> the seconds and reviews/s."""
+    objs = [rv["object"] for rv in driver._audit_pack.reviews
+            if isinstance(rv, dict) and isinstance(rv.get("object"), dict)]
+    objs = objs[:4096]
+    reqs = [{"uid": f"stream-{i}",
+             "kind": {"group": "", "version": "v1", "kind": o["kind"]},
+             "name": o["metadata"]["name"],
+             "namespace": o["metadata"].get("namespace", ""),
+             "operation": "CREATE", "object": o}
+            for i, o in enumerate(objs)]
+
+    def batch_of(start: int, size: int) -> list:
+        return [reqs[(start + j) % len(reqs)] for j in range(size)]
+
+    driver.review_batch(batch_of(0, chunk))
+    t0 = time.perf_counter()
+    done = 0
+    while done < n:
+        size = min(chunk, n - done)
+        driver.review_batch(batch_of(done, size))
+        done += size
+    s = time.perf_counter() - t0
+    return {"n": n, "chunk": chunk, "s": s, "reviews_per_s": n / s}
+
+
+def model(driver, syn, seed: int):
+    """calibrate_routing, then predicted_batch_ms beside measured walls of
+    fresh pods -> the model, its wall and the comparison; None where the
+    driver has no calibrate_routing."""
+    if not hasattr(driver, "calibrate_routing"):
+        return None
+    t0 = time.perf_counter()
+    cal = driver.calibrate_routing()
+    out = {"calibration": cal,
+           "calibration_ms": (time.perf_counter() - t0) * 1e3, "walls": []}
+    for rate in (0.05, 0.5):
+        for n in (1, 8, 64):
+            pods = syn.make_pods(8 * n, seed=seed + 300 + n,
+                                 violation_rate=rate)
+            walls = []
+            for j in range(8):
+                batch = []
+                for k, p in enumerate(pods[j * n:(j + 1) * n]):
+                    p["metadata"]["name"] = f"model-{rate}-{n}-{j}-{k}"
+                    batch.append({
+                        "uid": p["metadata"]["name"],
+                        "kind": {"group": "", "version": "v1",
+                                 "kind": "Pod"},
+                        "name": p["metadata"]["name"],
+                        "namespace": p["metadata"].get("namespace",
+                                                       "default"),
+                        "operation": "CREATE", "object": p})
+                t1 = time.perf_counter()
+                driver.review_batch(batch)
+                walls.append((time.perf_counter() - t1) * 1e3)
+            p50 = statistics.median(walls)
+            pred = driver.predicted_batch_ms(n)
+            out["walls"].append({"rate": rate, "reviews": n,
+                                 "predicted_ms": pred, "p50_ms": p50,
+                                 "ratio": pred / p50})
+    return out
 
 
 if __name__ == "__main__":
