@@ -104,7 +104,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      closed by a forced full sweep that must equal it; one churn of a Pod
      of the crowded team, whose readers exceed DELTA_MAX_ROWS at this size,
      which must take the full path.  Each sweep logs its stages, rendered cells,
-     results, join-affected rows and the join index's host time.  Each
+     results, join-affected rows and the join index's host time; the
+     join_plans gauge must read 3 after the cold sweep and
+     join_delta_affected_rows_total move by each churn sweep's
+     join-affected rows (one more churn, an Ingress onto another's host,
+     must re-evaluate that other reader).  Each
      delta sweep launches K8's table mode once (its lookups in one launch)
      and K9's delta mode once, K5 never (up to the row limit).  K7, K8 in both modes,
      K1, K9 (and its delta mode), K4 and K6 must have launched on that run,
@@ -125,7 +129,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      totals, counts and [C, 1+K] first candidates must equal width 1's
      bit for bit (the memos emptied before each review batch), K1, K9 and
      K4 launched once a shard, K7 once a shard
-     and its merge once a join plan; churn of d = 1 and 16 through the
+     and its merge once a join plan, mesh_sweep_width reading the width,
+     audit_shard_rows one observation a shard on the cold sweep's slab
+     commit and none on a warm sweep; churn of d = 1 and 16 through the
      delta path, delta_rows the dirty rows (with the readers of the key
      groups they touch), delta_shards and K5's launches their owning
      shards (K9's delta mode none: each slab of the resident mask is
@@ -134,7 +140,13 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      shards) that must equal it.  Every K4 call (row_offset) and K7 merge
      call of that run is held against its plain version and timed at its
      largest call, and K5 too, whose only launches on the counted paths
-     these are.  Then reviews under the mesh: compute_masks of 4,096
+     these are.  Then one injected stall (the fault plane's
+     MESH_DISPATCH_STALL hangs a review batch's guarded dispatch past a
+     0.5 s watchdog at width 4): the interpreter answers the batch as
+     width 1 does, the mesh narrows to 2, mesh_dispatch_stalls_total
+     moves by one, the flight recorder holds one mesh_degrade event from
+     4 to 2, and once the probe closes the breaker a forced full sweep at
+     width 2 equals width 1.  Then reviews under the mesh: compute_masks of 4,096
      stored pods bit-equal and review_batch of 64 unique pods byte-equal
      to width 1, K9 packing once a shard, sharded_violation_counts
      against the mask sums, and the
@@ -235,11 +247,34 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      device_failed or breaker_open, no launch while it is open; the
      schedule cleared, the probe closes it (K1 and K9 once), and a review
      launches K1 and K9 again
+ 14. the wire: a KubeApiServer (kube/apiserver.py) in a child process,
+     its store seeded there with deploy/gatekeeper.yaml's CRDs, phase
+     10's templates, their constraint CRDs and constraints, a Config that
+     syncs Pods and WIRE_PODS of the same seed's pods; two Apps in turn
+     against it, each through --api-server http://... (HttpKube), --driver
+     torch on the card, ready with every pod synced over the wire and its
+     calibration landed.  App A (--audit-from-cache): phase 3's 256 pods
+     over HTTPS, each answer byte-equal to phase 10's but for its uid;
+     two full audit cycles whose statuses, read back from the API server,
+     equal a Client's audit_capped on the same inventory (built on the
+     card before the counted run); its /metrics' tpu_pack_seconds
+     {path="audit"} moving once a cycle and render_cells_total by the
+     cycle's rendered plan and interpreter cells, /debug/costs naming
+     templates, and each cycle's trace on /debug/traces carrying
+     audit.pack, audit.dispatch, audit.fetch and audit.render, their
+     durations equal to last_sweep_stats' pack_ms, device_ms (dispatch
+     and fetch) and render_ms.  App B (--audit-chunk-size 500): its
+     streamed audit pages the pods with continue tokens into
+     review_batch, every status's totalViolations equal to the Client's
+     uncapped audit and every violation it lists one that audit reports.
+     K1, K9 in its sweep and review modes, K4 and K10 must have launched;
+     no batch diverted.  The child is stopped on every way out
 
 The line before the last holds the card's name and power limit as
-nvidia-smi gives them, and the line before that the kernels' JSON; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA card, or run
-from a directory that lacks the package, it prints no result and exits 1.
+nvidia-smi gives them, and the line before that the kernels' JSON
+(launches summed over phases 3 and 6-14); the last line is {"ok": true,
+"device": {...}}.  Without a CUDA card, or run from a directory that
+lacks the package, it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -320,6 +355,9 @@ MESH_CHURN_D = (1, 16)
 MESH_REVIEWS = 4096
 MESH_ADMISSIONS = 64
 MULTIHOST_TIMEOUT_S = 420
+# the watchdog's budget for phase 9's injected stall: far above a review
+# batch's sharded dispatch (milliseconds), far below the 10 s hang
+MESH_WATCHDOG_S = 0.5
 
 
 def log(phase: str, **fields):
@@ -2616,6 +2654,22 @@ class RefChurn:
         self.n += 1
         return {"kind": "moving", "ingresses": n_ing, "pvcs": d - n_ing}
 
+    def joining(self) -> dict:
+        """One Ingress of a unique host takes another's: the key group
+        they now share holds a second reader, which the delta sweep must
+        re-evaluate with it.  Neither is picked again by moving()."""
+        import copy
+
+        name, other = self.rng.sample(self.ingresses, 2)
+        for n in (name, other):
+            self.ingresses.remove(n)
+        ing = copy.deepcopy(self.live[name])
+        ing["spec"]["rules"][0]["host"] = \
+            self.live[other]["spec"]["rules"][0]["host"]
+        self._put(ing)
+        self.n += 1
+        return {"kind": "joining", "ingresses": 1}
+
     def crowded(self) -> dict:
         import copy
 
@@ -2746,8 +2800,10 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
         rec, resp, totals = ref_sweep(client, driver, pauses, timer, "cold")
     records.append(rec)
     results = resp.results()
-    if rec["path"] != "full" or not results or rec["join_plans"] != 3:
-        raise AssertionError(f"cold referential sweep: {rec}")
+    if rec["path"] != "full" or not results or rec["join_plans"] != 3 or \
+            view("join_plans").get(()) != 3:
+        raise AssertionError(f"cold referential sweep: {rec}, join_plans "
+                             f"gauge {view('join_plans')}")
     log("ref_cold_sweep", **rec,
         flagged_constraints=sum(1 for n, _h in totals.values() if n))
     # while the join index is the cold sweep's: the device tables against
@@ -2775,11 +2831,14 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
                 r["join_index_ms"] for r in sweeps),
             sweeps=sweeps)
     delta_cap = Capture(names=("joinlookup_table", "program"))
+    affected_total = 0
     for d in REF_CHURN_D:
         sweeps = []
         for kind in ("neutral", "moving"):
             for i in range(REF_CHURN_SWEEPS):
                 ops = getattr(churn, kind)(d)
+                affected0 = view("join_delta_affected_rows_total").get(
+                    (), 0)
                 if kind == "moving" and i == 0:
                     with delta_cap:
                         rec, resp, totals = ref_sweep(
@@ -2791,10 +2850,16 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
                 # writing the columns (K5 past the fold's row limit)
                 want = dict(delta_launches(padded(rec["delta_rows"] or 0)),
                             joinlookup_table=1)
+                # the counter moves by the readers each sweep re-evaluated
+                moved = view("join_delta_affected_rows_total").get(
+                    (), 0) - affected0
                 if rec["path"] != "delta" or rec["delta_rows"] < d or \
-                        rec["launches"] != want:
+                        rec["launches"] != want or \
+                        moved != (rec["join_affected_rows"] or 0):
                     raise AssertionError(f"ref churn d={d}: {rec}, "
-                                         f"want {want}")
+                                         f"want {want}, the affected-rows "
+                                         f"counter moved {moved}")
+                affected_total += moved
                 sweeps.append(rec)
         counts = driver._delta_state.counts.copy()
         sig = syn.audit_result_sig(resp.results())
@@ -2817,6 +2882,19 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
                                        "join_index_ms", "join_tables_ms")},
             equal_to_full=equal, results=len(sig), sweeps=sweeps,
             full_sweep=full)
+    # a key-moving churn into a shared key group: the counter moves by
+    # the other reader the sweep re-evaluated
+    affected0 = view("join_delta_affected_rows_total").get((), 0)
+    rec, _resp, _totals = ref_sweep(client, driver, pauses, timer,
+                                    "joining", churn.joining())
+    moved = view("join_delta_affected_rows_total").get((), 0) - affected0
+    if rec["path"] != "delta" or not rec["join_affected_rows"] or \
+            moved != rec["join_affected_rows"]:
+        raise AssertionError(f"the joining churn: {rec}, the "
+                             f"affected-rows counter moved {moved}")
+    affected_total += moved
+    records.append(rec)
+    log("ref_joining_churn", counter_moved=moved, **rec)
     # the churned row plus the rest of its group's readers: past the
     # budget at full size (about 500 crowded Pods in 100,000 objects)
     group = len(churn.crowd)
@@ -2829,6 +2907,11 @@ def referential_path(client, driver, churn: RefChurn, pauses, timer):
     records.append(rec)
     log("ref_crowded_churn", readers=group,
         delta_max_rows=driver.DELTA_MAX_ROWS, **rec)
+    if not affected_total:
+        raise AssertionError("no key-moving churn moved "
+                             "join_delta_affected_rows_total")
+    log("ref_join_metrics", join_plans=view("join_plans").get(()),
+        join_delta_affected_rows_total=affected_total)
     return cold_cap, delta_cap, records
 
 
@@ -2926,6 +3009,9 @@ def mesh_sweeps(client, driver, ref, width: int, label: str,
     and K4 launch ``width`` times a sweep; with join plans K7 ``width``
     times a plan and its merge once a plan."""
     driver.set_mesh(True, width=width)
+    if view("mesh_sweep_width").get(()) != width:
+        raise AssertionError(f"mesh_sweep_width reads "
+                             f"{view('mesh_sweep_width')} at width {width}")
     want = {"match": width, "program": width, "reduction": width}
     if plans:
         want.update(joinkeys=width * plans, joinkeys_merge=plans)
@@ -2934,20 +3020,26 @@ def mesh_sweeps(client, driver, ref, width: int, label: str,
         if which == "warm":
             force_full(driver)
         before = dict(_dev().launches)
+        shards0 = shard_observations("audit")
         t0 = time.perf_counter()
         resp, totals = client.audit_capped(CAP)
         wall = time.perf_counter() - t0
         st = dict(driver.last_sweep_stats)
         got = {k: _dev().launches[k] - before[k] for k in want}
         equal = _equal_to(ref, resp, totals, driver)
+        # the cold sweep commits the slabs (one observation a shard); the
+        # warm ones patch the resident slabs and commit none
+        committed = shard_observations("audit") - shards0
         rec = {"config": label, "width": width, "sweep": which, "s": wall,
                "launches": got, "equal_to_width_1": equal,
+               "shards_committed": committed,
                **{k: st.get(k) for k in (
                    "pack_ms", "device_ms", "render_ms", "shards",
                    "rows_per_shard", "padded_rows", "upload_bytes",
                    "join_plans")}}
         if not all(equal.values()) or got != want \
-                or st.get("shards") != width or "delta_rows" in st:
+                or st.get("shards") != width or "delta_rows" in st or \
+                committed != (width if which == "cold" else 0):
             raise AssertionError(f"mesh sweep: {rec}, want {want}")
         recs.append(rec)
         log("mesh_sweep", **rec)
@@ -3058,6 +3150,80 @@ def _review_bytes(responses) -> list:
                         sort_keys=True, default=str)
              for r in resp.results()]
             for resp in responses]
+
+
+def mesh_stall(client, driver, ref) -> dict:
+    """One mesh dispatch written off by the watchdog: at width
+    max(MESH_WIDTHS), with mesh_watchdog_s set to MESH_WATCHDOG_S, the
+    fault plane hangs one review batch's guarded dispatch.  The batch must
+    be answered by the interpreter as width 1 answers it, the mesh narrow
+    to half its width, mesh_dispatch_stalls_total move by one and the
+    flight recorder hold one mesh_degrade event; once the probe closes
+    the breaker, a forced full sweep at the new width must equal width 1
+    bit for bit.  The batch's divert goes to INJECTED_DIVERTS."""
+    import copy
+
+    from gatekeeper_tpu_torch import faults
+    from gatekeeper_tpu_torch.faults import FaultRule
+    from gatekeeper_tpu_torch.obs import flightrec
+
+    width = max(MESH_WIDTHS)
+    driver.set_mesh(True, width=width)
+    pods = fresh_pods(4, SEED + 89, "mesh-stall")
+    want = results_of(client, pods)  # on the mesh, unstalled
+    forget_reviews(driver)
+    stalls0 = view("mesh_dispatch_stalls_total").get((), 0)
+    degrades0 = sum(1 for e in flightrec.get_recorder().events()
+                    if e["type"] == flightrec.MESH_DEGRADE)
+    diverts0 = diverts()
+    driver.mesh_watchdog_s = MESH_WATCHDOG_S
+    plane = faults.install(seed=SEED)
+    try:
+        plane.add(faults.MESH_DISPATCH_STALL,
+                  FaultRule(mode="hang", hang_s=10.0, count=1))
+        t0 = time.perf_counter()
+        got = [results_sig(r.results())
+               for r in client.review_batch(copy.deepcopy(pods))]
+        stall_s = time.perf_counter() - t0
+        narrowed, state = driver.mesh_layout(), driver.breaker.state
+        plane.release_hangs()
+        # the abandoned dispatch finishes alone before new device work
+        time.sleep(1.0)
+        plane.clear(faults.MESH_DISPATCH_STALL)
+    finally:
+        faults.uninstall()
+        driver.mesh_watchdog_s = None
+    moved = diverts()
+    for k, n in moved.items():
+        INJECTED_DIVERTS[k] = INJECTED_DIVERTS.get(k, 0) + n - \
+            diverts0.get(k, 0)
+    events = [e for e in flightrec.get_recorder().events()
+              if e["type"] == flightrec.MESH_DEGRADE]
+    stalls = view("mesh_dispatch_stalls_total").get((), 0) - stalls0
+    probed = driver.breaker.probe_now()
+    force_full(driver)
+    resp, totals = client.audit_capped(CAP)
+    equal = _equal_to(ref, resp, totals, driver)
+    st = dict(driver.last_sweep_stats)
+    rec = {"width": width, "narrowed_to": narrowed, "breaker": state,
+           "stalled_review_s": stall_s, "answers_equal": got == want,
+           "mesh_dispatch_stalls": stalls,
+           "mesh_degrade_events": len(events) - degrades0,
+           "last_degrade": events[-1] if events else None,
+           "mesh_sweep_width": view("mesh_sweep_width").get(()),
+           "diverts": {k: n - diverts0.get(k, 0) for k, n in moved.items()},
+           "probe_closed": probed, "sweep_shards": st.get("shards"),
+           "sweep_equal_to_width_1": equal}
+    if got != want or narrowed != width // 2 or state != "open" or \
+            stalls != 1 or rec["mesh_degrade_events"] != 1 or \
+            events[-1].get("from_width") != width or \
+            events[-1].get("to_width") != width // 2 or \
+            rec["mesh_sweep_width"] != width // 2 or not probed or \
+            st.get("shards") != width // 2 or not all(equal.values()) or \
+            rec["diverts"] != {"interp|device_failed": 1}:
+        raise AssertionError(f"the mesh stall: {rec}")
+    check_no_divert("after the mesh stall", driver)
+    return rec
 
 
 def mesh_masks(client, driver, width: int) -> dict:
@@ -3282,6 +3448,7 @@ def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
                          timed=("reduction", "joinkeys_merge", "delta"),
                          phase="kernel_mesh")
     del cap
+    log("mesh_stall", **mesh_stall(client, driver, synth_ref))
     for width in MESH_WIDTHS:
         log("mesh_masks", **mesh_masks(client, driver, width))
     log("multihost", **multihost_phase(args))
@@ -3363,14 +3530,36 @@ def forget_reviews(driver) -> None:
         driver._review_memo.clear()
 
 
+# 'tier|reason' -> diverts a phase made on purpose (phase 9's injected
+# mesh stall, phase 13's injected dispatch errors), which diverts()
+# leaves out where a later phase checks it made none
+INJECTED_DIVERTS: dict = {}
+
+
 def diverts() -> dict:
     """'tier|reason' -> this process's route decisions of a divert
-    reason (route_decisions_total)."""
+    reason (route_decisions_total), less INJECTED_DIVERTS."""
     from gatekeeper_tpu_torch.metrics.views import global_registry
 
     rows = global_registry().view_rows("route_decisions_total")
-    return {f"{t}|{r}": n for (t, r), n in rows.items()
-            if r in DIVERT_REASONS and n}
+    got = {f"{t}|{r}": n for (t, r), n in rows.items()
+           if r in DIVERT_REASONS}
+    return {k: n - INJECTED_DIVERTS.get(k, 0) for k, n in got.items()
+            if n - INJECTED_DIVERTS.get(k, 0)}
+
+
+def view(name: str) -> dict:
+    """This process's rows of the metric view ``name``."""
+    from gatekeeper_tpu_torch.metrics.views import global_registry
+
+    return global_registry().view_rows(name)
+
+
+def shard_observations(path: str) -> int:
+    """audit_shard_rows observations of ``path`` ("audit" or "review")
+    so far: one a shard committed."""
+    got = view("audit_shard_rows").get((path,))
+    return got.count if got is not None else 0
 
 
 def check_no_divert(where: str, *drivers) -> None:
@@ -4029,7 +4218,11 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
         mask_to_host_s=m2h.seconds, mask_shape=list(written.shape))
     return launches, {"kube": kube, "constraints": constraints,
                       "ready_s": marks["ready"], "flags": flags,
-                      "written": written}
+                      "written": written,
+                      # each of phase 3's pods' answer, which phase 14's
+                      # App over the wire must give again
+                      "answers": [answers[f"seq-{i}"]
+                                  for i in range(len(pods))]}
 
 
 # ---- phase 11: the restart (snapshots, warm resume, the kernels' cache) ----
@@ -5704,6 +5897,429 @@ def serving_phase(client, driver, smi: str) -> dict:
     return dict(gdev.launches)
 
 
+# ---- phase 14: the wire (the App against a real HTTP API server) -----------
+
+# pods the child API server stores: a cut of phase 10's ~100,000 (App B's
+# streamed audit renders every flagged cell through review_batch, and the
+# phase shares the run's 1,200 s)
+WIRE_PODS = 20_000
+# App B's audit page (--audit-chunk-size)
+WIRE_CHUNK = 500
+# the longest the child may take to seed its store and listen
+WIRE_SERVER_START_S = 300
+# the kernels the phase's two Apps must launch: admissions (K1, K9's
+# review mode), App A's full sweeps (K9, K4), App B's streamed audit
+# batches of DEFAULT_REVIEW_BATCH reviews (K9 then K10)
+WIRE_KERNELS = ("match", "program", "program_pack", "reduction", "packbits")
+# the stage spans each of App A's full cycles must carry
+WIRE_SPANS = ("audit.pack", "audit.dispatch", "audit.fetch", "audit.render")
+# span and stat durations agree to the spans' rounding (0.0001 ms)
+WIRE_SPAN_TOL_MS = 0.01
+
+# the child API server: argv root, templates, pods, seed.  It seeds its
+# store in its own process (the CRDs of deploy/gatekeeper.yaml, each
+# template's constraint CRD as the template controller writes it, the
+# namespaces, a Config that syncs Pods, the templates, their constraints,
+# the pods), serves it, prints one JSON line, and stops when its stdin
+# closes
+WIRE_SERVER = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+root = sys.argv[1]
+n_templates, n_pods, seed = (int(a) for a in sys.argv[2:5])
+sys.path.insert(0, root)
+import yaml
+from gatekeeper_tpu_torch.apis.templates import ConstraintTemplate
+from gatekeeper_tpu_torch.client.crd import synthesize_crd
+from gatekeeper_tpu_torch.kube.apiserver import KubeApiServer
+from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
+from gatekeeper_tpu_torch.target.target import K8sValidationTarget
+from gatekeeper_tpu_torch.util import synthetic as syn
+
+kube = InMemoryKube()
+with open(os.path.join(root, "deploy", "gatekeeper.yaml")) as f:
+    for doc in yaml.safe_load_all(f):
+        if doc and doc.get("kind") == "CustomResourceDefinition":
+            kube.create(doc)
+templates, constraints = syn.make_templates(n_templates, seed)
+pods = syn.make_pods(n_pods, seed + 1)
+match = K8sValidationTarget().match_schema()
+for ns in sorted({p["metadata"]["namespace"] for p in pods}
+                 | {"gatekeeper-system"}):
+    kube.create({"apiVersion": "v1", "kind": "Namespace",
+                 "metadata": {"name": ns}})
+kube.create({
+    "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
+    "metadata": {"name": "config", "namespace": "gatekeeper-system"},
+    "spec": {"sync": {"syncOnly": [
+        {"group": "", "version": "v1", "kind": "Pod"}]}},
+})
+for t in templates:
+    kube.create(t)
+    tmpl = ConstraintTemplate.from_dict(t)
+    crd = synthesize_crd(tmpl.kind, tmpl.validation_schema, match)
+    crd["status"] = {"conditions": [{"type": "Established",
+                                     "status": "True"}]}
+    kube.create(crd)
+for obj in constraints + pods:
+    kube.create(obj)
+seeded = time.perf_counter() - t0
+srv = KubeApiServer(kube=kube)
+srv.start()
+# a real API server sends without Nagle's delay (Go sets TCP_NODELAY on
+# every connection); the stand-in's handler writes a response's headers
+# and body apart, which a delayed ACK holds ~40 ms a request without it
+import socket
+httpd = srv._httpd
+accept = httpd.get_request
+
+def get_request():
+    sock, addr = accept()
+    sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    return sock, addr
+
+httpd.get_request = get_request
+print(json.dumps({"url": srv.url, "seed_s": seeded, "pods": len(pods),
+                  "templates": len(templates)}), flush=True)
+sys.stdin.read()
+srv.stop()
+"""
+
+
+class WireServer:
+    """The child API server of phase 14, stopped on every way out of the
+    ``with``: its stdin closed, then killed if it has not ended."""
+
+    def __init__(self, n_templates: int, n_pods: int):
+        self.args = [sys.executable, "-c", WIRE_SERVER, ROOT,
+                     str(n_templates), str(n_pods), str(SEED)]
+        self.proc = None
+        self.ready = None
+
+    def __enter__(self) -> "WireServer":
+        import selectors
+
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        self.err = open(os.path.join(ROOT, "build", "wire_server.log"), "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            self.args, cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True)
+        sel = selectors.DefaultSelector()
+        sel.register(self.proc.stdout, selectors.EVENT_READ)
+        try:
+            if not sel.select(timeout=WIRE_SERVER_START_S):
+                raise AssertionError(f"the API server did not listen within "
+                                     f"{WIRE_SERVER_START_S} s")
+            line = self.proc.stdout.readline()
+        finally:
+            sel.close()
+        if not line:
+            raise AssertionError(f"the API server exited "
+                                 f"{self.proc.wait()}: {self._tail()}")
+        self.ready = json.loads(line)
+        self.ready["start_s"] = time.perf_counter() - t0
+        return self
+
+    def _tail(self) -> str:
+        with open(self.err.name) as f:
+            return f.read()[-2000:]
+
+    def __exit__(self, *exc):
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        finally:
+            self.proc.stdout.close()
+            self.err.close()
+
+
+def http_json(port: int, path: str):
+    """GET ``path`` of an App's metrics listener -> its JSON."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def metric_value(text: str, family: str, **labels) -> float:
+    """The sum of the exposition's samples of ``family`` (any namespace
+    prefix) whose labels include ``labels``."""
+    import re
+
+    total = 0.0
+    pat = re.compile(r"^(?:\w+_)?" + re.escape(family)
+                     + r"(?:\{([^}]*)\})?\s+(\S+)")
+    for ln in text.splitlines():
+        m = pat.match(ln)
+        if not m:
+            continue
+        got = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1) or ""))
+        if all(got.get(k) == v for k, v in labels.items()):
+            total += float(m.group(2))
+    return total
+
+
+def _answer_bytes(resp: dict) -> str:
+    """An admission answer without its uid, as canonical JSON."""
+    return json.dumps({k: v for k, v in resp.items() if k != "uid"},
+                      sort_keys=True)
+
+
+def audit_trace(port: int) -> dict:
+    """The newest audit cycle's trace on an App's /debug/traces ->
+    span name -> its duration in ms (summed over spans of one name)."""
+    for tr in http_json(port, "/debug/traces?limit=20")["traces"]:
+        if tr["root"] == "audit":
+            out: dict = {}
+            for sp in tr["spans"]:
+                out[sp["name"]] = out.get(sp["name"], 0.0) + \
+                    sp["duration_ms"]
+            return out
+    raise AssertionError("no audit trace on /debug/traces")
+
+
+def wire_start(flags: list, n_templates: int, n_constraints: int,
+               n_pods: int):
+    """An App built from ``flags`` (its --api-server the child's URL: the
+    kube is HttpKube), started, ready with every template, constraint and
+    pod synced over the wire, its calibration landed -> (app, its HTTPS
+    connection, the ready record)."""
+    from gatekeeper_tpu_torch.main import App, build_parser
+
+    t_start = time.perf_counter()
+    app = App(build_parser().parse_args(flags))
+    if type(app.kube).__name__ != "HttpKube" or \
+            app.client.driver.device.type != DEVICE:
+        raise AssertionError(f"the App runs over {type(app.kube)} on "
+                             f"{app.client.driver.device}")
+    app.start()
+    conn = _https(app.webhook_server.port)
+    marks = await_ready(app, conn, t_start, n_templates, n_constraints,
+                        n_pods)
+    if not app.manager.drain(timeout=120):
+        raise AssertionError("the controllers' queues did not drain")
+    cal_s = await_calibration(app.client.driver)
+    return app, conn, {**marks, "calibration_waited_s": cal_s}
+
+
+def wire_phase(args, pods, process) -> dict:
+    """Phase 14: the port's App over the wire against a KubeApiServer in
+    a child process, --driver torch on the card.  App A (--audit-from-
+    cache) answers phase 3's pods over HTTPS byte for byte as phase 10's
+    App did and runs two full audit cycles whose statuses, read back from
+    the API server, equal a Client's audit_capped on the same inventory;
+    its /metrics, /debug/costs and /debug/traces carry the audit's stage
+    telemetry.  App B (--audit-chunk-size WIRE_CHUNK) streams its audit
+    in continue-token pages through review_batch to the Client's uncapped
+    totals, listing only violations the uncapped audit reports.  -> the
+    launches of the two Apps."""
+    from gatekeeper_tpu_torch.audit.manager import truncate
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    gdev = _dev()
+    n = min(WIRE_PODS, args.pods)
+    # phase 13's diverts were injected: the Apps here must add none
+    for k, moved in diverts().items():
+        INJECTED_DIVERTS[k] = INJECTED_DIVERTS.get(k, 0) + moved
+    # the reference, on the card before the counted run: a Client over
+    # the inventory the child stores (the same seed's templates and pods)
+    t0 = time.perf_counter()
+    ref = syn.build_driver(args.templates, n, SEED)
+    _resp, ref_totals = ref.audit_capped(CAP)
+    ref_count, ref_listed = {}, set()
+    for r in ref.audit().results():
+        key = (r.constraint["kind"], r.constraint["metadata"]["name"])
+        ref_count[key] = ref_count.get(key, 0) + 1
+        md = (r.review.get("object") or {}).get("metadata") or {}
+        ref_listed.add((key, md.get("name"), md.get("namespace") or "",
+                        truncate(r.msg)))
+    del ref, _resp
+    gc.collect()
+    _templates, constraints = syn.make_templates(args.templates, SEED)
+    if any(how == "exact" and n_ != ref_count.get(k, 0)
+           for k, (n_, how) in ref_totals.items()):
+        raise AssertionError("the reference's exact capped totals differ "
+                             "from its uncapped audit")
+    log("wire_reference", seconds=time.perf_counter() - t0, pods=n,
+        violations=sum(ref_count.values()),
+        exact_totals=sum(1 for _n, h in ref_totals.values()
+                         if h == "exact"))
+    cert_dir = os.path.join(ROOT, "build", "wire_certs")
+    record: dict = {"pods": n, "templates": args.templates}
+    gdev.reset_launches()
+    t_phase = time.perf_counter()
+    with WireServer(args.templates, n) as server:
+        record["server"] = server.ready
+        common = ["--driver", "torch", "--torch-device", DEVICE,
+                  "--api-server", server.ready["url"],
+                  "--port", "0", "--prometheus-port", "0",
+                  "--health-addr", ":0", "--audit-interval", "86400",
+                  "--constraint-violations-limit", str(CAP),
+                  "--log-level", "WARNING", "--cert-dir", cert_dir]
+
+        # App A: from the cache, admissions and two full cycles
+        app, conn, ready = wire_start(common + ["--audit-from-cache"],
+                                      args.templates, len(constraints), n)
+        adriver = app.client.driver
+        try:
+            record["app_a_ready"] = ready
+            lat = []
+            for i, pod in enumerate(pods):
+                resp, ms = admit(conn, f"wire-{i}", pod)
+                lat.append(ms)
+                if _answer_bytes(resp) != _answer_bytes(
+                        process["answers"][i]):
+                    raise AssertionError(f"pod {i}: {resp} is not phase "
+                                         f"10's {process['answers'][i]}")
+            record["admissions"] = {
+                "n": len(lat), "p50_ms": statistics.median(lat),
+                "p99_ms": percentile(lat, 99), "max_ms": max(lat)}
+            port = app.metrics_exporter.port
+            text0 = metrics_text(port)
+            cycles = []
+            for label in ("cold", "forced_full"):
+                if label != "cold":
+                    force_full(adriver)
+                cells0 = metric_value(metrics_text(port),
+                                      "render_cells_total")
+                rec = cycle(app, label, cycles, ref_totals, constraints)
+                st = dict(adriver.last_sweep_stats)
+                moved = metric_value(metrics_text(port),
+                                     "render_cells_total") - cells0
+                spans = audit_trace(port)
+                rec.update(render_cells_moved=moved, spans=spans,
+                           fetch_ms=st.get("fetch_ms"),
+                           render_plan_cells=st.get("render_plan_cells"),
+                           render_interp_cells=st.get(
+                               "render_interp_cells"))
+                agree = {
+                    "pack": abs(spans.get("audit.pack", -1.0)
+                                - st["pack_ms"]),
+                    "dispatch_fetch": abs(
+                        spans.get("audit.dispatch", -1.0)
+                        + spans.get("audit.fetch", -1.0) - st["device_ms"]),
+                    "render": abs(spans.get("audit.render", -1.0)
+                                  - st["render_ms"]),
+                }
+                rec["span_minus_stat_ms"] = agree
+                if rec["path"] != "full" or \
+                        any(s not in spans for s in WIRE_SPANS) or \
+                        max(agree.values()) > WIRE_SPAN_TOL_MS or \
+                        moved != st["render_plan_cells"] + \
+                        st["render_interp_cells"] or \
+                        moved > st["rendered_cells"] or \
+                        (label == "cold" and not moved):
+                    raise AssertionError(f"App A's cycle {label}: {rec}")
+            record["app_a_cycles"] = cycles
+            text1 = metrics_text(port)
+            pack_moved = metric_value(text1, "tpu_pack_seconds_count",
+                                      path="audit") - metric_value(
+                text0, "tpu_pack_seconds_count", path="audit")
+            costs = http_json(port, "/debug/costs?top=5")
+            kinds = {c["kind"] for c in constraints}
+            named = [t["template"] for t in costs.get("templates", ())]
+            cost_series = sum(1 for ln in text1.splitlines()
+                              if "cost_cells{" in ln and "template=" in ln)
+            record["telemetry"] = {
+                "tpu_pack_seconds_audit_moved": pack_moved,
+                "debug_costs_templates": named,
+                "cost_cells_series": cost_series}
+            if pack_moved != len(cycles) or not named or \
+                    not set(named) <= kinds or not cost_series:
+                raise AssertionError(f"App A's telemetry: "
+                                     f"{record['telemetry']}")
+            if app.audit_manager.consecutive_failures:
+                raise AssertionError("an App A audit cycle failed")
+            check_no_divert("the wire, App A", adriver)
+        finally:
+            app.stop()
+        del app, adriver
+        if not gc.isenabled():
+            raise AssertionError("the collector is off after App.stop()")
+
+        # App B: the streamed audit, paged over the wire
+        app, conn, ready = wire_start(
+            common + ["--audit-chunk-size", str(WIRE_CHUNK)],
+            args.templates, len(constraints), n)
+        bdriver = app.client.driver
+        try:
+            record["app_b_ready"] = ready
+            continued, pages, batches = [], [], []
+            request, list_pages = app.kube._request, app.kube.list_pages
+            review_batch = bdriver.review_batch
+
+            def spy_request(method, path, *a, **kw):
+                if method == "GET" and "continue=" in path:
+                    continued.append(path)
+                return request(method, path, *a, **kw)
+
+            def spy_pages(gvk, *a, **kw):
+                for page in list_pages(gvk, *a, **kw):
+                    pages.append((gvk[2], len(page)))
+                    yield page
+
+            def spy_batch(reviews, tracing=False):
+                batches.append(len(reviews))
+                return review_batch(reviews, tracing=tracing)
+
+            app.kube._request = spy_request
+            app.kube.list_pages = spy_pages
+            bdriver.review_batch = spy_batch
+            t0 = time.perf_counter()
+            if not app.audit_manager.run_once_guarded():
+                raise AssertionError("App B's streamed audit failed")
+            audit_s = time.perf_counter() - t0
+            app.kube._request = request
+            app.kube.list_pages = list_pages
+            bdriver.review_batch = review_batch
+            got_totals, listed, strays = {}, 0, []
+            for c in constraints:
+                key = (c["kind"], c["metadata"]["name"])
+                st = app.kube.get(("constraints.gatekeeper.sh", "v1beta1",
+                                   c["kind"]), key[1]).get("status") or {}
+                got_totals[key] = st.get("totalViolations")
+                for v in st.get("violations") or ():
+                    listed += 1
+                    if (key, v.get("name"), v.get("namespace") or "",
+                            v.get("message")) not in ref_listed:
+                        strays.append((key, v))
+            pod_pages = [k for kind, k in pages if kind == "Pod"]
+            record["app_b_audit"] = {
+                "s": audit_s, "pages": len(pod_pages),
+                "largest_page": max(pod_pages, default=0),
+                "continue_requests": len(continued),
+                "review_batches": len(batches),
+                "largest_batch": max(batches, default=0),
+                "listed_violations": listed}
+            want_totals = {k: ref_count.get(k, 0) for k in got_totals}
+            if got_totals != want_totals or strays or not listed or \
+                    not continued or sum(pod_pages) != n or \
+                    max(pod_pages) > WIRE_CHUNK:
+                bad = [k for k in got_totals
+                       if got_totals[k] != want_totals[k]]
+                raise AssertionError(f"App B's streamed audit: "
+                                     f"{record['app_b_audit']}, totals "
+                                     f"differ for {bad[:5]}, strays "
+                                     f"{strays[:3]}")
+            check_no_divert("the wire, App B", bdriver)
+        finally:
+            app.stop()
+        del app, bdriver
+    record["seconds"] = time.perf_counter() - t_phase
+    launches = dict(gdev.launches)
+    missing = [k for k in WIRE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched over the wire: "
+                             f"{missing}")
+    log("wire", launches=launches, **record)
+    return launches
+
+
 SPLIT_MODES = ("op_by_op", "k9")
 
 
@@ -6462,12 +7078,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     serving_launches = serving_phase(client, driver, smi)
     log("serving", seconds=time.perf_counter() - t0)
+
+    # 14. the wire: two Apps against an API server in a child process
+    t0 = time.perf_counter()
+    wire_launches = wire_phase(args, pods, process)
+    log("wire_phase", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
                            + process_launches[name]
                            + restart_launches[name] + fleet_launches[name]
-                           + serving_launches[name])
+                           + serving_launches[name] + wire_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

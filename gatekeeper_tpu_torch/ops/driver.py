@@ -110,7 +110,19 @@ from ..parallel.mesh import (
     visible_devices,
 )
 from ..device import kernels, select_device
-from ..metrics.catalog import DISPATCH_M, PACK_M, record_cache, record_stage
+from ..metrics.catalog import (
+    DISPATCH_M,
+    PACK_M,
+    record_audit_shard,
+    record_cache,
+    record_join_affected,
+    record_mesh_stall,
+    record_mesh_width,
+    record_render_cells,
+    record_stage,
+    set_join_plans,
+)
+from ..obs import costs as obscosts
 from ..obs import trace as obstrace
 from ..target.match import constraint_matches, needs_autoreject
 from ..target.target import K8sValidationTarget
@@ -301,6 +313,16 @@ class TorchDriver(InterpDriver):
         self._bound_plans: Dict[Tuple[str, str], object] = {}
         self._bound_plans_epoch = -1
         self._uses_inventory_cache: Optional[Tuple[int, bool]] = None
+        # per-template constraint counts for the cost ledger's dispatch
+        # apportioning (obs/costs.py), cached per constraint-side epoch:
+        # attribution never walks every kind per admission batch
+        self._cost_kinds_cache: Optional[Tuple[int, Dict[str, int]]] = None
+        # per-pass render-tier counters, flushed to
+        # render_cells_total{plan=...} once a render pass, so the hot
+        # loop pays a dict increment, not a registry record, per cell
+        self._tier_counts = {"static": 0, "slots": 0, "interp": 0}
+        # the last masked render pass's cells and stage times
+        self.last_render_stats: Dict[str, float] = {}
         # per-sweep stage times and counts (read by chip_smoke.py)
         self.last_sweep_stats: Dict[str, float] = {}
         # running totals of constraint-side re-packs and uploads, and the
@@ -394,14 +416,14 @@ class TorchDriver(InterpDriver):
         installed fault-plane schedule included), so the breaker closes
         exactly when the device answers again."""
         with self._lock:
-            if not any(self.constraints.values()):
-                # nothing to evaluate: the dispatch seam and the kernels'
-                # load are the probe
-                if faults.ENABLED:
-                    _fire_dispatch()
-                self.wait_ready()
+            if any(self.constraints.values()):
+                self.compute_masks([copy.deepcopy(self._PROBE_REVIEW)])
                 return
-            self.compute_masks([copy.deepcopy(self._PROBE_REVIEW)])
+        # nothing to evaluate: the dispatch seam and the kernels' load are
+        # the probe, outside the lock (the load may run nvcc)
+        if faults.ENABLED:
+            _fire_dispatch()
+        self.wait_ready()
 
     def _on_breaker_transition(self, old: str, new: str):
         # also invoked with old == new by the probe loop as a periodic
@@ -591,6 +613,9 @@ class TorchDriver(InterpDriver):
             self._audit_dev_mesh = None
             self._audit_cache = None
             self._delta_state = None
+        # outside the driver lock (the gauge is advisory); mesh_layout()
+        # resolves the new topology
+        record_mesh_width(self.mesh_layout() if enabled else 1)
 
     def mesh_layout(self) -> int:
         """The row-sharding width serving audit sweeps: the active mesh's
@@ -618,6 +643,7 @@ class TorchDriver(InterpDriver):
 
         def _stall(where: str) -> MeshDispatchStall:
             DISPATCH_LOCK.revoke()
+            record_mesh_stall()
             log.warning("mesh dispatch watchdog: %s exceeded %.3fs at "
                         "width %d", where, timeout, mesh.devices.size)
             self.degrade_mesh()
@@ -664,6 +690,15 @@ class TorchDriver(InterpDriver):
         self.set_mesh(True, width=new)
         log.warning("mesh degraded after a dispatch stall: width %d -> %d",
                     width, new)
+        try:  # guarded: the degrade proceeds even without a recorder
+            from ..obs import flightrec
+
+            flightrec.record(
+                flightrec.MESH_DEGRADE, from_width=width, to_width=new,
+            )
+        except Exception:
+            log.debug("flight-recorder feed failed on mesh degrade",
+                      exc_info=True)
         return new
 
     # ---- constraint side --------------------------------------------------
@@ -892,6 +927,11 @@ class TorchDriver(InterpDriver):
         record_stage(PACK_M, t1 - t0, {"path": "review"})
         record_stage(DISPATCH_M, t2 - t1, {"path": "review",
                                            "tier": "torch"})
+        if obscosts.enabled():
+            obscosts.record_dispatch(
+                self._cost_kind_counts(), t2 - t1, len(reviews),
+                path="review",
+            )
         return ordered, mask_np, rej_np
 
     # ---- referential policies (ops/joinkernel.py) -------------------------
@@ -947,7 +987,11 @@ class TorchDriver(InterpDriver):
         plans = self._active_join_plans()
         ap = self._audit_pack
         if not plans:
-            self._join_state = None
+            if self._join_state is not None:
+                # the last referential template left: retract the gauge,
+                # so /metrics never shows join plans no template has
+                self._join_state = None
+                set_join_plans(0)
             return None
         from .joinkernel import JoinState
 
@@ -961,6 +1005,7 @@ class TorchDriver(InterpDriver):
         bump = js.rebuild(ap, self.interner)
         if bump:
             ap.bump_row_gen(bump)
+        set_join_plans(len(plans))
         return js
 
     def _join_safe(self, kind: str) -> bool:
@@ -1162,15 +1207,34 @@ class TorchDriver(InterpDriver):
             )
         return out
 
+    def _cost_kind_counts(self) -> Dict[str, int]:
+        """{template kind: live constraint count} for the cost ledger's
+        dispatch apportioning, cached per constraint-side epoch."""
+        cached = self._cost_kinds_cache
+        if cached is not None and cached[0] == self._cs_epoch:
+            return cached[1]
+        counts = {k: len(v) for k, v in self.constraints.items() if v}
+        self._cost_kinds_cache = (self._cs_epoch, counts)
+        return counts
+
+    def _flush_render_counts(self):
+        """Export the pass's per-tier cell counts to
+        render_cells_total{plan=...} (one registry record per tier per
+        pass, not per cell)."""
+        counts = self._tier_counts
+        if counts["static"] or counts["slots"] or counts["interp"]:
+            record_render_cells(counts)
+            self._tier_counts = {"static": 0, "slots": 0, "interp": 0}
+
     def _eval_cell(self, constraint: dict, kind: str, review: dict,
                    frozen_review, inventory, rowview=None,
-                   allow_plan: bool = True) -> list:
+                   allow_plan: bool = True, count: bool = True) -> list:
         """Exact evaluation of one (constraint, review) cell: native match
         re-check + violation rendering — through the compiled render plan
         when this constraint has one, else the interpreter.  Returns the
         violation dicts ([] when the device mask over-approximated).
-        allow_plan=False is for render-pool workers: they touch no shared
-        state."""
+        allow_plan=False and count=False are for render-pool workers: they
+        touch no shared state (the pass counts their cells)."""
         from ..engine.value import freeze
 
         tmpl = self.templates.get(kind)
@@ -1187,7 +1251,11 @@ class TorchDriver(InterpDriver):
                     from .renderplan import RowView
 
                     rowview = RowView(review, frozen_review)
+                if count:
+                    self._tier_counts[plan.tier] += 1
                 return plan.apply(rowview)
+        if count:
+            self._tier_counts["interp"] += 1
         params = constraint_parameters(constraint)
         if frozen_review is None:
             frozen_review = (
@@ -1332,11 +1400,13 @@ class TorchDriver(InterpDriver):
                 # streaming chunks skip both (review_batch evaluates
                 # them directly)
                 admission = len(reviews) <= self.REQUEST_MEMO_BATCH_MAX
-                out = self._render_masked(
-                    reviews, ordered, mask, autoreject,
-                    self._inventory_for_render(), memo_keys=memo_reviews,
-                    memo=admission,
-                )
+                with obstrace.span("render", stage=obstrace.RENDER,
+                                   tier="torch"):
+                    out = self._render_masked(
+                        reviews, ordered, mask, autoreject,
+                        self._inventory_for_render(),
+                        memo_keys=memo_reviews, memo=admission,
+                    )
                 if admission and self._memoable_synced():
                     for ri, review in enumerate(reviews):
                         mk = memo_reviews[ri] if memo_reviews else None
@@ -1461,6 +1531,7 @@ class TorchDriver(InterpDriver):
                                cached_ns, rowview)
             if memoable:
                 self._store_request_memo(review, results, memo_review)
+            self._flush_render_counts()
             return results, None
 
     def _memoable_synced(self) -> bool:
@@ -1580,6 +1651,7 @@ class TorchDriver(InterpDriver):
                 per_key[(kind, name)] = res
             else:
                 per_key.pop((kind, name), None)
+        self._flush_render_counts()
         return per_key
 
     def _store_request_memo(self, review: dict, results: List[Result],
@@ -1810,16 +1882,31 @@ class TorchDriver(InterpDriver):
         (autoreject entries first per cell), the memo stores made on this
         thread.  ``memo_keys``: each review's (frozen, key) pair from the
         request memo's probe; ``memo`` False renders every cell without
-        keying it (a streaming chunk).  Caller holds the lock."""
+        keying it (a streaming chunk).  The pass's cells and stage times
+        go to last_render_stats, the render.plan / render.interp spans,
+        render_cells_total and the cost ledger.  Caller holds the lock."""
         from .renderplan import RenderPool, RowView
 
+        # reset up front: an early return (no flagged cells) must not
+        # leave the previous pass's stats
+        self.last_render_stats = {}
         out: List = [([], None) for _ in reviews]
         ris, iis = np.nonzero((mask_np | rej_np).T)
         cells = list(zip(ris.tolist(), iis.tolist()))
         if not cells:
             return out
-        mflags = mask_np[iis, ris].tolist()
+        mfl = mask_np[iis, ris]
+        mflags = mfl.tolist()
         rflags = rej_np[iis, ris].tolist()
+        # cost-ledger attribution (obs/costs.py): flagged cells per
+        # constraint from one bincount; the loops below pay a dict add
+        # only on violations and memo hits
+        cost_on = obscosts.enabled()
+        if cost_on:
+            cells_by_i = np.bincount(iis[mfl], minlength=len(ordered))
+            attv: Dict[int, int] = {}
+            attm: Dict[int, int] = {}
+        t0 = time.perf_counter()
         cached_ns = self.store.cached_namespace
         rows: Dict[int, RowView] = {}
         resolved: Dict[int, list] = {}
@@ -1827,6 +1914,7 @@ class TorchDriver(InterpDriver):
         deferred: List[Tuple[int, int, int, Optional[tuple]]] = []
         seen_mkey: Dict[Tuple, int] = {}
         aliases: Dict[int, int] = {}
+        memo_hits = 0
         if self._review_memo_epoch != self._cs_epoch:
             self._review_memo.clear()
             self._review_memo_epoch = self._cs_epoch
@@ -1849,10 +1937,18 @@ class TorchDriver(InterpDriver):
                 hit = self._review_memo.get(mkey)
                 if hit is not None:
                     resolved[idx] = hit
+                    memo_hits += 1
+                    if cost_on:
+                        attm[i] = attm.get(i, 0) + 1
+                        if hit:
+                            attv[i] = attv.get(i, 0) + len(hit)
                     continue
                 src = seen_mkey.get(mkey)
                 if src is not None:
                     aliases[idx] = src  # same batch, same content cell
+                    memo_hits += 1
+                    if cost_on:
+                        attm[i] = attm.get(i, 0) + 1
                     continue
                 seen_mkey[mkey] = idx
             plan = self._render_plan_for(kind, name, constraint)
@@ -1864,25 +1960,38 @@ class TorchDriver(InterpDriver):
             if plan.match_exact or constraint_matches(
                 constraint, review, cached_ns
             ):
-                resolved[idx] = plan.apply(row)
+                self._tier_counts[plan.tier] += 1
+                violations = plan.apply(row)
             else:
-                resolved[idx] = []
+                violations = []  # the device over-approximated the match
+            resolved[idx] = violations
+            if cost_on and violations:
+                attv[i] = attv.get(i, 0) + len(violations)
             if mkey is not None:
                 stores.append((mkey, idx))
+        t1 = time.perf_counter()
         if deferred:
             thunks = [
                 (lambda c=ordered[i][2], k=ordered[i][0], r=reviews[ri],
                         f=rows[ri].frozen():
-                 self._eval_cell(c, k, r, f, inventory, allow_plan=False))
+                 self._eval_cell(c, k, r, f, inventory, allow_plan=False,
+                                 count=False))
                 for _idx, ri, i, _mkey in deferred
             ]
             evaled = RenderPool.map_ordered(thunks)
-            for (idx, _ri, _i, mkey), violations in zip(deferred, evaled):
+            self._tier_counts["interp"] += len(deferred)
+            for (idx, _ri, i, mkey), violations in zip(deferred, evaled):
                 resolved[idx] = violations
+                if cost_on and violations:
+                    attv[i] = attv.get(i, 0) + len(violations)
                 if mkey is not None:
                     stores.append((mkey, idx))
+        t2 = time.perf_counter()
         for idx, src in aliases.items():
             resolved[idx] = resolved[src]
+            if cost_on and resolved[src]:
+                i = cells[idx][1]
+                attv[i] = attv.get(i, 0) + len(resolved[src])
         for mkey, idx in stores:
             if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
                 self._review_memo.clear()
@@ -1906,6 +2015,42 @@ class TorchDriver(InterpDriver):
             self._append_violation_results(
                 results, resolved.get(idx), constraint, kind, review
             )
+        t3 = time.perf_counter()
+        n_interp = len(deferred)
+        n_plan = len(resolved) - n_interp - memo_hits
+        obstrace.record_span(
+            "render.plan", t0, t1, stage=obstrace.RENDER, plan="compiled",
+            cells=n_plan, memo_hits=memo_hits,
+        )
+        if n_interp:
+            obstrace.record_span(
+                "render.interp", t1, t2, stage=obstrace.RENDER,
+                plan="interp", cells=n_interp,
+            )
+        self.last_render_stats = {
+            "cells": float(len(resolved)),
+            "plan_cells": float(n_plan),
+            "interp_cells": float(n_interp),
+            "memo_hits": float(memo_hits),
+            "plan_ms": (t1 - t0) * 1e3,
+            "interp_ms": (t2 - t1) * 1e3,
+            "assemble_ms": (t3 - t2) * 1e3,
+        }
+        if cost_on:
+            # one ledger record a pass: per constraint its flagged cells,
+            # bound plan tier, violations and memo hits; the render
+            # seconds apportioned by cells inside the ledger
+            entries = []
+            for i in np.nonzero(cells_by_i)[0].tolist():
+                kind, name, _constraint = ordered[i]
+                plan = self._bound_plans.get((kind, name))
+                entries.append((
+                    kind, name, int(cells_by_i[i]),
+                    getattr(plan, "tier", None) or "interp",
+                    attv.get(i, 0), attm.get(i, 0),
+                ))
+            obscosts.record_render(entries, t1 - t0, t2 - t1)
+        self._flush_render_counts()
         return out
 
     # ---- audit ------------------------------------------------------------
@@ -1957,6 +2102,28 @@ class TorchDriver(InterpDriver):
             "scatter_ms": (time.perf_counter() - t0) * 1e3,
         }
 
+    def _record_shard(self, path: str):
+        """The per-shard telemetry hook of pipelined_shard_commit: a pack
+        and a commit span per shard (they overlap by design: the packer
+        thread works one slab ahead of the copies) and the audit_shard_*
+        histograms."""
+
+        def record(shard, rows, pt0, pt1, ct0, ct1):
+            # not stage-tagged: stage_breakdown's contract is disjoint
+            # stage spans summing toward the root's duration, and these
+            # are sub-intervals of the enclosing pack and dispatch
+            obstrace.record_span(
+                "audit.shard_pack", pt0, pt1,
+                shard=int(shard), rows=int(rows), path=path,
+            )
+            obstrace.record_span(
+                "audit.shard_dispatch", ct0, ct1,
+                shard=int(shard), rows=int(rows), path=path,
+            )
+            record_audit_shard(int(rows), pt1 - pt0, ct1 - ct0, path=path)
+
+        return record
+
     def _audit_device_inputs_mesh(self, mesh):
         """The resident audit pack in row slabs on the mesh -> ([(rv,
         cols)] one a shard, upload stats).  The padded slabs are committed
@@ -1971,7 +2138,8 @@ class TorchDriver(InterpDriver):
         cache = self._audit_dev_mesh
         if cache is None or cache[0] != ap.layout_gen or cache[1] is not mesh:
             shards, _target = shard_review_side(
-                mesh, ap.capacity, ap.rp, ap.cols
+                mesh, ap.capacity, ap.rp, ap.cols,
+                record_shard=self._record_shard("audit"),
             )
             # the mesh object rides in the cache: identity is liveness
             self._audit_dev_mesh = (ap.layout_gen, mesh, shards)
@@ -2025,11 +2193,13 @@ class TorchDriver(InterpDriver):
     def _sweep_shards(self, side, mesh, shards, K: int, jargs=None,
                       first: int = 0):
         """Every shard's full-sweep evaluation and capped reduction ->
-        (packed [n, C_total, 1+K'] int32 on the host, the shards' masks).
-        Shard i of this mesh holds global row slab ``first + i`` (a
-        process of a multi-process sweep holds its own): its K4 writes
-        global rows, slab * (first + i) + column, and K' = min(K, slab).
-        Every shard's launches are queued before any result is read."""
+        (the reductions [C_total, 1+K'] int32, one a shard on its device,
+        the shards' masks), every device synchronised.  Shard i of this
+        mesh holds global row slab ``first + i`` (a process of a
+        multi-process sweep holds its own): its K4 writes global rows,
+        slab * (first + i) + column, and K' = min(K, slab).  Every
+        shard's launches are queued before any device is waited for;
+        _fetch_shards brings the reductions to the host."""
         slab = int(shards[0][0]["valid"].shape[0])
         joins = ([None] * len(shards) if jargs is None
                  else self._mesh_join_tables(mesh, shards, jargs))
@@ -2041,8 +2211,8 @@ class TorchDriver(InterpDriver):
                                            join_mode="tables", joins=jt)
             masks.append(mask)
             reds.append(packed_reduction(mask, K, (first + i) * slab))
-        packed = np.stack([r.cpu().numpy() for r in reds])
-        return packed, masks
+        _synchronize(mesh.distinct())
+        return reds, masks
 
     def _audit_sweep(self, K: int, reuse_any_k: bool = False):
         """One full device sweep over the resident audit pack ->
@@ -2058,7 +2228,8 @@ class TorchDriver(InterpDriver):
             ckey = self._audit_cache[0]
             if ckey == key or (reuse_any_k and ckey[:2] == key[:2]):
                 self.last_sweep_stats = {
-                    "pack_ms": 0.0, "device_ms": 0.0, "cached": 1.0,
+                    "pack_ms": 0.0, "device_ms": 0.0, "fetch_ms": 0.0,
+                    "fetch_bytes": 0.0, "cached": 1.0,
                 }
                 return self._audit_cache[1]
         if faults.ENABLED:
@@ -2084,24 +2255,30 @@ class TorchDriver(InterpDriver):
             t1 = time.perf_counter()
             mask, _autoreject = self._eval(side, rv_d, cols_d, placed,
                                            join_mode="trace", joins=jargs)
+            red = packed_reduction(mask, K)
+            # the dispatch ends when K4 has run; the copy below would wait
+            # for it anyway, so the split adds no wait
+            _synchronize([self.device])
+            t2 = time.perf_counter()
             # crow folds the group-major pad rows out: all host-side
             # state is per ordered constraint
-            packed = packed_reduction(mask, K).cpu().numpy()[crow]
+            packed = red.cpu().numpy()[crow]
         else:
             shards, upload = self._audit_device_inputs_mesh(mesh)
             for dev in mesh.distinct():
                 self._constraint_device(side, dev)
             _synchronize(mesh.distinct())
             t1 = time.perf_counter()
-            packed_all, masks = self._guarded_mesh_dispatch(
+            reds, masks = self._guarded_mesh_dispatch(
                 mesh, lambda: self._sweep_shards(side, mesh, shards, K,
                                                  jargs))
+            t2 = time.perf_counter()
             # the width one device gives, min(K, capacity): the merged
             # result equals the single-device reduction bit for bit
             packed = _merge_sharded_packed(
-                packed_all, min(K, ap.capacity))[crow]
+                _fetch_shards(reds), min(K, ap.capacity))[crow]
             mask = ShardedMask(masks, rows=ap.capacity)
-        t2 = time.perf_counter()
+        t3 = time.perf_counter()
         counts = packed[:, 0].astype(np.int64)
         # resolved, never lazy: K6 patches the inputs in place, so a mask
         # computed later from them would see rows of a later store
@@ -2118,21 +2295,46 @@ class TorchDriver(InterpDriver):
         # the full sweep's inputs already hold every pending change; drop
         # the delta channel so those rows aren't applied again
         ap.delta_dirty.clear()
+        shards_n = self.mesh_layout()
+        # device_ms runs to the result on the host, as before the split:
+        # the dispatch (t2 - t1) and the fetch (t3 - t2)
         self.last_sweep_stats = {
             "pack_ms": (t1 - t0) * 1e3,
-            "device_ms": (t2 - t1) * 1e3,
+            "device_ms": (t3 - t1) * 1e3,
+            "fetch_ms": (t3 - t2) * 1e3,
             "fetch_bytes": float(packed.nbytes),
             "rows": float(ap.n_rows),
             "padded_rows": float(mask.shape[1]),
             "mask_rows": float(mask.shape[0]),
             "cells": float(len(ordered) * ap.n_rows),
-            "shards": float(self.mesh_layout()),
-            "rows_per_shard": float(
-                slab_rows(ap.capacity, self.mesh_layout())[1]),
+            "shards": float(shards_n),
+            "rows_per_shard": float(slab_rows(ap.capacity, shards_n)[1]),
             **upload,
         }
         if jargs is not None:
             self.last_sweep_stats["join_plans"] = float(len(jargs))
+            # a join-bearing sweep is its own routing event: tier
+            # "device", outside the serving tier's flip tracking
+            self.route_ledger.record(
+                "device", "join_plan", cells=len(ordered) * ap.n_rows,
+                n_reviews=int(ap.n_rows), lam=None, track_flips=False,
+            )
+        obstrace.record_span("audit.pack", t0, t1, stage=obstrace.PACK,
+                             rows=ap.n_rows)
+        obstrace.record_span(
+            "audit.dispatch", t1, t2, stage=obstrace.DISPATCH,
+            tier="torch", breaker=self.breaker.state, shards=shards_n,
+        )
+        obstrace.record_span("audit.fetch", t2, t3, stage=obstrace.FETCH,
+                             fetch_bytes=float(packed.nbytes))
+        record_stage(PACK_M, t1 - t0, {"path": "audit"})
+        record_stage(DISPATCH_M, t2 - t1, {"path": "audit",
+                                           "tier": "torch"})
+        if obscosts.enabled():
+            obscosts.record_dispatch(
+                self._cost_kind_counts(), t2 - t1, int(ap.n_rows),
+                path="audit",
+            )
         return sweep
 
     def _try_delta(self, K: int):
@@ -2203,6 +2405,7 @@ class TorchDriver(InterpDriver):
             if extra:
                 join_rows = len(extra)
                 rows = sorted(set(rows) | extra)
+                record_join_affected(join_rows)
         try:
             return self._apply_delta(st, ap, rows, side, t0, join_rows)
         except Exception:
@@ -2457,6 +2660,7 @@ class TorchDriver(InterpDriver):
             self.last_sweep_stats["render_ms"] = (
                 time.perf_counter() - t2
             ) * 1e3
+            self._flush_render_counts()
             return results, ("\n".join(trace) if tracing else None)
 
     def audit_capped(self, cap: int, tracing: bool = False):
@@ -2581,7 +2785,18 @@ class TorchDriver(InterpDriver):
         Per-constraint result reuse: a constraint whose walked candidates
         and their row generations are unchanged since the last sweep
         renders the identical Result slice; with 1-object churn nearly
-        every constraint reuses wholesale and the render is O(changed)."""
+        every constraint reuses wholesale and the render is O(changed).
+
+        The pass's cells go to the audit.render span, last_sweep_stats,
+        the cost ledger and render_cells_total (flushed on every exit,
+        NeedsFullSweep's too: those cells were rendered)."""
+        try:
+            return self._render_capped_pass(reviews, ordered, st, cap,
+                                            trace)
+        finally:
+            self._flush_render_counts()
+
+    def _render_capped_pass(self, reviews, ordered, st, cap, trace):
         t0 = time.perf_counter()
         ap = self._audit_pack
         if self._render_memo_epoch != self._cs_epoch:
@@ -2596,12 +2811,16 @@ class TorchDriver(InterpDriver):
         R = len(reviews)
         rendered_cells = 0
         fallback_rows = 0
+        fallback_bytes = 0
+        tiers0 = dict(self._tier_counts)
+        cost_on = obscosts.enabled()
+        cost_entries: List[Tuple] = []
 
         def candidates(ci, n_cand):
             """Known candidate rows ascending; beyond the horizon, fetch
             the constraint's mask row while the base mask is fresh (no
             delta applied), else escalate to a full sweep."""
-            nonlocal fallback_rows
+            nonlocal fallback_rows, fallback_bytes
             lst = st.cand[ci]
             yield from lst
             if st.horizon[ci] is None or n_cand <= len(lst):
@@ -2610,6 +2829,7 @@ class TorchDriver(InterpDriver):
                 raise NeedsFullSweep(ci)
             row = _host_row(st.mask_src.get(), int(st.crow[ci]))[:R]
             fallback_rows += 1
+            fallback_bytes += row.nbytes
             full = [int(x) for x in np.nonzero(row)[0]]
             st.cand[ci] = full  # complete knowledge for later sweeps
             st.horizon[ci] = None
@@ -2682,9 +2902,16 @@ class TorchDriver(InterpDriver):
                     results.extend(hit[1])
                     totals[ckey] = hit[2]
                     new_cache[ckey] = hit
+                    if cost_on:
+                        # wholesale reuse: no cell walked, one memo hit,
+                        # the cached violations replayed
+                        cost_entries.append((
+                            kind, name, 0, "interp", len(hit[1]), 1,
+                        ))
                     continue
             action = self._enforcement_action(constraint)
             start = len(results)
+            r_start = rendered_cells
             capped = False
             for ri in candidates(ci, n_cand):
                 if len(results) - start >= cap:
@@ -2728,14 +2955,35 @@ class TorchDriver(InterpDriver):
                 )
             if sig is not None:
                 new_cache[ckey] = (sig, tuple(results[start:]), totals[ckey])
+            if cost_on:
+                plan = self._render_plan_for(kind, name, constraint)
+                cost_entries.append((
+                    kind, name, rendered_cells - r_start,
+                    getattr(plan, "tier", None) or "interp",
+                    len(results) - start, 0,
+                ))
         if trace is None:
             st.render_cache = new_cache
+        tiers = {k: self._tier_counts[k] - tiers0.get(k, 0)
+                 for k in self._tier_counts}
+        t1 = time.perf_counter()
+        obstrace.record_span(
+            "audit.render", t0, t1, stage=obstrace.RENDER, tier="torch",
+            rendered_cells=rendered_cells,
+            plan_static=tiers["static"], plan_slots=tiers["slots"],
+            plan_interp=tiers["interp"],
+        )
         self.last_sweep_stats.update(
-            render_ms=(time.perf_counter() - t0) * 1e3,
+            render_ms=(t1 - t0) * 1e3,
             rendered_cells=float(rendered_cells),
+            render_plan_cells=float(tiers["static"] + tiers["slots"]),
+            render_interp_cells=float(tiers["interp"]),
             fallback_rows=float(fallback_rows),
+            fallback_bytes=float(fallback_bytes),
             results=float(len(results)),
         )
+        if cost_on and cost_entries:
+            obscosts.record_render(cost_entries, t1 - t0, 0.0)
         return results, totals, ("\n".join(trace) if trace is not None else None)
 
 
@@ -2761,6 +3009,11 @@ def _synchronize(devices):
     for dev in devices:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+
+def _fetch_shards(reds) -> np.ndarray:
+    """The shards' reductions on the host -> packed [n, C_total, 1+K']."""
+    return np.stack([r.cpu().numpy() for r in reds])
 
 
 def _merge_sharded_packed(packed_all: np.ndarray, K: int) -> np.ndarray:

@@ -26,7 +26,7 @@ import os
 import queue as _queue
 import threading as _threading
 import time as _time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -309,7 +309,8 @@ class _Staging:
 
 
 def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
-                           width: Optional[int] = None, first: int = 0):
+                           width: Optional[int] = None, first: int = 0,
+                           record_shard: Optional[Callable] = None):
     """Commit row-major host trees to the mesh slab by slab -> (a list of
     the trees, one a shard with its slab's tensors on its device, padded
     row count).
@@ -327,7 +328,12 @@ def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
     Slabs of at most PIPELINE_MIN_SLAB_ROWS rows commit serially through
     the same slots: there the packing the pipeline hides costs less than
     the thread.  On the CPU every slab is a fresh copy: the host packs
-    are updated in place between sweeps."""
+    are updated in place between sweeps.
+
+    record_shard(shard, slab rows, pack_t0, pack_t1, commit_t0,
+    commit_t1) is invoked on the calling thread once a shard is
+    committed (its pack timed where it ran, on the packer thread when the
+    pipeline runs)."""
     n = int(mesh.devices.size)
     width = n if width is None else int(width)
     target, slab = slab_rows(rows, width)
@@ -356,7 +362,8 @@ def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
             return [torch.from_numpy(np.array(a)) for a in slabs]
         return staging.fill(s % 2, slabs, stop)
 
-    def commit(s: int, payload: list):
+    def commit(s: int, payload: list, pt0: float, pt1: float):
+        ct0 = _time.perf_counter()
         dev = devices[s]
         tensors = [t.to(dev, non_blocking=True) for t in payload]
         if staging is not None:
@@ -364,11 +371,15 @@ def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
         mine = dict(replicated[dev])
         mine.update(zip(row_idx, tensors))
         per_shard[s] = _unflatten(spec, [mine[i] for i in range(len(leaves))])
+        if record_shard is not None:
+            record_shard(s, slab, pt0, pt1, ct0, _time.perf_counter())
 
     stop = _threading.Event()
     if slab <= PIPELINE_MIN_SLAB_ROWS or n == 1:
         for s in range(n):
-            commit(s, pack(s, stop))
+            pt0 = _time.perf_counter()
+            payload = pack(s, stop)
+            commit(s, payload, pt0, _time.perf_counter())
         return per_shard, target
     q: _queue.Queue = _queue.Queue(maxsize=1)  # pack i+1 / commit i
 
@@ -386,8 +397,10 @@ def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
     def packer():
         try:
             for s in range(n):
+                pt0 = _time.perf_counter()
                 payload = pack(s, stop)
-                if payload is None or not _put((s, payload)):
+                if payload is None or not _put(
+                        (s, payload, pt0, _time.perf_counter())):
                     return
             _put(None)
         except BaseException as e:  # surfaced on the consumer side
@@ -410,12 +423,13 @@ def pipelined_shard_commit(mesh: TorchMesh, rows: int, trees,
 
 
 def shard_review_side(mesh: TorchMesh, rows: int, rv, cols, width=None,
-                      first: int = 0):
+                      first: int = 0, record_shard=None):
     """Pad the row axis to a mesh multiple and commit the review-side trees
-    slab by slab (pipelined_shard_commit) -> ([(rv, cols)] one a shard,
+    slab by slab (pipelined_shard_commit, whose ``record_shard`` hook
+    sees each shard's pack and commit) -> ([(rv, cols)] one a shard,
     padded rows)."""
     return pipelined_shard_commit(mesh, rows, (rv, cols), width=width,
-                                  first=first)
+                                  first=first, record_shard=record_shard)
 
 
 def replicate_tree(mesh: TorchMesh, tree) -> list:
@@ -508,7 +522,11 @@ def _shard_evals(driver, reviews, mesh: TorchMesh, finish, pack=False,
     numpy] one list a shard).  ``review_pack``: the driver's
     ``_review_pack(reviews)`` where the caller made it already."""
     side, rv, cols, rows = review_pack or driver._review_pack(reviews)
-    shards, target = shard_review_side(mesh, rows, rv, cols)
+    # compute_masks's commit records its shards, as the review's
+    # dispatch does in the JAX package
+    shards, target = shard_review_side(
+        mesh, rows, rv, cols,
+        record_shard=driver._record_shard("review") if pack else None)
     slab = target // int(mesh.devices.size)
     C = side[1].arrays["valid"].shape[0]
     for dev in mesh.distinct():

@@ -68,7 +68,7 @@ def multihost_capped_sweep(driver, K: int):
     -> (ordered, counts [C] int64, topk [C, min(K, capacity)])."""
     import torch.distributed as dist
 
-    from ..ops.driver import _merge_sharded_packed
+    from ..ops.driver import _fetch_shards, _merge_sharded_packed
 
     with driver._lock:
         side = driver._synced_side()
@@ -87,8 +87,9 @@ def multihost_capped_sweep(driver, K: int):
         shards, _target = shard_review_side(
             mesh, ap.capacity, ap.rp, ap.cols, width=width, first=first,
         )
-        local, _masks = driver._sweep_shards(side, mesh, shards, K,
-                                             first=first)
+        reds, _masks = driver._sweep_shards(side, mesh, shards, K,
+                                            first=first)
+        local = _fetch_shards(reds)
     mine = torch.from_numpy(local)
     parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
     dist.all_gather(parts, mine)  # [W, C, 1+K']: the KB-scale crossing

@@ -50,6 +50,11 @@ COPIED = (
     "fleet/replica.py", "fleet/supervisor.py",
     "obs/fleetobs.py", "util/overloadcheck.py",
     "ops/breaker.py",
+    "kube/apiserver.py",
+    "analysis/__init__.py", "analysis/core.py", "analysis/evloopsafety.py",
+    "analysis/failpolicy.py", "analysis/hygiene.py", "analysis/locks.py",
+    "analysis/queuebound.py", "analysis/registrycheck.py",
+    "analysis/tracesafety.py",
 )
 
 # file -> the top-level names (functions, classes' methods as
@@ -137,6 +142,15 @@ SCRUB = (
     (r"\(PR \d+ contract, ", "("),
     (r" \(the PR \d+ machinery\)", ""),
     (r"the PR \d+ contention", "spawn_fleet's contention"),
+    (r"the PR \d+ ", "the "),
+    (r"\(ISSUE \d+ ", "("),
+    (r" —\nISSUE \d+\.\n", ".\n"),
+    (r" — ISSUE \d+\.", "."),
+    (r" before\n(\s*)ISSUE \d+\.", r"\n\1before it was bounded."),
+    (r"PR \d+ made admission", "Earlier work made admission"),
+    (r" \(PR \d+\)", ""),
+    (r"\* PR \d+: ", "* "),
+    (r"\(PR \d+ shape\)", "(the stall shape)"),
 )
 TAGS = re.compile(r"ISSUE \d|\bPR \d|VERDICT")
 

@@ -4,6 +4,7 @@ card, so that two checkouts can be compared in turns on one card.
 
     python3 tools/review_turns.py --root DIR [--templates 500]
                                   [--pods 100000] [--reviews 256]
+                                  [--sweeps 10] [--freeze]
                                   [--stream 8192] [--model]
 
 DIR holds a checkout's gatekeeper_tpu_torch/ (this tree, or an earlier
@@ -15,7 +16,14 @@ pods as phase 3), each timed on the host clock around client.review.  It
 prints one JSON line: the card as nvidia-smi names it with its power
 limit, DIR, the p50, p99 (nearest rank) and max in ms, and the launches
 per review, and the collector's pauses in the reviews (chip_smoke's
-GcPauses).  --stream N then times N reviews of the stored pods in chunks
+GcPauses).  --sweeps N then times N warm full capped sweeps of the
+unchanged store (each forced full, as chip_smoke's warm sweeps are): the
+median and worst wall, the median of each of last_sweep_stats'
+pack_ms, device_ms and render_ms, and the collector's pauses inside
+them.  --freeze moves every object alive after the cold sweep out of
+the collector's generations (gc.freeze(), as chip_smoke's
+warm_sweeps_gc_frozen does) before the reviews and sweeps, so a full
+collection over the stored inventory lands in neither.  --stream N then times N reviews of the stored pods in chunks
 of 2,048 through review_batch, after one warm-up chunk, as a fleet
 replica's ``stream`` command does (reviews/s).  --model, where DIR's
 driver has calibrate_routing, calibrates it and prints its
@@ -57,6 +65,8 @@ def main(argv=None) -> int:
     ap.add_argument("--templates", type=int, default=500)
     ap.add_argument("--pods", type=int, default=100_000)
     ap.add_argument("--reviews", type=int, default=256)
+    ap.add_argument("--sweeps", type=int, default=0)
+    ap.add_argument("--freeze", action="store_true")
     ap.add_argument("--stream", type=int, default=0)
     ap.add_argument("--model", action="store_true")
     args = ap.parse_args(argv)
@@ -77,6 +87,9 @@ def main(argv=None) -> int:
     gdev.kernels()
     client = syn.build_driver(args.templates, args.pods, cs.SEED)
     client.audit_capped(cs.CAP)
+    if args.freeze:
+        gc.collect()
+        gc.freeze()
     pods = syn.make_pods(args.reviews, seed=cs.SEED + 99,
                          violation_rate=0.5)
     gdev.reset_launches()
@@ -98,14 +111,46 @@ def main(argv=None) -> int:
         "max_ms": max(lat),
         "launches_per_review": {k: v / len(lat)
                                 for k, v in gdev.launches.items() if v},
-        "gc": pauses.take(),
+        "gc": pauses.take(), "frozen": args.freeze,
     }
+    if args.sweeps:
+        out["sweeps"] = sweeps(client, args.sweeps, cs)
     if args.stream:
         out["stream"] = stream(client.driver, args.stream, 2048)
     if args.model:
         out["model"] = model(client.driver, syn, cs.SEED)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def sweeps(client, n: int, cs) -> dict:
+    """n warm full capped sweeps of the unchanged store -> the walls'
+    median and worst (ms), the median of each stage, and the collector's
+    pauses inside them (the median of the walls of sweeps with none)."""
+    driver = client.driver
+    walls, stages = [], {"pack_ms": [], "device_ms": [], "render_ms": []}
+    pauses, paused = cs.GcPauses(), []
+    gc.callbacks.append(pauses)
+    try:
+        for _ in range(n):
+            cs.force_full(driver)
+            pauses.reset()
+            t0 = time.perf_counter()
+            client.audit_capped(cs.CAP)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            paused.append(pauses.ms)
+            for k, v in stages.items():
+                v.append(driver.last_sweep_stats[k])
+    finally:
+        gc.callbacks.remove(pauses)
+    calm = [w for w, g in zip(walls, paused) if not g]
+    return {"n": n, "median_ms": statistics.median(walls),
+            "worst_ms": max(walls),
+            **{f"median_{k}": statistics.median(v)
+               for k, v in stages.items()},
+            "gc_ms": sum(paused), "sweeps_without_gc": len(calm),
+            "median_ms_without_gc": statistics.median(calm) if calm
+            else None}
 
 
 def stream(driver, n: int, chunk: int) -> dict:
