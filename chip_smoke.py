@@ -13,7 +13,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   2. the kernels' build (kernels/*.cu, one nvcc each, in parallel), and
      K7's grids (at least one block a SM)
   3. the main path through gatekeeper_tpu_torch.client.Client(TorchDriver()):
-     the synthetic corpus at 500 ConstraintTemplates x 100,000 Pods, a cold
+     its admissions forced onto the card (DEVICE_MIN_CELLS = 0; phase 15
+     prices them), the synthetic corpus at 500 ConstraintTemplates x
+     100,000 Pods, a cold
      audit_capped(20), warm sweeps (each one's stages and garbage-collector
      pauses, then as many again with the collector's old objects frozen),
      and admission reviews of unique pods (each one's constraint-side
@@ -93,9 +95,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
   7. parity at a small size: audit and review results on the card against
      the port's own InterpDriver oracle, and the uncapped audit after 16
      changed pods, through the delta path
-  8. the referential audit, the third path: 24 referential templates
+  8. the referential audit, the third path: 6 referential templates
      (unique ingress hosts, required storage classes, per-team pod
-     quotas) x 100,000 objects.  A cold sweep (K7 builds each join plan's
+     quotas; two of each, cut from REF_r14's 24 to keep the run inside
+     its limit on a slow host: the join plans and K7 and K8's shapes are
+     the same) x 100,000 objects.  A cold sweep (K7 builds each join plan's
      key table, K8 looks each cell's count up), checked on the spot: each
      device table against the host join index of the same sweep, and the
      [C, 1+K] reduction against the all-plain path; warm forced full
@@ -142,7 +146,7 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      largest call, and K5 too, whose only launches on the counted paths
      these are.  Then one injected stall (the fault plane's
      MESH_DISPATCH_STALL hangs a review batch's guarded dispatch past a
-     0.5 s watchdog at width 4): the interpreter answers the batch as
+     0.5 s watchdog at width 4): the numpy host tier answers the batch as
      width 1 does, the mesh narrows to 2, mesh_dispatch_stalls_total
      moves by one, the flight recorder holds one mesh_degrade event from
      4 to 2, and once the probe closes the breaker a forced full sweep at
@@ -159,9 +163,11 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      phase 3's corpus, a Config that syncs Pods, and the ~100,000 pods
      phase 3's client holds by now.  Its time from construction to
      /readyz, split into the kernels' load, template ingest and the pods'
-     sync; its background calibration awaited (the model, its launches
-     counted apart: K1 and K9 on each of its seven compute_masks, K10
-     after K9 on the warm-up of all its objects and at 128 reviews); a cold audit cycle and warm ones; phase
+     sync; its background calibration awaited (the model of its three
+     tiers, its launches counted apart: K1 and K9 on each of its seven
+     compute_masks, K10 after K9 on the warm-up of all its objects and at
+     128 reviews), then its admissions forced onto the card; a cold audit
+     cycle and warm ones; phase
      3's 256 pods as admission requests one at a time over one keep-alive
      HTTPS connection, then the same pods again (each a request-memo hit,
      no evaluation, its own p50 and p99), its batch pods from 8 client
@@ -208,7 +214,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      replica's driver on cuda:0 with memory in its allocator, the card's
      memory taken at least every replica's reserve and a context each;
      the collector's pauses in each before its ready line; each
-     replica's background calibration awaited.  Phase 3's 256 pods to
+     replica's background calibration awaited (its admissions forced onto
+     the card once it landed).  Phase 3's 256 pods to
      every replica (every body the same bytes, each equal to phase 3's
      results) and again to the first (each a request-memo hit, the same
      bytes); pods of their own through the threaded FrontDoor and through
@@ -243,8 +250,9 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      card's answers once the memos are emptied.  Then the breaker:
      TPU_DISPATCH errors injected through the fault plane (before any
      launch): the three failed reviews answer byte-equal to their answers
-     with the breaker closed, the breaker opens, each divert counted as
-     device_failed or breaker_open, no launch while it is open; the
+     with the breaker closed, the breaker opens, each divert served by
+     the numpy host tier and counted as np|device_failed or
+     np|breaker_open, no launch while it is open; the
      schedule cleared, the probe closes it (K1 and K9 once), and a review
      launches K1 and K9 again
  14. the wire: a KubeApiServer (kube/apiserver.py) in a child process,
@@ -253,7 +261,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      syncs Pods and WIRE_PODS of the same seed's pods; two Apps in turn
      against it, each through --api-server http://... (HttpKube), --driver
      torch on the card, ready with every pod synced over the wire and its
-     calibration landed.  App A (--audit-from-cache): phase 3's 256 pods
+     calibration landed.  App A (--audit-from-cache, its admissions forced
+     onto the card): phase 3's 256 pods
      over HTTPS, each answer byte-equal to phase 10's but for its uid;
      two full audit cycles whose statuses, read back from the API server,
      equal a Client's audit_capped on the same inventory (built on the
@@ -266,13 +275,33 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      and fetch) and render_ms.  App B (--audit-chunk-size 500): its
      streamed audit pages the pods with continue tokens into
      review_batch, every status's totalViolations equal to the Client's
-     uncapped audit and every violation it lists one that audit reports.
-     K1, K9 in its sweep and review modes, K4 and K10 must have launched;
-     no batch diverted.  The child is stopped on every way out
+     uncapped audit and every violation it lists one that audit reports,
+     every batch served by the card (forced, as App A's).  K1, K9 in its
+     sweep and review modes, K4 and K10 must have launched; no batch
+     diverted.
+     The child is stopped on every way out
+ 15. the tiers, on phase 3's client with its admissions priced again:
+     calibrate_routing's five numbers (the device's floor and rate, the
+     numpy tier's floor and rate, the interpreter's rate) and the share
+     of its wall the two host tiers take; 256 unique one-pod reviews
+     routed live (on the card every one served by the device, its
+     pricing recorded), priced as TpuDriver serves them
+     (price_host_tiers on) and pinned to each tier (the device forced,
+     the numpy tier, the interpreter), in turns, the memos emptied before
+     each: each tier's count, p50 and p99 per pass, beside its
+     prediction, every review's bytes equal across the five passes and a
+     seeded 32 equal to the InterpDriver oracle's, K1 and K9 once for
+     each review the card served and nothing for the host tiers'; the
+     numpy side's masks of all 256 equal to compute_masks' on the card
+     bit for bit; batches of 8, 64 and 256 fresh pods routed live (the
+     card) and priced, in turns, each with its tier, both walls and every
+     tier's prediction, the answers equal; the breaker forced open: a
+     batch served by np, and with the numpy tier off by interp, each
+     equal to the card's answers
 
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON
-(launches summed over phases 3 and 6-14); the last line is {"ok": true,
+(launches summed over phases 3 and 6-15); the last line is {"ok": true,
 "device": {...}}.  Without a CUDA card, or run from a directory that
 lacks the package, it prints no result and exits 1.
 """
@@ -3156,7 +3185,7 @@ def mesh_stall(client, driver, ref) -> dict:
     """One mesh dispatch written off by the watchdog: at width
     max(MESH_WIDTHS), with mesh_watchdog_s set to MESH_WATCHDOG_S, the
     fault plane hangs one review batch's guarded dispatch.  The batch must
-    be answered by the interpreter as width 1 answers it, the mesh narrow
+    be answered by the numpy host tier as width 1 answers it, the mesh narrow
     to half its width, mesh_dispatch_stalls_total move by one and the
     flight recorder hold one mesh_degrade event; once the probe closes
     the breaker, a forced full sweep at the new width must equal width 1
@@ -3220,7 +3249,7 @@ def mesh_stall(client, driver, ref) -> dict:
             events[-1].get("to_width") != width // 2 or \
             rec["mesh_sweep_width"] != width // 2 or not probed or \
             st.get("shards") != width // 2 or not all(equal.values()) or \
-            rec["diverts"] != {"interp|device_failed": 1}:
+            rec["diverts"] != {"np|device_failed": 1}:
         raise AssertionError(f"the mesh stall: {rec}")
     check_no_divert("after the mesh stall", driver)
     return rec
@@ -3478,17 +3507,18 @@ PROCESS_KERNELS = ("match", "program", "program_pack", "reduction",
                    "program_delta", "scatter")
 POD_GVK = ("", "v1", "Pod")
 # the background calibration every App runs at start
-# (TorchDriver.calibrate_routing's default runs): one warm-up call of its
-# CAL_RUNS * (1 + CAL_LARGE) objects (K1, K9, K10), then CAL_RUNS timed
-# calls of compute_masks and the render at one review and at CAL_LARGE,
-# each K1 and K9; K9 packs at one review (8 rows) and past
-# PACK_IN_K9_MAX_ROWS K10 packs after it
+# (TorchDriver.calibrate_routing's default runs): one warm-up call of all
+# its objects (K1, K9, K10), then CAL_RUNS timed calls of compute_masks
+# and the render at one review and at CAL_LARGE, each K1 and K9 (K9 packs
+# at one review, 8 rows, and past PACK_IN_K9_MAX_ROWS K10 packs after
+# it); the numpy tier's and the interpreter's runs launch nothing
 CAL_RUNS = 3
 CAL_LARGE = 128
 # the longest an App's background calibration may take to set its model
 CAL_WAIT_S = 300
-# the route ledger's reasons for a batch the breaker diverted to the
-# interpreter: any outside phase 13 fails the run
+# the route ledger's reasons for a batch the breaker or an unavailable
+# device diverted to a host tier: any the run did not inject (phases 9,
+# 13 and 15) fails it
 DIVERT_REASONS = ("device_failed", "breaker_open")
 
 
@@ -3983,6 +4013,10 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
         # the App's background calibration, awaited before any counted
         # traffic: its evaluations are known and counted apart
         cal_wait_s = await_calibration(adriver)
+        # the App's admissions on the card from here, whatever their
+        # price (GK_DEVICE_MIN_CELLS=0 would skip the calibration checked
+        # here)
+        adriver.DEVICE_MIN_CELLS = 0
         cal_evals, spy.per_eval = spy.per_eval, []
         check_calibration(cal_evals)
         log("process_calibration", model=adriver._route_cal,
@@ -4833,7 +4867,8 @@ FLEET_TRACE_WAIT_S = 20
 # a replica at brownout level 2 or more keeps 5% of its traces
 # (obs/brownout.py); a level steps down after 5 s clear, so the traced
 # request waits this long at most for every live replica to be below 2
-FLEET_BROWNOUT_WAIT_S = 30
+# (one held at level 3 by its SLO burn stays there for minutes)
+FLEET_BROWNOUT_WAIT_S = 10
 
 # a replica's process under replica_watch: chip_smoke is imported from the
 # directory given first, then runs the replica's module
@@ -4849,7 +4884,8 @@ def replica_watch():
     keeps the collector's pauses (a GcPauses with stamps), every
     TorchDriver.review_batch's review count with the launches that call
     made and whether it evaluated memo misses (_review_batch_eval), every
-    background calibrate_routing with its model and launches, and, for
+    background calibrate_routing with its model and launches (the driver's
+    admissions forced onto the card once it landed), and, for
     FLEET_TRACE_ID's trace, whether the tracer kept it.  The command
     {"cmd": "watch"} on stdin is answered here with all of that, the
     launch counts, the driver's device, its breaker's state and the card
@@ -4902,6 +4938,11 @@ def replica_watch():
             model = None
             try:
                 model = calibrate(self, *a, **kw)
+                if model is not None:
+                    # the replica's admissions on the card from here,
+                    # whatever their price (GK_DEVICE_MIN_CELLS=0 in its
+                    # environment would skip the calibration checked here)
+                    self.DEVICE_MIN_CELLS = 0
                 return model
             finally:
                 cals.append({"model": model, "launches": {
@@ -5723,6 +5764,25 @@ SEAM_PROBE_S = 0.5
 SEAM_CLOSE_WAIT_S = 60
 
 
+def made_by(fn):
+    """Call ``fn`` -> (its result, its wall ms, the launches it made)."""
+    launches = _dev().launches
+    before = dict(launches)
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, {k: v - before[k] for k, v in launches.items()
+                     if v != before[k]}
+
+
+def tier_ms(driver, n: int) -> dict:
+    """Each tier's predicted ms for a batch of ``n`` reviews of every
+    installed constraint, from the calibrated affine models."""
+    per_review = max(driver._n_constraints_total(), 1)
+    return {tier: floor + n * per for tier, floor, per
+            in driver._tier_models(per_review)}
+
+
 def review_launches(n: int) -> dict:
     """The launches of one evaluation of ``n`` reviews: K1 and K9 packing,
     or past PACK_IN_K9_MAX_ROWS rows K1, K9 and K10."""
@@ -5750,14 +5810,6 @@ def serving_phase(client, driver, smi: str) -> dict:
     gdev.reset_launches()
     check_no_divert("before the serving seam", driver)
 
-    def made_by(fn):
-        before = dict(gdev.launches)
-        t0 = time.perf_counter()
-        out = fn()
-        ms = (time.perf_counter() - t0) * 1e3
-        return out, ms, {k: v - before[k] for k, v in gdev.launches.items()
-                         if v != before[k]}
-
     def one(pod):
         """One review of a copy of ``pod`` -> (its bytes, ms, launches)."""
         out, ms, made = made_by(lambda: client.review(copy.deepcopy(pod)))
@@ -5780,7 +5832,8 @@ def serving_phase(client, driver, smi: str) -> dict:
                 raise AssertionError(f"a review_batch of {n} fresh pods "
                                      f"launched {made}")
             walls.append(ms)
-        predicted = driver.predicted_batch_ms(n)
+        # the device tier's prediction: these batches are forced onto it
+        predicted = tier_ms(driver, n)["device"]
         model.append({"rate": rate, "reviews": n, "predicted_ms": predicted,
                       "p50_ms": statistics.median(walls),
                       "ratio": predicted / statistics.median(walls),
@@ -5877,8 +5930,8 @@ def serving_phase(client, driver, smi: str) -> dict:
         faults.uninstall()
     after = one(pods[-1])
     answers = [b for b, _ms, _m in failed + diverted] + [after[0]]
-    want_counts = {"interp|device_failed": n_fail,
-                   "interp|breaker_open": len(diverted)}
+    want_counts = {"np|device_failed": n_fail,
+                   "np|breaker_open": len(diverted)}
     if state_after != "open" or answers != closed or \
             any(m for _b, _ms, m in failed + diverted) or \
             counts != want_counts or probe != review_launches(1) or \
@@ -5900,9 +5953,9 @@ def serving_phase(client, driver, smi: str) -> dict:
 # ---- phase 14: the wire (the App against a real HTTP API server) -----------
 
 # pods the child API server stores: a cut of phase 10's ~100,000 (App B's
-# streamed audit renders every flagged cell through review_batch, and the
-# phase shares the run's 1,200 s)
-WIRE_PODS = 20_000
+# streamed audit renders every flagged cell through review_batch, the
+# Apps ingest every pod over HTTP, and the phase shares the run's 1,200 s)
+WIRE_PODS = 5_000
 # App B's audit page (--audit-chunk-size)
 WIRE_CHUNK = 500
 # the longest the child may take to seed its store and listen
@@ -6166,6 +6219,7 @@ def wire_phase(args, pods, process) -> dict:
         app, conn, ready = wire_start(common + ["--audit-from-cache"],
                                       args.templates, len(constraints), n)
         adriver = app.client.driver
+        adriver.DEVICE_MIN_CELLS = 0  # its admissions on the card
         try:
             record["app_a_ready"] = ready
             lat = []
@@ -6247,6 +6301,7 @@ def wire_phase(args, pods, process) -> dict:
             common + ["--audit-chunk-size", str(WIRE_CHUNK)],
             args.templates, len(constraints), n)
         bdriver = app.client.driver
+        bdriver.DEVICE_MIN_CELLS = 0  # its audit's batches on the card
         try:
             record["app_b_ready"] = ready
             continued, pages, batches = [], [], []
@@ -6290,6 +6345,7 @@ def wire_phase(args, pods, process) -> dict:
                         strays.append((key, v))
             pod_pages = [k for kind, k in pages if kind == "Pod"]
             record["app_b_audit"] = {
+                "routes": bdriver.route_ledger.snapshot()["counts"],
                 "s": audit_s, "pages": len(pod_pages),
                 "largest_page": max(pod_pages, default=0),
                 "continue_requests": len(continued),
@@ -6297,6 +6353,10 @@ def wire_phase(args, pods, process) -> dict:
                 "largest_batch": max(batches, default=0),
                 "listed_violations": listed}
             want_totals = {k: ref_count.get(k, 0) for k in got_totals}
+            routes = record["app_b_audit"]["routes"]
+            if set(routes) != {"device|forced_device"}:
+                raise AssertionError(f"App B's batches left the card: "
+                                     f"{routes}")
             if got_totals != want_totals or strays or not listed or \
                     not continued or sum(pod_pages) != n or \
                     max(pod_pages) > WIRE_CHUNK:
@@ -6318,6 +6378,287 @@ def wire_phase(args, pods, process) -> dict:
                              f"{missing}")
     log("wire", launches=launches, **record)
     return launches
+
+
+# ---- phase 15: the tiers (the device, the numpy host tier, the interpreter) -
+
+# unique one-pod reviews of each pass (routed live, the device forced)
+TIER_REVIEWS = 256
+# of them, a seeded sample held to the InterpDriver oracle
+TIER_ORACLE = 32
+# batch sizes routed live, each TIER_BATCH_REPS batches of fresh pods
+TIER_BATCHES = (8, 64, 256)
+TIER_BATCH_REPS = 3
+# the reviews of each of the breaker's batches
+TIER_BREAKER_BATCH = 8
+TIERS = ("device", "np", "interp")
+CAL_KEYS = {"rtt_ms", "device_cells_per_ms", "np_floor_ms",
+            "np_cells_per_ms", "interp_cells_per_ms"}
+
+
+class PinnedTier:
+    """While active, ``driver``'s admissions take ``tier`` whatever their
+    price: the card (DEVICE_MIN_CELLS = 0 on the instance), or, the host
+    tiers serving where priced (price_host_tiers) and the calibration set
+    aside, the priors pointed at the numpy tier (NP_MIN_CELLS = 0) or,
+    the numpy tier off, at the interpreter; or, as "priced", the tier the
+    calibration prices, host tiers included, as TpuDriver serves them.
+    After it the card's routing again."""
+
+    def __init__(self, driver, tier: str):
+        self.driver, self.tier = driver, tier
+
+    def __enter__(self):
+        d = self.driver
+        self.saved = (d._route_cal, d.np_serve_enabled, d.price_host_tiers)
+        if self.tier == "device":
+            d.DEVICE_MIN_CELLS = 0
+        else:
+            d.price_host_tiers = True
+        if self.tier in ("np", "interp"):
+            d._route_cal = None
+            d.DEVICE_MIN_CELLS = 10**9
+            d.NP_MIN_CELLS = 0
+            d.np_serve_enabled = self.tier == "np"
+        return self
+
+    def __exit__(self, *exc):
+        d = self.driver
+        d._route_cal, d.np_serve_enabled, d.price_host_tiers = self.saved
+        if self.tier != "priced":
+            del d.DEVICE_MIN_CELLS
+        if self.tier in ("np", "interp"):
+            del d.NP_MIN_CELLS
+        return False
+
+
+def _lat(ms: list) -> dict:
+    return ({"n": len(ms), "p50_ms": statistics.median(ms),
+             "p99_ms": percentile(ms, 99)} if ms else {"n": 0})
+
+
+def tiers_phase(args, client, driver, smi: str) -> dict:
+    """Phase 15 on phase 3's client, its admissions priced again: the
+    calibration of the three tiers and the host tiers' share of its wall;
+    TIER_REVIEWS unique one-pod reviews routed live (the card serves every
+    one, its pricing recorded), priced as TpuDriver serves them (the host
+    tiers where priced cheapest) and pinned to each tier (the device
+    forced, the numpy tier, the interpreter), in turns, the memos emptied
+    before each (each review's bytes equal across the five, a seeded
+    TIER_ORACLE of them equal to the InterpDriver oracle's; K1 and K9 once
+    for each review the device served, nothing for the host tiers'
+    ones); the numpy side's masks of all of them equal compute_masks' bit
+    for bit; batches of TIER_BATCHES routed live and priced, in turns
+    (the answers equal), each with its tier, both walls and every tier's
+    prediction; with the breaker forced open a batch the numpy tier
+    serves, and with the numpy tier off the interpreter -> the launches
+    of its run."""
+    import copy
+    import random
+
+    import numpy as np
+
+    from gatekeeper_tpu_torch.util import synthetic as syn
+
+    gdev = _dev()
+    gdev.reset_launches()
+    check_no_divert("before the tiers", driver)
+    del driver.DEVICE_MIN_CELLS  # phase 3's forcing: the prior again
+    if driver.DEVICE_MIN_CELLS == 0:
+        raise AssertionError("GK_DEVICE_MIN_CELLS=0 forces every phase")
+    if driver.price_host_tiers:
+        raise AssertionError("the card's driver serves host tiers by price")
+
+    def served(made, n):
+        """The tier that served the last batch, of ``n`` reviews, its
+        launches checked: K1 and K9 once on the card, none on the host."""
+        tier, reason = driver.route_ledger.last()
+        want = review_launches(n) if tier == "device" else {}
+        if made != want:
+            raise AssertionError(f"a batch of {n} served by {tier} "
+                                 f"({reason}) launched {made}, not {want}")
+        return tier, reason
+
+    # the calibration, the host tiers' calls in it timed apart
+    host_ms = {"np": 0.0, "interp": 0.0}
+
+    def timed(tier, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_ms[tier] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    driver._np_review = timed("np", driver._np_review)
+    driver._interp_review_memo = timed("interp", driver._interp_review_memo)
+    try:
+        cal, cal_ms, made = made_by(driver.calibrate_routing)
+    finally:
+        del driver._np_review, driver._interp_review_memo
+    if cal is None or set(cal) != CAL_KEYS or \
+            made != calibration_launches():
+        raise AssertionError(f"the calibration launched {made}: {cal}")
+    log("tiers_calibration", **cal, wall_ms=cal_ms, launches=made,
+        host_tiers_ms=host_ms,
+        host_tiers_share=sum(host_ms.values()) / cal_ms,
+        predicted_ms={n: tier_ms(driver, n)
+                      for n in (1,) + TIER_BATCHES}, card=smi)
+
+    # one-pod reviews, routed live, priced and pinned to each tier, in
+    # turns (each mode first for a fifth of the pods: the first pays the
+    # interning)
+    pods = fresh_pods(TIER_REVIEWS, SEED + 50, "tier")
+    modes = ("live", "priced") + TIERS
+    live, priced = [], {t: [] for t in TIERS}
+    pinned = {t: [] for t in TIERS}
+    live_bytes, reasons = [], {"live": {}, "priced": {}}
+    for i, pod in enumerate(pods):
+        got = {}
+        k = i % len(modes)
+        for mode in modes[k:] + modes[:k]:
+            forget_reviews(driver)
+            if mode == "live":
+                out, ms, made = made_by(
+                    lambda: client.review(copy.deepcopy(pod)))
+            else:
+                with PinnedTier(driver, mode):
+                    out, ms, made = made_by(
+                        lambda: client.review(copy.deepcopy(pod)))
+            tier, reason = served(made, 1)
+            if mode in ("live", "priced"):
+                key = f"{tier}|{reason}"
+                reasons[mode][key] = reasons[mode].get(key, 0) + 1
+            if mode == "live":
+                if tier != "device":
+                    raise AssertionError(f"a live review left the card "
+                                         f"for {tier} ({reason})")
+                live.append(ms)
+            elif mode == "priced":
+                priced[tier].append(ms)
+            else:
+                if tier != mode:
+                    raise AssertionError(f"a review pinned to {mode} "
+                                         f"left it")
+                pinned[mode].append(ms)
+            got[mode] = _review_bytes([out])[0]
+        if any(got[m] != got["live"] for m in modes):
+            raise AssertionError(f"pod {i}: the tiers answer otherwise: "
+                                 f"{[m for m in modes if got[m] != got['live']]}")
+        live_bytes.append(got["live"])
+    forget_reviews(driver)
+    # a seeded sample against the interpreter oracle of the same corpus
+    # (inventory-free templates: no stored object is read)
+    oracle = syn.build_oracle(args.templates, 0, SEED)
+    sample = sorted(random.Random(SEED).sample(range(len(pods)),
+                                               TIER_ORACLE))
+    for i in sample:
+        want = _review_bytes([oracle.review(copy.deepcopy(pods[i]))])[0]
+        if live_bytes[i] != want:
+            raise AssertionError(f"pod {i}: not the oracle's answer")
+    del oracle
+    # the numpy side's masks of every pod against the card's
+    reviews = [driver.target.make_audit_review(
+        copy.deepcopy(p), "v1", "Pod", p["metadata"]["name"],
+        p["metadata"].get("namespace", "")) for p in pods]
+    with driver._lock:
+        ordered, mask, rej = driver.compute_masks(reviews)
+        driver._np_side.sync(driver)
+        n_ordered, n_mask, n_rej = driver._np_side.serve(driver, reviews)
+    R = len(reviews)
+    masks_equal = ([o[:2] for o in ordered] == [o[:2] for o in n_ordered]
+                   and bool(np.array_equal(mask[:, :R], n_mask))
+                   and bool(np.array_equal(rej[:, :R], n_rej)))
+    if not masks_equal:
+        raise AssertionError("the numpy side's masks differ from the "
+                             "card's")
+    predicted = tier_ms(driver, 1)
+    log("tiers_reviews", live=_lat(live),
+        priced={t: _lat(ms) for t, ms in priced.items()},
+        priced_all=_lat(sum(priced.values(), [])),
+        pinned={t: _lat(ms) for t, ms in pinned.items()},
+        predicted_ms=predicted,
+        predicted_over_pinned_p50={
+            t: predicted[t] / statistics.median(ms)
+            for t, ms in pinned.items()},
+        reasons=reasons, oracle_sample=len(sample),
+        masks_equal={"reviews": R, "flagged_cells": int(mask.sum()),
+                     "autoreject_cells": int(rej.sum())}, card=smi)
+
+    # batches routed live (the card) and priced, the memos emptied, in
+    # turns
+    batches = []
+    for n in TIER_BATCHES:
+        for rep in range(TIER_BATCH_REPS):
+            batch = fresh_pods(n, SEED + 52 + n + rep,
+                               f"tier-batch-{n}-{rep}")
+            rec = {"reviews": n, "predicted_ms": tier_ms(driver, n)}
+            got = {}
+            for mode in (("live", "priced") if rep % 2 == 0
+                         else ("priced", "live")):
+                forget_reviews(driver)
+                if mode == "live":
+                    out, rec["ms"], made = made_by(
+                        lambda: client.review_batch(copy.deepcopy(batch)))
+                    rec["tier"], rec["reason"] = served(made, n)
+                    if rec["tier"] != "device":
+                        raise AssertionError(f"a live batch of {n} left "
+                                             f"the card: {rec}")
+                else:
+                    with PinnedTier(driver, "priced"):
+                        out, rec["priced_ms"], made = made_by(
+                            lambda: client.review_batch(
+                                copy.deepcopy(batch)))
+                    rec["priced_tier"], _reason = served(made, n)
+                got[mode] = _review_bytes(out)
+            if got["live"] != got["priced"]:
+                raise AssertionError(f"a batch of {n}: the priced route "
+                                     f"answers otherwise than the card")
+            batches.append(rec)
+    forget_reviews(driver)
+    log("tiers_batches", batches=batches, card=smi)
+
+    # the breaker forced open on a batch priced for the card: the numpy
+    # tier serves it, and with the numpy tier off the interpreter; each
+    # answer equal to the card's
+    br = driver.breaker
+    cooldown = br.cooldown_s
+    br.cooldown_s = 3600.0  # no probe closes it meanwhile
+    diverts0 = diverts()
+    pods = fresh_pods(2 * TIER_BREAKER_BATCH, SEED + 51, "tier-breaker")
+    halves = (pods[:TIER_BREAKER_BATCH], pods[TIER_BREAKER_BATCH:])
+    got = []
+    try:
+        with PinnedTier(driver, "device"):
+            br.trip()
+            for np_on, half in zip((True, False), halves):
+                driver.np_serve_enabled = np_on
+                out, _ms, made = made_by(
+                    lambda: client.review_batch(copy.deepcopy(half)))
+                got.append((driver.route_ledger.last(), made,
+                            _review_bytes(out)))
+    finally:
+        driver.np_serve_enabled = True
+        br.record_success()
+        br.cooldown_s = cooldown
+    moved = diverts()
+    for k, n in moved.items():
+        INJECTED_DIVERTS[k] = INJECTED_DIVERTS.get(k, 0) + n - \
+            diverts0.get(k, 0)
+    forget_reviews(driver)
+    with PinnedTier(driver, "device"):
+        card = [_review_bytes(client.review_batch(copy.deepcopy(h)))
+                for h in halves]
+    routes = [g[0] for g in got]
+    if routes != [("np", "breaker_open"), ("interp", "breaker_open")] or \
+            any(g[1] for g in got) or [g[2] for g in got] != card:
+        raise AssertionError(f"the breaker's batches: {routes}, launches "
+                             f"{[g[1] for g in got]}, answers equal "
+                             f"{[g[2] for g in got] == card}")
+    log("tiers_breaker", routes=routes, reviews=TIER_BREAKER_BATCH)
+    check_no_divert("the tiers", driver)
+    return dict(gdev.launches)
 
 
 SPLIT_MODES = ("op_by_op", "k9")
@@ -6586,7 +6927,7 @@ def main(argv=None) -> int:
     ap.add_argument("--pods", type=int, default=100_000)
     ap.add_argument("--parity-templates", type=int, default=24)
     ap.add_argument("--parity-pods", type=int, default=2000)
-    ap.add_argument("--ref-templates", type=int, default=24)
+    ap.add_argument("--ref-templates", type=int, default=6)
     ap.add_argument("--ref-objects", type=int, default=100_000)
     ap.add_argument("--profile", action="store_true",
                     help="profile one warm sweep with torch.profiler")
@@ -6647,6 +6988,10 @@ def main(argv=None) -> int:
     client = syn.build_driver(args.templates, args.pods, SEED)
     driver = client.driver
     assert isinstance(driver, TorchDriver) and driver.device.type == DEVICE
+    # the card serves this client's admissions whatever their price: the
+    # phases that count its launches (3, 6, 9, 12 and 13) hold the device
+    # path; phase 15 prices them
+    driver.DEVICE_MIN_CELLS = 0
     build_s = time.perf_counter() - t0
     log("build_client", seconds=build_s, templates=args.templates,
         pods=args.pods)
@@ -6956,6 +7301,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     small = syn.build_driver(args.parity_templates, args.parity_pods,
                              SEED)
+    small.driver.DEVICE_MIN_CELLS = 0  # its reviews on the card
     oracle = syn.build_oracle(args.parity_templates, args.parity_pods,
                               SEED)
     s_resp, s_tot = small.audit_capped(CAP)
@@ -7083,12 +7429,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     wire_launches = wire_phase(args, pods, process)
     log("wire_phase", seconds=time.perf_counter() - t0)
+
+    # 15. the tiers: phase 3's admissions priced over three tiers
+    t0 = time.perf_counter()
+    tiers_launches = tiers_phase(args, client, driver, smi)
+    log("tiers", seconds=time.perf_counter() - t0)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
                            + process_launches[name]
                            + restart_launches[name] + fleet_launches[name]
-                           + serving_launches[name] + wire_launches[name])
+                           + serving_launches[name] + wire_launches[name]
+                           + tiers_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

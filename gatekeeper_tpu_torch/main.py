@@ -945,19 +945,18 @@ class App:
         )
 
     def _start_routing_calibration(self):
-        """Background startup calibration of the driver's device service
-        model (TorchDriver.calibrate_routing): waits until the App is
-        ready (its templates and data synced, as /readyz says), then
-        measures once; a model measured while the constraint side still
-        changes would price neither that side nor the one served.
-        Retries a few times because an empty cluster has nothing to
-        calibrate against yet."""
+        """Background startup calibration of the driver's routing cost
+        model (TorchDriver.calibrate_routing: the device, the numpy host
+        tier and the interpreter): waits until the App is ready (its
+        templates and data synced, as /readyz says), then measures once;
+        a model measured while the constraint side still changes would
+        price neither that side nor the one served.  Retries a few times
+        because an empty cluster has nothing to calibrate against yet."""
         driver = self.client.driver
         if not hasattr(driver, "calibrate_routing"):
             return  # interp driver
-        # TorchDriver prices one tier, the device, and has no
-        # forced-device setting to skip the calibration for: it always
-        # measures the model the micro-batcher adapts with
+        if getattr(driver, "DEVICE_MIN_CELLS", 0) == 0:
+            return  # forced-device configuration
 
         from .ops.deltasweep import BG_STOP
 

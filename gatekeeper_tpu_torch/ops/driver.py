@@ -25,17 +25,29 @@ evaluation (join nodes resolve to their polarity default), masks gathered
 through ``crow``, the capped render and its "exact"/"resources" totals —
 and its serving seam: the whole-request and review memos (a repeated
 admission replays without a launch), the circuit breaker (ops/breaker.py)
-and the device's service model (calibrate_routing, predicted_batch_ms,
-set_offered_load, set_brownout_pin), each batch's route recorded in the
-route ledger (obs/routeledger.py).  The device is the one priced tier:
-every route resolves to it, under the reason its pricing gives.  The
-interpreter serves traced reviews and the batches the breaker diverts
-(reason ``device_failed`` or ``breaker_open``, logged at warning).  Only
-an unavailable device diverts: the fault plane's TPU_DISPATCH point
-(DeviceUnavailable) or a stalled mesh dispatch (MeshDispatchStall); a
-kernel's launch failure or a CUDA error reaches the caller, and the
-kernel wrappers and compute_masks catch nothing.  Left out: the numpy
-host tier (ops/npside.py) and the compile cache.
+and three priced tiers for an admission batch, as TpuDriver prices them:
+the device, the numpy host tier (ops/npside.py: the same mask in numpy,
+ops/npeval.py, on an incrementally kept host constraint side, then the
+same render) and the interpreter's walk of the constraints the review's
+kind can match (_gvk_walk_list).  Each tier has an affine service model
+(calibrate_routing; static priors DEVICE_MIN_CELLS and NP_MIN_CELLS
+before it; DEVICE_MIN_CELLS = 0 forces the device, GK_NP_SERVE=0 drops
+the numpy tier), priced for latency, for the offered load
+(set_offered_load) or for throughput under the brownout pin
+(set_brownout_pin), and each batch's route is recorded in the route
+ledger (obs/routeledger.py) under the tier that served it.  A priced
+host tier serves only where the device is the host's own
+(price_host_tiers, true on the CPU): on the card the tensors live there,
+so a batch priced for the host is served by the device all the same,
+reason ``device_resident``, its priced table beside it.  The
+interpreter serves traced reviews.  A batch the breaker holds off the
+device (reason ``breaker_open``) or the device did not take
+(``device_failed``, logged at warning) is served by the numpy tier, else
+the interpreter.  Only an unavailable device diverts: the fault plane's
+TPU_DISPATCH point (DeviceUnavailable) or a stalled mesh dispatch
+(MeshDispatchStall); a kernel's launch failure or a CUDA error reaches
+the caller, and the kernel wrappers and compute_masks catch nothing.
+Left out: the compile cache (nothing here compiles per template).
 
 Audits are incremental, as in TpuDriver: a full sweep keeps its [C, R]
 mask resident and rebases the host-side DeltaState (ops/deltasweep.py);
@@ -132,6 +144,7 @@ from .delta import delta_columns, delta_index
 from .deltasweep import DeltaState, MaskSource, NeedsFullSweep
 from .interning import Interner, PredicateTable
 from .matchkernel import constraint_records, match_kernel
+from .npside import NpSide
 from .pack import _bucket as _bucket_pow2, pack_constraints, pack_reviews
 from .packbits import packed_empty, unpack_review_masks
 from .params import pack_params
@@ -226,6 +239,13 @@ class TorchDriver(InterpDriver):
     LOAD_HINT_TTL_S = 5.0
     LOAD_HEADROOM = 1.25
     ROUTE_MAX_BATCH = 256.0
+    # the routing priors before calibrate_routing: batches of this many
+    # constraint x review cells and more go to the device; below it, from
+    # NP_MIN_CELLS cells the numpy host tier (its serve has a floor of
+    # pack and gather), below that the interpreter's walk.
+    # DEVICE_MIN_CELLS = 0 forces the device whatever the calibration says
+    DEVICE_MIN_CELLS = int(os.environ.get("GK_DEVICE_MIN_CELLS", "4096"))
+    NP_MIN_CELLS = int(os.environ.get("GK_NP_MIN_CELLS", "24"))
 
     def __init__(self, target: Optional[K8sValidationTarget] = None,
                  device=None, mesh_watchdog_s: Optional[float] = None,
@@ -352,6 +372,19 @@ class TorchDriver(InterpDriver):
         self._route_cal: Optional[Dict[str, float]] = None
         self._offered_load: Optional[tuple] = None
         self._brownout_pin = False
+        # the numpy host tier: its constraint side, kept in step with the
+        # driver's through _cs_change_log (ops/npside.py); GK_NP_SERVE=0
+        # leaves the device and the interpreter
+        self.np_serve_enabled = os.environ.get("GK_NP_SERVE", "1") != "0"
+        self._np_side = NpSide()
+        # whether a batch priced for a host tier is served there: on the
+        # CPU, where the "device" is the host too; on the card the host
+        # tiers serve only the breaker's and an unavailable device's
+        # diverts (and traced reviews), so admission launches the kernels
+        self.price_host_tiers = self.device.type != "cuda"
+        # the interpreter's walk list index: (epoch, {(group, kind):
+        # entries}, namespaceSelector entries)
+        self._gvk_cache = None
         # every batch's route and the reason that decided it
         # (/debug/routez, route_decisions_total); GK_ROUTE_LEDGER=0 stops
         # the recording
@@ -363,10 +396,11 @@ class TorchDriver(InterpDriver):
         )
         set_active(self.route_ledger)
         # circuit breaker over the device path: after N consecutive
-        # failures the serving methods divert to the interpreter, which
-        # renders the same results (the device mask only ever prunes the
-        # interpreter's walk); a background probe runs one real review on
-        # the device and one success closes it (ops/breaker.py)
+        # failures the serving methods divert to the host tiers (reviews:
+        # the numpy tier, else the interpreter; audits: the interpreter),
+        # which render the same results (the device mask only ever prunes
+        # the interpreter's walk); a background probe runs one real review
+        # on the device and one success closes it (ops/breaker.py)
         from .breaker import CircuitBreaker
 
         if breaker_threshold is None:
@@ -431,7 +465,7 @@ class TorchDriver(InterpDriver):
         if old != new:
             log.warning(
                 "circuit breaker %s -> %s%s", old, new,
-                " (serving from the interpreter)" if new != "closed" else "",
+                " (serving from the host tiers)" if new != "closed" else "",
             )
             # the flight recorder: the edge lands in the incident ring, and
             # an open edge dumps the ring.  Guarded: this runs inside the
@@ -1350,14 +1384,17 @@ class TorchDriver(InterpDriver):
     def _review_batch_eval(self, reviews: List[dict], tracing: bool,
                            memo_reviews: Optional[list] = None):
         """Price and evaluate a batch (no memo probe: review_batch served
-        the hits).  The device is the one priced tier; the batch diverts
-        to the interpreter only while the breaker is open or when the
-        device was unavailable (DeviceUnavailable, MeshDispatchStall),
-        and every batch lands in the route ledger with the tier that
-        evaluated it.  Any other failure of the device path raises."""
+        the hits) on the tier _route_decision chose: the device, the
+        numpy host tier or the interpreter; a host tier only with
+        price_host_tiers, else the device (reason device_resident).  A
+        batch for the device goes to the numpy tier, else the
+        interpreter, while the breaker is open or when the device was
+        unavailable (DeviceUnavailable, MeshDispatchStall); any other
+        failure of the device path raises.  Every batch lands in the
+        route ledger with the tier that served it."""
         n_constraints = self._n_constraints_total()
         cells = len(reviews) * max(n_constraints, 1)
-        _route, reason, lam, priced = self._route_decision(
+        route, reason, lam, priced = self._route_decision(
             cells, n_reviews=len(reviews),
             want_priced=self.route_ledger.enabled,
         )
@@ -1371,26 +1408,30 @@ class TorchDriver(InterpDriver):
             _record("interp")  # traced reviews take the interpreter walk
             return [InterpDriver.review(self, r, tracing=True)
                     for r in reviews]
+        if route != "device":
+            if self.price_host_tiers:
+                return self._host_serve(route, reviews, memo_reviews,
+                                        _record)
+            reason = "device_resident"
         if not self.breaker.allow():
             # checked only here, right before the device attempt, so a
             # granted half-open trial is always followed by the attempt
             # that records its outcome
             reason = "breaker_open"
             log.warning("circuit breaker open: serving %d review(s) from "
-                        "the interpreter", len(reviews))
-            _record("interp")
-            return self._interp_serve(reviews, memo_reviews)
+                        "the host tiers", len(reviews))
+            return self._host_serve("np", reviews, memo_reviews, _record)
         _record("device")
         with self._lock:
             try:
                 ordered, mask, autoreject = self.compute_masks(reviews)
             except _DIVERTED as e:
                 # the failure feeds the breaker and this batch is served by
-                # the interpreter, outside the lock (per-review locking)
+                # the host tiers, outside the lock (per-review locking)
                 self._record_device_failure(e)
                 log.warning(
                     "device evaluation failed (%s: %s); serving %d "
-                    "review(s) from the interpreter",
+                    "review(s) from the host tiers",
                     type(e).__name__, e, len(reviews),
                 )
             else:
@@ -1408,11 +1449,7 @@ class TorchDriver(InterpDriver):
                         memo_keys=memo_reviews, memo=admission,
                     )
                 if admission and self._memoable_synced():
-                    for ri, review in enumerate(reviews):
-                        mk = memo_reviews[ri] if memo_reviews else None
-                        self._store_request_memo(
-                            review, out[ri][0], mk[1] if mk else None,
-                        )
+                    self._store_request_memos(reviews, out, memo_reviews)
                 return out
         # the amended entry names the tier that evaluated: device ->
         # device_failed (-> breaker_open) in causal order.  No entry when
@@ -1422,8 +1459,77 @@ class TorchDriver(InterpDriver):
             raise _deadline.DeadlineExceeded(
                 "deadline exhausted during device-failure fallback"
             )
-        _record("interp")
+        return self._host_serve("np", reviews, memo_reviews, _record)
+
+    def _host_serve(self, tier: str, reviews: List[dict],
+                    memo_reviews: Optional[list], record):
+        """Serve a batch on the host: the numpy tier where ``tier`` is
+        "np" and it can serve (it is enabled and holds constraints), else
+        the interpreter; ``record`` lands the ledger entry of the tier
+        that served."""
+        if tier == "np":
+            out = self._np_review(reviews, memo_reviews)
+            if out is not None:
+                record("np")
+                return out
+        record("interp")
         return self._interp_serve(reviews, memo_reviews)
+
+    def _store_request_memos(self, reviews: List[dict], out: list,
+                             memo_reviews: Optional[list]):
+        """Store each review's results of an evaluated admission batch in
+        the request memo (caller holds the lock and checked
+        _memoable_synced)."""
+        for ri, review in enumerate(reviews):
+            mk = memo_reviews[ri] if memo_reviews else None
+            self._store_request_memo(review, out[ri][0],
+                                     mk[1] if mk else None)
+
+    def _np_review(self, reviews: List[dict],
+                   memo_reviews: Optional[list] = None, memo: bool = True):
+        """Serve a batch from the numpy host tier (ops/npside.py): the
+        device path's over-approximating mask, computed in numpy on the
+        incrementally kept host constraint side, then the same render;
+        no upload, no launch.  -> the results, or None when the tier is
+        disabled or holds no constraint (the caller falls back).  With
+        ``memo`` False (the calibration) no memo is read or fed."""
+        if not self.np_serve_enabled:
+            return None
+        with self._lock:
+            t0 = time.perf_counter()
+            ns = self._np_side
+            ns.sync(self)
+            t1 = time.perf_counter()
+            got = ns.serve(self, reviews)
+            if got is None:
+                return None
+            t2 = time.perf_counter()
+            obstrace.record_span("np.pack", t0, t1, stage=obstrace.PACK)
+            obstrace.record_span(
+                "np.eval", t1, t2, stage=obstrace.DISPATCH,
+                tier="numpy", breaker=self.breaker.state,
+            )
+            record_stage(PACK_M, t1 - t0, {"path": "review"})
+            record_stage(DISPATCH_M, t2 - t1, {"path": "review",
+                                               "tier": "numpy"})
+            if obscosts.enabled():
+                obscosts.record_dispatch(
+                    self._cost_kind_counts(), t2 - t1, len(reviews),
+                    path="review",
+                )
+            ordered, mask, rej = got
+            admission = memo and len(reviews) <= self.REQUEST_MEMO_BATCH_MAX
+            with obstrace.span("render", stage=obstrace.RENDER,
+                               tier="numpy"):
+                out = self._render_masked(
+                    reviews, ordered, mask, rej,
+                    self._inventory_for_render(),
+                    memo_keys=memo_reviews if memo else None,
+                    memo=admission,
+                )
+            if admission and self._memoable_synced():
+                self._store_request_memos(reviews, out, memo_reviews)
+            return out
 
     def _interp_serve(self, reviews: List[dict],
                       memo_reviews: Optional[list] = None):
@@ -1483,9 +1589,11 @@ class TorchDriver(InterpDriver):
 
     def _walk_one(self, results: List[Result], kind: str,
                   constraint: dict, review: dict, frozen_review,
-                  memo_review, inventory, cached_ns, rowview):
+                  memo_review, inventory, cached_ns, rowview,
+                  memo: bool = True):
         """One constraint of the interpreter's walk: its autoreject, then
-        its violations (the match re-checked inside)."""
+        its violations (the match re-checked inside), through the review
+        memo unless ``memo`` is False."""
         if needs_autoreject(constraint, review, cached_ns):
             results.append(
                 Result(
@@ -1496,19 +1604,80 @@ class TorchDriver(InterpDriver):
                     enforcement_action=self._enforcement_action(constraint),
                 )
             )
-        self._append_violation_results(
-            results, self._cell_violations(
+        if memo:
+            violations = self._cell_violations(
                 constraint, kind, review, frozen_review, inventory,
-                memo_review=memo_review, rowview=rowview),
-            constraint, kind, review,
-        )
+                memo_review=memo_review, rowview=rowview)
+        else:
+            violations = self._eval_cell(constraint, kind, review,
+                                         frozen_review, inventory, rowview)
+        self._append_violation_results(results, violations, constraint,
+                                       kind, review)
 
-    def _interp_review_memo(self, review: dict, memo_key=None):
+    def _gvk_walk_list(self, review: dict) -> List[Tuple[str, str, dict]]:
+        """The sorted constraint subset an interpreter walk must visit for
+        this review: constraints whose match.kinds could hit the review's
+        (group, kind), exact pairs and wildcard buckets, and every
+        constraint that carries a namespaceSelector (autoreject does not
+        depend on the kind, target_template_source.go:12-25).  The index
+        follows pack_constraints' kind pairs (an entry with empty
+        apiGroups or kinds contributes none and never matches), and is
+        kept per constraint-side epoch."""
+        idx = self._gvk_cache
+        if idx is None or idx[0] != self._cs_epoch:
+            by_pair: Dict[Tuple[str, str], list] = {}
+            nssel: list = []
+            for entry in self._ordered_constraints():
+                # a non-dict spec or match degrades to {} (as
+                # target/match.py reads it): one malformed constraint
+                # must not fail every walked review
+                match = constraint_match_spec(entry[2])
+                if "namespaceSelector" in match:
+                    nssel.append(entry)
+                kinds = match.get("kinds")
+                if kinds is None:
+                    # missing or an explicit null: the wildcard, as the
+                    # oracle and pack.py read both
+                    kinds = [{"apiGroups": ["*"], "kinds": ["*"]}]
+                if isinstance(kinds, list):
+                    for ks in kinds:
+                        if not isinstance(ks, dict):
+                            continue
+                        for g in ks.get("apiGroups") or []:
+                            for k in ks.get("kinds") or []:
+                                by_pair.setdefault(
+                                    (str(g), str(k)), []
+                                ).append(entry)
+            idx = (self._cs_epoch, by_pair, nssel)
+            self._gvk_cache = idx
+        _epoch, by_pair, nssel = idx
+        rk = review.get("kind")
+        g = rk.get("group") if isinstance(rk, dict) else None
+        k = rk.get("kind") if isinstance(rk, dict) else None
+        probes = [("*", "*")]
+        if isinstance(k, str):
+            probes.append(("*", k))
+        if isinstance(g, str):
+            probes.append((g, "*"))
+            if isinstance(k, str):
+                probes.append((g, k))
+        out: Dict[Tuple[str, str], Tuple[str, str, dict]] = {}
+        for p in probes:
+            for entry in by_pair.get(p, ()):
+                out[entry[:2]] = entry
+        for entry in nssel:
+            out[entry[:2]] = entry
+        return [out[key] for key in sorted(out)]
+
+    def _interp_review_memo(self, review: dict, memo_key=None,
+                            memo: bool = True):
         """InterpDriver.review's results served through the content-keyed
         memos: cells seen before replay from the review memo, and a
-        content-determined result is stored in the request memo.  It
-        walks every constraint in (kind, name) order, as InterpDriver
-        does."""
+        content-determined result is stored in the request memo (neither
+        with ``memo`` False, the calibration's walk).  It walks the
+        constraints the review's kind can match, and those with a
+        namespaceSelector, in (kind, name) order (_gvk_walk_list): the
+        results of InterpDriver's walk of them all."""
         from ..engine.value import freeze
         from .renderplan import RowView
 
@@ -1522,13 +1691,13 @@ class TorchDriver(InterpDriver):
                 memo_review = strip_request_meta(frozen_review)
             # synced under this lock hold: the store below must never
             # keep a verdict of a constraint side before an epoch bump
-            memoable = self._memoable_synced()
+            memoable = memo and self._memoable_synced()
             rowview = RowView(review, frozen_review)
             results: List[Result] = []
-            for kind, _name, constraint in self._ordered_constraints():
+            for kind, _name, constraint in self._gvk_walk_list(review):
                 self._walk_one(results, kind, constraint, review,
                                frozen_review, memo_review, inventory,
-                               cached_ns, rowview)
+                               cached_ns, rowview, memo=memo)
             if memoable:
                 self._store_request_memo(review, results, memo_review)
             self._flush_render_counts()
@@ -1720,58 +1889,102 @@ class TorchDriver(InterpDriver):
         } for i in range(n)]
 
     def calibrate_routing(self, runs: int = 3) -> Optional[dict]:
-        """Measure the device's affine service model once: the floor and
-        the per-cell rate of the path an admission batch takes past the
-        memos, compute_masks and the render of its positive cells, at a
-        one-review batch (the admission shape) and at 128 reviews, each
-        the median of ``runs`` calls, the driver lock held for each.  The
-        calls take distinct objects (_calibration_reviews: the cache's,
-        else fresh pods), each evaluated once before, untimed, in one
-        warm-up call of them all: the timed calls price objects whose
-        strings are interned, as the audit pack interns the cache's, not
-        the constraint side's re-pack a new string costs once.  The
-        render keys no memo.
-        -> {"rtt_ms", "device_cells_per_ms"}, also kept as the model
-        predicted_batch_ms and the route pricing read; None when no
-        constraint is installed.  Called explicitly (the App calibrates
-        in the background once it is ready), never implicitly."""
+        """Measure once the affine service models of the three tiers an
+        admission batch can take past the memos, each timed with the
+        driver lock held and on distinct objects (_calibration_reviews:
+        the cache's, else fresh pods), every one of them evaluated once
+        before, untimed, in one warm-up call on the device: the timed
+        calls price objects whose strings are interned, as the audit pack
+        interns the cache's, not the constraint side's re-pack a new
+        string costs once.
+          - the device: compute_masks and the render of its positive
+            cells at a one-review batch (the admission shape) and at 128,
+            each the median of ``runs`` calls (a dispatch's run-to-run
+            spread is cost every real request pays);
+          - the numpy tier (when enabled): _np_review at batches of 1 and
+            8, each the least of ``runs`` calls after one (which absorbs
+            the host side's first sync): pure host work, whose spread is
+            scheduler noise a real request mostly does not pay;
+          - the interpreter: the median per-review time of its walk over
+            unique reviews, after one warm walk (the median, not the
+            least: a cold cache in the samples would price it at a rate
+            real unique requests do not pay).
+        No memo is read or fed.
+        -> {"rtt_ms", "device_cells_per_ms", "interp_cells_per_ms",
+        "np_floor_ms", "np_cells_per_ms"} (the np pair only with the
+        numpy tier on), also kept as the model predicted_batch_ms and the
+        route pricing read; None when no constraint is installed.  Called
+        explicitly (the App calibrates in the background once it is
+        ready), never implicitly."""
         with self._lock:
             n_constraints = sum(len(v) for v in self.constraints.values())
             if n_constraints == 0:
                 return None
-        b_large = 128
+        b_large, b_np = 128, 8
+        np_on = self.np_serve_enabled
+        interp_runs = max(runs, 3) + 2
 
         def evaluate(reviews):
             ordered, mask, autoreject = self.compute_masks(reviews)
             self._render_masked(reviews, ordered, mask, autoreject,
                                 self._inventory_for_render(), memo=False)
 
-        pool = self._calibration_reviews(runs * (1 + b_large))
+        n_pool = (runs * (1 + b_large)
+                  + ((runs + 1) * (1 + b_np) if np_on else 0)
+                  + 1 + interp_runs)
+        pool = self._calibration_reviews(n_pool)
         with self._lock:
             evaluate(pool)  # the warm-up
         pool = iter(pool)
 
+        def take(n):
+            return [copy.deepcopy(next(pool)) for _ in range(n)]
+
         def device_ms(batch):
             ts = []
             for _ in range(runs):
-                reviews = [copy.deepcopy(next(pool)) for _ in range(batch)]
+                reviews = take(batch)
                 with self._lock:
                     t0 = time.perf_counter()
                     evaluate(reviews)
                     ts.append(time.perf_counter() - t0)
-            # the median: a dispatch's run-to-run spread is cost every
-            # real request pays
             return float(np.median(ts)) * 1e3
 
-        ms_small, ms_large = device_ms(1), device_ms(b_large)
-        cells_small, cells_large = n_constraints, b_large * n_constraints
-        per_cell = max((ms_large - ms_small)
-                       / max(cells_large - cells_small, 1), 1e-9)
-        floor = max(ms_small - per_cell * cells_small, 1e-3)
+        def np_ms(batch):
+            ts = []
+            for _ in range(runs + 1):
+                reviews = take(batch)
+                with self._lock:
+                    t0 = time.perf_counter()
+                    self._np_review(reviews, memo=False)
+                    ts.append(time.perf_counter() - t0)
+            return float(min(ts[1:])) * 1e3
+
+        def affine(ms_small, ms_large, cells_small, cells_large):
+            per_cell = max((ms_large - ms_small)
+                           / max(cells_large - cells_small, 1), 1e-9)
+            return max(ms_small - per_cell * cells_small, 1e-3), per_cell
+
+        dev_floor, dev_per_cell = affine(
+            device_ms(1), device_ms(b_large),
+            n_constraints, b_large * n_constraints)
         cal = {
-            "rtt_ms": floor,  # the affine intercept: the dispatch floor
-            "device_cells_per_ms": 1.0 / per_cell,
+            "rtt_ms": dev_floor,  # the affine intercept: the dispatch floor
+            "device_cells_per_ms": 1.0 / dev_per_cell,
         }
+        if np_on:
+            np_floor, np_per_cell = affine(
+                np_ms(1), np_ms(b_np), n_constraints, b_np * n_constraints)
+            cal["np_floor_ms"] = np_floor
+            cal["np_cells_per_ms"] = 1.0 / np_per_cell
+        self._interp_review_memo(take(1)[0], memo=False)  # the warm walk
+        interp_ts = []
+        for review in take(interp_runs):
+            t0 = time.perf_counter()
+            self._interp_review_memo(review, memo=False)
+            interp_ts.append(time.perf_counter() - t0)
+        interp_ms = float(np.median(interp_ts)) * 1e3
+        cal["interp_cells_per_ms"] = n_constraints / max(interp_ms, 1e-3)
         self._route_cal = cal
         return cal
 
@@ -1793,58 +2006,113 @@ class TorchDriver(InterpDriver):
 
     def set_brownout_pin(self, active: bool):
         """Brownout ladder level 3 (obs/brownout.py): pin the route to the
-        tier of most throughput, unconditionally.  The port prices one
-        tier, so the pin changes the reason its batches record
-        (``brownout_pin``), never the tier."""
+        tier of most throughput at the coalesced batch size,
+        unconditionally, so the pin holds between the batcher's
+        dispatches too (a stale load hint must not un-pin it)."""
         self._brownout_pin = bool(active)
 
     def _tier_models(self, per_review_cells: int):
         """[(tier, floor_ms, per_review_ms)] from the calibration: the
-        affine service model the route pricing and the batcher's
-        adaptation share.  One tier, the device."""
+        affine service models the route pricing, the load-aware routing
+        and the batcher's adaptation share."""
         cal = self._route_cal
         if cal is None:
             return []
-        return [("device", cal["rtt_ms"],
-                 per_review_cells / cal["device_cells_per_ms"])]
+        out = [
+            ("interp", 0.0, per_review_cells / cal["interp_cells_per_ms"]),
+            ("device", cal["rtt_ms"],
+             per_review_cells / cal["device_cells_per_ms"]),
+        ]
+        if self.np_serve_enabled and "np_floor_ms" in cal:
+            out.append(("np", cal["np_floor_ms"],
+                        per_review_cells / cal["np_cells_per_ms"]))
+        return out
 
     def _route_decision(self, cells: int, n_reviews: int = 1,
                         want_priced: bool = True):
-        """The pricing of one batch -> (route, reason, lam, priced): the
-        tier, the reason that decided it (obs/routeledger.py REASONS),
-        the offered-load hint consulted and the priced tier table
-        [{tier, floor_ms, per_review_ms, predicted_ms, mu_rps}].  Pure:
-        the caller records it.  The port prices one tier, so the route is
-        always the device and the reason is TpuDriver's branch: the pin,
-        no calibration, no load hint (latency), a load the device
-        sustains with LOAD_HEADROOM (load_aware), or one it does not
-        (saturated)."""
+        """The pricing of one batch of ``cells`` = reviews x constraints
+        -> (route, reason, lam, priced): the tier ("device", "np" or
+        "interp"), the reason that decided it (obs/routeledger.py
+        REASONS), the offered-load hint consulted and the priced tier
+        table [{tier, floor_ms, per_review_ms, predicted_ms, mu_rps}].
+        Pure: the caller records it, under the tier that served.
+
+        DEVICE_MIN_CELLS = 0 forces the device; uncalibrated, the priors
+        DEVICE_MIN_CELLS and NP_MIN_CELLS decide.  Calibrated, the
+        cheapest predicted tier for this batch (latency), unless a fresh
+        offered-load hint is set: then the cheapest of the tiers whose
+        throughput mu = B / (floor + B * per_review_ms) at the largest
+        coalesced batch B carries the load with LOAD_HEADROOM
+        (load_aware), else the tier of most throughput (saturated), which
+        the brownout pin takes unconditionally.  want_priced=False (a
+        disabled ledger) skips the table."""
+        if self.DEVICE_MIN_CELLS == 0:
+            return "device", "forced_device", None, []
         cal = self._route_cal
+        np_on = self.np_serve_enabled
         if cal is None:
-            return "device", "uncalibrated_prior", None, []
-        floor = cal["rtt_ms"]
-        per_review_ms = (max(cells // max(n_reviews, 1), 1)
-                         / cal["device_cells_per_ms"])
+            if cells >= self.DEVICE_MIN_CELLS:
+                return "device", "uncalibrated_prior", None, []
+            route = (
+                "np" if np_on and cells >= self.NP_MIN_CELLS else "interp"
+            )
+            return route, "uncalibrated_prior", None, []
+        device_ms = cal["rtt_ms"] + cells / cal["device_cells_per_ms"]
+        interp_ms = cells / cal["interp_cells_per_ms"]
+        costs = [(interp_ms, "interp"), (device_ms, "device")]
+        if np_on and "np_floor_ms" in cal:
+            costs.append(
+                (cal["np_floor_ms"] + cells / cal["np_cells_per_ms"], "np")
+            )
+        per_review = max(cells // max(n_reviews, 1), 1)
         B = self.ROUTE_MAX_BATCH
-        mu = B / max(floor + B * per_review_ms, 1e-9)  # reviews per ms
-        lam = self._load_hint()
+        state: dict = {}
+
+        def tier_mu():
+            if "mu" not in state:
+                state["models"] = self._tier_models(per_review)
+                state["mu"] = {
+                    tier: B / max(floor + B * per_ms, 1e-9)
+                    for tier, floor, per_ms in state["models"]
+                }
+            return state["mu"]
+
+        def priced():
+            if not want_priced:
+                return []
+            mu = tier_mu()
+            predicted = {tier: ms for ms, tier in costs}
+            return [
+                {
+                    "tier": tier,
+                    "floor_ms": round(floor, 4),
+                    "per_review_ms": round(per_ms, 6),
+                    "predicted_ms": round(predicted.get(tier, 0.0), 4),
+                    # mu is per ms; reviews per second for the reader
+                    "mu_rps": round(mu[tier] * 1e3, 1),
+                }
+                for tier, floor, per_ms in state["models"]
+            ]
+
         if self._brownout_pin:
-            reason = "brownout_pin"
-        elif not lam:
-            reason = "latency"
-        elif mu >= lam / 1e3 * self.LOAD_HEADROOM:
-            reason = "load_aware"
-        else:
-            reason = "saturated"
-        priced = [{
-            "tier": "device",
-            "floor_ms": round(floor, 4),
-            "per_review_ms": round(per_review_ms, 6),
-            "predicted_ms": round(
-                floor + cells / cal["device_cells_per_ms"], 4),
-            "mu_rps": round(mu * 1e3, 1),
-        }] if want_priced else []
-        return "device", reason, lam, priced
+            mu = tier_mu()
+            if mu:
+                chosen = max(mu.items(), key=lambda kv: kv[1])[0]
+                return chosen, "brownout_pin", self._load_hint(), priced()
+        lam = self._load_hint()
+        if lam:
+            mu = tier_mu()
+            lam_pms = lam / 1e3  # reviews per ms
+            sustainable = [
+                (ms, tier) for ms, tier in costs
+                if mu.get(tier, 0.0) >= lam_pms * self.LOAD_HEADROOM
+            ]
+            if sustainable:
+                return min(sustainable)[1], "load_aware", lam, priced()
+            if mu:  # saturated everywhere: drain at the most throughput
+                chosen = max(mu.items(), key=lambda kv: kv[1])[0]
+                return chosen, "saturated", lam, priced()
+        return min(costs)[1], "latency", lam, priced()
 
     def _n_constraints_total(self) -> int:
         """Installed constraint count, cached per epoch."""
@@ -1857,13 +2125,15 @@ class TorchDriver(InterpDriver):
             return n
 
     def predicted_batch_ms(self, n_reviews: int) -> Optional[float]:
-        """Predicted service time (ms) of an n-review batch on the
-        device: the micro-batcher's adaptation model.  None until
-        calibrate_routing has run."""
+        """Predicted service time (ms) of an n-review batch on its
+        cheapest tier that serves priced batches (the device alone
+        without price_host_tiers): the micro-batcher's adaptation model.
+        None until calibrate_routing has run."""
         if self._route_cal is None:
             return None
         per_review = max(self._n_constraints_total(), 1)
-        models = self._tier_models(per_review)
+        models = [m for m in self._tier_models(per_review)
+                  if self.price_host_tiers or m[0] == "device"]
         if not models:
             return None
         return min(

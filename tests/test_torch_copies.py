@@ -5,8 +5,9 @@ SCRUB) are dropped, except the functions named in CHANGED, which the
 port changed on purpose (the driver wiring, the parser, the refused
 flags and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
 fingerprint over the kernels' sources, where the snapshot writer and
-loader move the resident mask between the host and the device, and the
-fleet replica's driver flags).  A reader of the port reads only those."""
+loader move the resident mask between the host and the device, the
+fleet replica's driver flags, and the numpy evaluation the np side
+calls).  A reader of the port reads only those."""
 
 import ast
 import pathlib
@@ -49,7 +50,7 @@ COPIED = (
     "fleet/wirelistener.py", "fleet/frontdoor.py", "fleet/evdoor.py",
     "fleet/replica.py", "fleet/supervisor.py",
     "obs/fleetobs.py", "util/overloadcheck.py",
-    "ops/breaker.py",
+    "ops/breaker.py", "ops/npside.py",
     "kube/apiserver.py",
     "analysis/__init__.py", "analysis/core.py", "analysis/evloopsafety.py",
     "analysis/failpolicy.py", "analysis/hygiene.py", "analysis/locks.py",
@@ -71,9 +72,15 @@ CHANGED = {
         # the kernels loaded (wait_ready) before anything serves; the jax
         # profiler server left out
         "App.start", "App.stop",
-        # calibrates TorchDriver too, which has no DEVICE_MIN_CELLS (no
-        # forced-device setting to skip the calibration for)
+        # waits for /readyz before it calibrates (TorchDriver measures the
+        # render of the cache's objects), and skips the calibration, as the
+        # JAX package's does, when DEVICE_MIN_CELLS is 0
         "App._start_routing_calibration",
+    },
+    "ops/npside.py": {
+        # evaluates through ops/npeval.py, whose match and programs are
+        # numpy's alone (no xp argument, numpy arrays out)
+        "_Group.eval",
     },
     "obs/compilestats.py": {
         # sums nbytes over tensors and numpy arrays without jax's pytrees
@@ -114,11 +121,20 @@ CHANGED = {
     },
 }
 
-# file -> (JAX text, port text): a change of a whole statement.  The
+# file -> ((JAX text, port text), ...): changes of whole statements.  The
 # port's __main__ runs only as a script, so that importing it (as
-# tests/test_torch_imports.py imports every module) starts no process
+# tests/test_torch_imports.py imports every module) starts no process;
+# the np side imports its match and programs from ops/npeval.py, not from
+# the torch modules of the same names
 REPLACED = {
-    "__main__.py": ("\nmain()\n", '\nif __name__ == "__main__":\n    main()\n'),
+    "__main__.py": (
+        ("\nmain()\n", '\nif __name__ == "__main__":\n    main()\n'),
+    ),
+    "ops/npside.py": (
+        ("from .matchkernel import match_kernel\n",
+         "from .npeval import EvalEnv, eval_program, match_kernel\n"),
+        ("from .vexpr import EvalEnv, eval_program\n", ""),
+    ),
 }
 
 
@@ -226,9 +242,9 @@ def test_copy_equals_the_jax_module_but_for_its_named_changes(rel):
     jax_text = _renamed((JAX_PKG / rel).read_text())
     port_text = (PORT_PKG / rel).read_text()
     assert not TAGS.search(port_text), f"{rel} keeps a provenance tag"
-    if rel in REPLACED:
-        old, new = REPLACED[rel]
-        assert jax_text.count(old) == 1 and port_text.count(new) == 1
+    for old, new in REPLACED.get(rel, ()):
+        assert jax_text.count(old) == 1
+        assert not new or port_text.count(new) == 1
         jax_text = jax_text.replace(old, new)
     changed = CHANGED.get(rel, set())
     if not changed:

@@ -145,6 +145,7 @@ def test_side_stats_count_constraint_side_repacks():
     it (the predicate tables are vocabulary-sized), and side_stats count
     both with their host time."""
     client = tsyn.build_driver(6, 32, device="cpu")
+    client.driver.DEVICE_MIN_CELLS = 0  # reviews take the device path
     pod = tsyn.make_pods(1, seed=3)[0]
     client.review(pod)
     stats = client.driver.side_stats

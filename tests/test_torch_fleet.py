@@ -66,8 +66,9 @@ SEED_TEMPLATES, SEED_PODS, SEED_REQUESTS = 31, 32, 33
 MAX_PENDING = 4  # the replicas' batcher bound: the burst must overrun it
 CPU = ["--torch-device", "cpu", "--webhook-max-pending", str(MAX_PENDING)]
 SPAWN_S = 90.0  # each spawn's own limit
-# one intra-op thread a replica: the tests beside this file keep the cores
-ENV = {"OMP_NUM_THREADS": "1"}
+# one intra-op thread a replica: the tests beside this file keep the cores;
+# the device path serves every admission, as TpuDriver's does below
+ENV = {"OMP_NUM_THREADS": "1", "GK_DEVICE_MIN_CELLS": "0"}
 HTTP_S = 30.0
 
 

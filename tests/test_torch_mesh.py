@@ -45,6 +45,7 @@ def _virtual_mesh(monkeypatch):
 def _port(n_templates, n_resources, width, seed=0):
     client = syn.build_driver(n_templates, n_resources, seed, device="cpu")
     client.driver.set_mesh(True, width=width)
+    client.driver.DEVICE_MIN_CELLS = 0  # reviews take the device path
     return client
 
 
@@ -677,7 +678,7 @@ class TestDispatchWatchdog:
     def test_a_stalled_review_degrades_the_mesh(self):
         """A review batch's shard evaluations run under the same guarded
         dispatch as the sweeps: the stall narrows the mesh and trips the
-        breaker, and the interpreter answers the stalled batch."""
+        breaker, and the numpy host tier answers the stalled batch."""
         client = _port(4, 16, 4)
         driver = client.driver
         driver.mesh_watchdog_s = 0.2
@@ -697,7 +698,7 @@ class TestDispatchWatchdog:
             del driver._eval
         assert driver.mesh_layout() == 2
         assert driver.breaker.state == "open"
-        assert driver.route_ledger.last() == ("interp", "device_failed")
+        assert driver.route_ledger.last() == ("np", "device_failed")
         assert _review_sig([stalled]) == _review_sig([oracle.review(pods[0])])
         assert driver.breaker.probe_now()
         assert _review_sig([client.review(copy.deepcopy(pods[1]))]) == \

@@ -1,5 +1,6 @@
 """TorchDriver's serving seam on the CPU: the circuit breaker, the request
-and review memos and the device's service model, held to the JAX package.
+and review memos and the three tiers' service model, held to the JAX
+package.
 
 Every review and audit result here, memo hits and breaker diverts
 included, is compared byte for byte (constraint, message, enforcement
@@ -12,11 +13,16 @@ and the stalls of TestMeshDispatchStall), the memo tests of
 tests/test_tpu_driver.py, the model tests of tests/test_routing_load.py,
 tests/test_routeledger.py's TestDriverRecording, tests/test_fleet.py's
 adaptive batcher and the request-memo counter of tests/test_tracing.py;
-the port prices one tier, the device, so a route is always "device" and
-its reason says which branch of the pricing decided it.  Then the port's
-own: a status-only re-put keeps a memo hit, a divert is counted and reads
-degraded on /healthz, the App takes the breaker flags and calibrates, and
-a join divergence is recorded with GK_JOIN_ASSERT unset."""
+the port prices TpuDriver's three tiers (the device, the numpy host tier
+and the interpreter), and a batch the breaker or an unavailable device
+diverts is served by the numpy tier.  The fixtures that hold the device
+path force it, as their JAX twins do (``DEVICE_MIN_CELLS = 0``).  Then
+the port's own: a status-only re-put keeps a memo hit, a divert is
+counted and reads degraded on /healthz, a device error is never served by
+a host tier, on the card (price_host_tiers off) a batch priced for a host
+tier is served by the device, the App takes the breaker flags and
+calibrates, and a join divergence is recorded with GK_JOIN_ASSERT
+unset."""
 
 import copy
 import json
@@ -96,6 +102,7 @@ def result_bytes(results):
 def port_client(threshold=3, cooldown=0.05, **kw):
     driver = TorchDriver(device="cpu", breaker_threshold=threshold,
                          breaker_cooldown_s=cooldown, **kw)
+    driver.DEVICE_MIN_CELLS = 0  # the device path for unique content
     client = Client(driver=driver)
     client.add_template(TEMPLATE)
     client.add_constraint(CONSTRAINT)
@@ -157,25 +164,25 @@ class TestCircuitBreaker:
         same("warm")
         assert driver.breaker.state == CLOSED
         assert traffic(), "a healthy review must reach the device path"
-        failed_before = route_count("interp", "device_failed")
+        failed_before = route_count("np", "device_failed")
 
         fault_plane.add(faults.TPU_DISPATCH, FaultRule(mode="error"))
-        # each failed batch still answers, from the interpreter
+        # each failed batch still answers, from the numpy host tier
         for i in range(3):
             same(f"fail-{i}")
         st = driver.breaker.status()
         assert st["state"] != "closed" and st["trips"] >= 1
-        assert route_count("interp", "device_failed") == failed_before + 3
+        assert route_count("np", "device_failed") == failed_before + 3
 
         # while degraded no traffic reaches the device; deny and allow
         n_before = len(traffic())
-        open_before = route_count("interp", "breaker_open")
+        open_before = route_count("np", "breaker_open")
         for i in range(4):
             labels = {"gatekeeper": "on"} if i % 2 else None
             got = same(f"degraded-{i}", labels)
             assert len(got.results()) == (0 if labels else 1)
         assert len(traffic()) == n_before
-        assert route_count("interp", "breaker_open") >= open_before + 1
+        assert route_count("np", "breaker_open") >= open_before + 1
 
         # the background half-open probe closes it, without traffic
         fault_plane.clear(faults.TPU_DISPATCH)
@@ -291,7 +298,7 @@ class TestCircuitBreaker:
                                "memory access was encountered (700)")
 
         monkeypatch.setattr(tdriver, "match_kernel", refused)
-        diverts = [route_count("interp", r)
+        diverts = [route_count(t, r) for t in ("np", "interp")
                    for r in ("device_failed", "breaker_open")]
         call = {
             "review_batch": lambda: driver.review_batch(
@@ -303,8 +310,41 @@ class TestCircuitBreaker:
             call()
         assert driver.breaker.state == CLOSED
         assert driver.breaker_status()["consecutive_failures"] == 0
-        assert [route_count("interp", r)
+        assert [route_count(t, r) for t in ("np", "interp")
                 for r in ("device_failed", "breaker_open")] == diverts
+
+    @pytest.mark.parametrize("error", [
+        RuntimeError("CUDA error: an illegal memory access was "
+                     "encountered"),
+        ValueError("K9's blob is malformed"),
+        MemoryError("CUDA out of memory"),
+    ], ids=["cuda", "value", "memory"])
+    def test_a_device_error_is_never_served_by_the_host_tiers(self, error):
+        """compute_masks raising anything but DeviceUnavailable (or a
+        mesh stall) on a batch priced for the device raises out of
+        review_batch: the numpy tier and the interpreter never answer it,
+        the breaker is not fed, and the ledger holds the device entry
+        alone."""
+        client, driver = port_client(threshold=1)
+        served = []
+        orig_np, orig_walk = driver._np_review, driver._interp_serve
+        driver._np_review = lambda *a, **kw: served.append("np") or \
+            orig_np(*a, **kw)
+        driver._interp_serve = lambda *a, **kw: served.append("interp") \
+            or orig_walk(*a, **kw)
+
+        def failing(_reviews):
+            raise error
+
+        driver.compute_masks = failing
+        driver.route_ledger.clear()
+        with pytest.raises(type(error)):
+            driver.review_batch([ns_review("device-error")])
+        assert served == []
+        assert driver.breaker.state == CLOSED
+        assert driver.breaker_status()["consecutive_failures"] == 0
+        assert [(e["tier"], e["reason"]) for e in _entries(driver)] == [
+            ("device", "forced_device")]
 
 
 # ---- a stalled mesh dispatch (tests/test_chaos.py TestMeshDispatchStall) ----
@@ -370,6 +410,7 @@ def _corpus_clients(n=6, seed=13):
     synthetic templates."""
     templates, constraints = syn.make_templates(n, seed=seed)
     port = Client(driver=TorchDriver(device="cpu"))
+    port.driver.DEVICE_MIN_CELLS = 0
     oracle = Client(driver=InterpDriver())
     tpu = TpuDriver()
     tpu.DEVICE_MIN_CELLS = 0
@@ -663,9 +704,16 @@ def test_a_status_only_reput_keeps_the_memo_and_a_real_change_misses():
 # ---- the service model (tests/test_routing_load.py) -------------------------
 
 LOAD_CAL = {
-    # 10 cells a review: 5 + 0.1 ms a review, mu at B=256 ~ 8,366 rps
+    # per-review service with 10 cells a review:
+    #   interp: 10 ms a review       -> mu at B=256 =  100 rps
+    #   np:     0.5 + 1 ms a review  -> mu at B=256 ~  998 rps
+    #   device: 5 + 0.1 ms a review  -> mu at B=256 ~ 8366 rps
+    # one review's latency: np 1.5 ms < device 5.1 ms < interp 10 ms
     "rtt_ms": 5.0,
     "device_cells_per_ms": 100.0,
+    "interp_cells_per_ms": 1.0,
+    "np_floor_ms": 0.5,
+    "np_cells_per_ms": 10.0,
 }
 CELLS = 10  # one review x 10 constraints
 
@@ -676,26 +724,27 @@ def _driver_with(cal):
     return drv
 
 
-def _reason(drv, cells=CELLS, n_reviews=1):
-    """The pricing's reason for a batch; its route is the device."""
+def _route(drv, cells=CELLS, n_reviews=1):
+    """The pricing's (tier, reason) for a batch."""
     route, reason, _lam, _priced = drv._route_decision(cells, n_reviews)
-    assert route == "device"
-    return reason
+    return route, reason
 
 
 class TestServiceModel:
     def test_no_hint_routes_by_latency(self):
-        assert _reason(_driver_with(LOAD_CAL)) == "latency"
+        assert _route(_driver_with(LOAD_CAL)) == ("np", "latency")
 
     def test_sustainable_load_is_load_aware(self):
         drv = _driver_with(LOAD_CAL)
-        drv.set_offered_load(2000.0)
-        assert _reason(drv) == "load_aware"
+        drv.set_offered_load(100.0)  # interp mu=100 < 100*1.25: excluded
+        assert _route(drv) == ("np", "load_aware")
+        drv.set_offered_load(2000.0)  # np mu ~998 < 2500: excluded
+        assert _route(drv) == ("device", "load_aware")
 
     def test_saturation_drains_at_the_device(self):
         drv = _driver_with(LOAD_CAL)
-        drv.set_offered_load(20000.0)  # above the device's mu
-        assert _reason(drv) == "saturated"
+        drv.set_offered_load(20000.0)  # above every tier's mu
+        assert _route(drv) == ("device", "saturated")
 
     def test_stale_hint_expires(self):
         drv = _driver_with(LOAD_CAL)
@@ -703,14 +752,14 @@ class TestServiceModel:
         rps, _t = drv._offered_load
         drv._offered_load = (rps, time.monotonic() - drv.LOAD_HINT_TTL_S - 1)
         assert drv._load_hint() is None
-        assert _reason(drv) == "latency"
+        assert _route(drv) == ("np", "latency")
 
     def test_clearing_the_hint_restores_latency_routing(self):
         drv = _driver_with(LOAD_CAL)
         drv.set_offered_load(20000.0)
-        assert _reason(drv) == "saturated"
+        assert _route(drv) == ("device", "saturated")
         drv.set_offered_load(None)
-        assert _reason(drv) == "latency"
+        assert _route(drv) == ("np", "latency")
         drv.set_offered_load(0.0)  # zero load is no hint
         assert drv._offered_load is None
 
@@ -719,40 +768,57 @@ class TestServiceModel:
         of the same corpus must not look 64x heavier per review."""
         drv = _driver_with(LOAD_CAL)
         drv.set_offered_load(2000.0)
-        assert _reason(drv, CELLS * 64, 64) == "load_aware"
+        assert _route(drv, CELLS * 64, 64) == ("device", "load_aware")
         _r, _why, lam, priced = drv._route_decision(CELLS * 64, 64)
         assert lam == 2000.0
-        assert priced[0]["per_review_ms"] == pytest.approx(CELLS / 100.0)
+        per_review = {p["tier"]: p["per_review_ms"] for p in priced}
+        assert per_review == pytest.approx(
+            {"device": CELLS / 100.0, "np": CELLS / 10.0,
+             "interp": CELLS / 1.0})
 
     def test_none_without_calibration(self):
+        """Uncalibrated, the priors decide: the interpreter below
+        NP_MIN_CELLS cells, the numpy tier below DEVICE_MIN_CELLS, the
+        device from it; the numpy tier off, the interpreter; a
+        DEVICE_MIN_CELLS of 0 forces the device."""
         drv = _driver_with(None)
         assert drv.predicted_batch_ms(8) is None
         assert drv._tier_models(10) == []
-        assert _reason(drv) == "uncalibrated_prior"
+        assert (drv.NP_MIN_CELLS, drv.DEVICE_MIN_CELLS) == (24, 4096)
+        assert [_route(drv, c)[0] for c in (10, 24, 4095, 4096)] == [
+            "interp", "np", "np", "device"]
+        assert _route(drv) == ("interp", "uncalibrated_prior")
+        drv.np_serve_enabled = False
+        assert _route(drv, 100)[0] == "interp"
+        drv.DEVICE_MIN_CELLS = 0
+        assert _route(drv) == ("device", "forced_device")
 
     def test_affine_in_batch_size_and_equal_to_tpu_drivers(self):
         drv = _driver_with(LOAD_CAL)
         tpu = TpuDriver()
-        tpu._route_cal = dict(LOAD_CAL, interp_cells_per_ms=1.0)
-        # the device tier's model is TpuDriver's, number for number
-        assert drv._tier_models(CELLS) == [
-            m for m in tpu._tier_models(CELLS) if m[0] == "device"]
-        # an empty registry: one cell a review
+        tpu._route_cal = dict(LOAD_CAL)
+        # every tier's model is TpuDriver's, number for number
+        assert drv._tier_models(CELLS) == tpu._tier_models(CELLS)
+        # an empty registry: one cell a review, the cheapest tier's time
         t1, t256 = drv.predicted_batch_ms(1), drv.predicted_batch_ms(256)
-        assert t1 == pytest.approx(5.0 + 1 / 100.0)
-        assert t256 == pytest.approx(5.0 + 256 / 100.0)
+        assert t1 == pytest.approx(0.5 + 1 / 10.0)  # np
+        assert t256 == pytest.approx(5.0 + 256 / 100.0)  # device
         xs = [drv.predicted_batch_ms(n) for n in (1, 4, 16, 64, 256)]
         assert xs == sorted(xs)
+        assert xs == [tpu.predicted_batch_ms(n) for n in (1, 4, 16, 64, 256)]
 
     @pytest.mark.parametrize("pods,restored", [(40, False), (600, False),
                                                (600, True)])
     def test_calibration_fits_the_device_path(self, pods, restored):
-        """calibrate_routing measures the path a batch takes past the
-        memos, compute_masks and the render, at one and 128 reviews, on
-        distinct objects, each evaluated once before in one warm-up: the
+        """calibrate_routing measures the three tiers on distinct objects,
+        each evaluated once before in one warm-up on the device: the
         cache's when it holds the ones the runs take (its leaves frozen,
         or plain dicts as a snapshot's restore leaves them), else fresh
-        pods; the batcher's service model finds the calibrated model."""
+        pods.  The device: compute_masks and the render, at one and 128
+        reviews; the numpy tier: _np_review at 1 and 8, one call more
+        each; the interpreter: its walk of one review, then of five.
+        No memo is read or fed, and the batcher's service model finds
+        the calibrated model."""
         from gatekeeper_tpu_torch.engine.value import thaw
 
         client = syn.build_driver(4, pods, 0, device="cpu")
@@ -767,9 +833,11 @@ class TestServiceModel:
                     node = node.setdefault(seg, {})
                 node[name] = thaw(obj)
             driver.store.adopt_tree(tree, leaves_frozen=False)
-        sizes, names, renders = [], [], []
+        sizes, names, renders, np_names, walks = [], [], [], [], []
         orig = driver.compute_masks
         orig_render = driver._render_masked
+        orig_np = driver._np_review
+        orig_walk = driver._interp_review_memo
 
         def masks(rs):
             sizes.append(len(rs))
@@ -780,36 +848,59 @@ class TestServiceModel:
             renders.append((len(reviews), kw.get("memo")))
             return orig_render(reviews, *a, **kw)
 
+        def np_review(reviews, *a, **kw):
+            np_names.append([r["name"] for r in reviews])
+            return orig_np(reviews, *a, **kw)
+
+        def walk(review, *a, **kw):
+            walks.append((review["name"], kw.get("memo")))
+            return orig_walk(review, *a, **kw)
+
         driver.compute_masks = masks
         driver._render_masked = render
+        driver._np_review = np_review
+        driver._interp_review_memo = walk
         mb = MicroBatcher(client)
         try:
             assert mb._service_model()[0](8) is None  # not yet calibrated
             cal = driver.calibrate_routing(runs=2)
         finally:
             mb.stop()
-        assert set(cal) == {"rtt_ms", "device_cells_per_ms"}
-        assert cal["rtt_ms"] > 0 and cal["device_cells_per_ms"] > 0
-        # one warm-up of every object, then the runs at 1 and 128
-        pool = 2 * (1 + 128)
+        assert set(cal) == {"rtt_ms", "device_cells_per_ms", "np_floor_ms",
+                            "np_cells_per_ms", "interp_cells_per_ms"}
+        assert all(v > 0 for v in cal.values())
+        # one warm-up of every object, then the device's runs at 1 and
+        # 128, the numpy tier's at 1 and 8, the interpreter's walks
+        n_dev, n_np, n_walk = 2 * (1 + 128), 3 * (1 + 8), 1 + 5
+        pool = n_dev + n_np + n_walk
         assert sizes == [pool] + [1] * 2 + [128] * 2
         warm, timed = names[:pool], names[pool:]
-        assert len(set(warm)) == pool and sorted(timed) == sorted(warm)
+        assert len(set(warm)) == pool and timed == warm[:n_dev]
+        assert [len(b) for b in np_names] == [1] * 3 + [8] * 3
+        assert sum(np_names, []) == warm[n_dev:n_dev + n_np]
+        assert walks == [(n, False) for n in warm[n_dev + n_np:]]
         stored = {name for _o, _a, _k, name, _ns
                   in driver.store.iter_objects()}
         if pods >= pool:
             assert set(warm) <= stored
         else:
             assert not set(warm) & stored
-        assert renders == [(n, False) for n in sizes]  # keys no memo
+        # keys no memo: every render of the device's and the numpy tier's
+        assert renders == [(n, False) for n in sizes + [1] * 3 + [8] * 3]
         predict, set_load = mb._service_model()
-        assert predict(8) == pytest.approx(
-            cal["rtt_ms"] + 8 * 4 / cal["device_cells_per_ms"])
+        assert predict(8) == pytest.approx(min(
+            cal["rtt_ms"] + 8 * 4 / cal["device_cells_per_ms"],
+            cal["np_floor_ms"] + 8 * 4 / cal["np_cells_per_ms"],
+            8 * 4 / cal["interp_cells_per_ms"]))
         set_load(50.0)
         assert driver._load_hint() == 50.0
         # nothing of it is memoized
         assert not driver._request_memo and not driver._review_memo
         assert TorchDriver(device="cpu").calibrate_routing() is None
+        # the numpy tier off: the device and the interpreter alone
+        driver.np_serve_enabled = False
+        assert set(driver.calibrate_routing(runs=1)) == {
+            "rtt_ms", "device_cells_per_ms", "interp_cells_per_ms"}
 
 
 # ---- the route ledger (tests/test_routeledger.py TestDriverRecording) -------
@@ -846,55 +937,79 @@ def _entries(d):
 
 class TestDriverRecording:
     def test_a_review_batch_records_one_entry_with_its_reason(self):
+        """Uncalibrated, the priors price each batch by its cells: 9 go
+        to the interpreter, 24 (NP_MIN_CELLS) to the numpy tier, and past
+        DEVICE_MIN_CELLS to the device; each batch one entry, under the
+        tier that served it, and memo hits none."""
         c = _ledger_client()
         d = c.driver
         d.route_ledger.clear()
         c.review_batch([_ledger_review(i) for i in range(3)])
+        c.review_batch([_ledger_review(i) for i in range(10, 18)])
+        d.DEVICE_MIN_CELLS = 30
+        c.review_batch([_ledger_review(i) for i in range(20, 30)])
         assert [(e["tier"], e["reason"], e["n_reviews"], e["cells"])
                 for e in _entries(d)] == [
-                    ("device", "uncalibrated_prior", 3, 9)]
+                    ("interp", "uncalibrated_prior", 3, 9),
+                    ("np", "uncalibrated_prior", 8, 24),
+                    ("device", "uncalibrated_prior", 10, 30)]
         c.review_batch([_ledger_review(i) for i in range(3)])  # memo hits
-        assert len(_entries(d)) == 1
+        assert len(_entries(d)) == 3
 
     def test_calibrated_decision_carries_priced_table(self):
         c = _ledger_client()
         d = c.driver
-        d._route_cal = {"rtt_ms": 5.0, "device_cells_per_ms": 100.0}
+        d._route_cal = {
+            "rtt_ms": 5.0, "device_cells_per_ms": 100.0,
+            "interp_cells_per_ms": 10.0,
+            "np_floor_ms": 1.0, "np_cells_per_ms": 50.0,
+        }
         d.route_ledger.clear()
         c.review_batch([_ledger_review(i) for i in range(4)])
         entry = _entries(d)[-1]
-        assert entry["reason"] == "latency"
-        assert [p["tier"] for p in entry["priced"]] == ["device"]
-        p = entry["priced"][0]
-        assert p["mu_rps"] > 0 and p["predicted_ms"] == pytest.approx(5.12)
+        # 12 cells: interp 1.2 ms, np 1.24, device 5.12
+        assert (entry["tier"], entry["reason"]) == ("interp", "latency")
+        priced = {p["tier"]: p for p in entry["priced"]}
+        assert set(priced) == {"interp", "device", "np"}
+        assert all(p["mu_rps"] > 0 for p in priced.values())
+        assert {t: p["predicted_ms"] for t, p in priced.items()} == \
+            pytest.approx({"interp": 1.2, "np": 1.24, "device": 5.12})
 
     def test_brownout_pin_reason(self):
         c = _ledger_client()
         d = c.driver
-        d._route_cal = {"rtt_ms": 5.0, "device_cells_per_ms": 100.0}
+        d._route_cal = {"rtt_ms": 5.0, "device_cells_per_ms": 100.0,
+                        "interp_cells_per_ms": 10.0}
         d.set_brownout_pin(True)
         d.route_ledger.clear()
         c.review(_ledger_review(9))
         assert _entries(d)[-1]["reason"] == "brownout_pin"
+        # the tier of most throughput at 256 reviews: the device
         assert d.route_ledger.last() == ("device", "brownout_pin")
         d.set_brownout_pin(False)
 
     def test_breaker_open_override_recorded(self):
         c = _ledger_client()
         d = c.driver
+        d.DEVICE_MIN_CELLS = 0  # the price says the device, always
         d.route_ledger.clear()
         d.breaker.trip()
         try:
             assert c.review(_ledger_review(1)) is not None
             entry = _entries(d)[-1]
             assert (entry["tier"], entry["reason"]) == (
-                "interp", "breaker_open")
+                "np", "breaker_open")
+            # the numpy tier off: the interpreter serves
+            d.np_serve_enabled = False
+            assert c.review(_ledger_review(2)) is not None
+            assert d.route_ledger.last() == ("interp", "breaker_open")
         finally:
             d.breaker.record_success()
 
     def test_device_failure_records_amended_decision(self):
         c = _ledger_client()
         d = c.driver
+        d.DEVICE_MIN_CELLS = 0
         c.review(_ledger_review(0))
         d.route_ledger.clear()
         plane = faults.install(seed=3)
@@ -905,11 +1020,12 @@ class TestDriverRecording:
         finally:
             faults.uninstall()
         assert [(e["tier"], e["reason"]) for e in _entries(d)] == [
-            ("device", "uncalibrated_prior"), ("interp", "device_failed")]
+            ("device", "forced_device"), ("np", "device_failed")]
 
     def test_a_failed_batch_past_its_deadline_raises(self):
         c = _ledger_client()
         d = c.driver
+        d.DEVICE_MIN_CELLS = 0
         plane = faults.install(seed=3)
         plane.add(faults.TPU_DISPATCH, FaultRule(mode=faults.ERROR))
         token = tdeadline.push(0.0)
@@ -930,10 +1046,87 @@ class TestDriverRecording:
         payload = json.loads(body)
         assert payload["decisions"][-1]["cells"] == 21
         assert payload["calibration"] is None
-        d._route_cal = {"rtt_ms": 5.0, "device_cells_per_ms": 100.0}
+        d._route_cal = {"rtt_ms": 5.0, "device_cells_per_ms": 100.0,
+                        "interp_cells_per_ms": 10.0,
+                        "np_floor_ms": 1.0, "np_cells_per_ms": 50.0}
         payload = json.loads(get_router().handle("/debug/routez")[2])
         assert payload["calibration"]["rtt_ms"] == 5.0
-        assert set(payload["curves_ms_per_review"]["10"]) == {"device"}
+        assert set(payload["curves_ms_per_review"]["10"]) == {
+            "device", "np", "interp"}
+
+
+
+# ---- the card keeps its batches (price_host_tiers) -------------------------
+
+RESIDENT_CASES = {
+    # (calibration, brownout pin, reviews in the batch) -> the tier the
+    # pricing chooses for 3 constraints
+    "prior_interp": (None, False, 3),  # 9 cells: the interpreter
+    "prior_np": (None, False, 8),  # 24 cells: the numpy tier
+    "latency_np": (LOAD_CAL, False, 1),
+    "brownout_np": ({**LOAD_CAL, "rtt_ms": 500.0}, True, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESIDENT_CASES))
+def test_on_the_card_a_host_priced_batch_is_served_by_the_device(case):
+    """Without price_host_tiers (a driver on the card), a batch the
+    pricing sends to a host tier is served by the device: compute_masks
+    runs, the ledger names the device with reason device_resident and
+    keeps the priced table, and the answers are those of the host tier a
+    twin with price_host_tiers serves.  The breaker's divert still goes
+    to the numpy tier, and the batcher's model prices the device alone."""
+    cal, pin, n = RESIDENT_CASES[case]
+    card, host = _ledger_client(), _ledger_client()
+    card.driver.price_host_tiers = False
+    calls = []
+    orig = card.driver.compute_masks
+
+    def masks(reviews):
+        calls.append(len(reviews))
+        return orig(reviews)
+
+    card.driver.compute_masks = masks
+    for c in (card, host):
+        c.driver._route_cal = dict(cal) if cal else None
+        c.driver.set_brownout_pin(pin)
+    batch = [_ledger_review(i) for i in range(40, 40 + n)]
+    want = host.review_batch(copy.deepcopy(batch))
+    assert host.driver.route_ledger.last()[0] in ("np", "interp")
+    got = card.review_batch(copy.deepcopy(batch))
+    assert calls == [n]
+    entry = _entries(card.driver)[-1]
+    assert (entry["tier"], entry["reason"]) == ("device", "device_resident")
+    assert ("priced" in entry) == (cal is not None)
+    assert [result_bytes(r.results()) for r in got] == \
+        [result_bytes(r.results()) for r in want]
+    if cal is not None:
+        rtt, per = cal["rtt_ms"], 3 / cal["device_cells_per_ms"]
+        assert card.driver.predicted_batch_ms(8) == pytest.approx(
+            rtt + 8 * per)
+        assert host.driver.predicted_batch_ms(1) < rtt
+    card.driver.breaker.trip()
+    try:
+        card.review(_ledger_review(90))
+        assert card.driver.route_ledger.last() == ("np", "breaker_open")
+        assert calls == [n]
+    finally:
+        card.driver.breaker.record_success()
+
+
+def test_price_host_tiers_is_off_on_the_card(monkeypatch):
+    """price_host_tiers is true for a driver on the CPU and false for one
+    on the card (its device and kernel load stood in for here)."""
+    import torch
+
+    from gatekeeper_tpu_torch.ops import driver as drvmod
+
+    assert TorchDriver(device="cpu").price_host_tiers is True
+    monkeypatch.setattr(drvmod, "select_device",
+                        lambda _d: torch.device("cuda"))
+    monkeypatch.setattr(drvmod, "kernels", lambda: None)
+    monkeypatch.setenv("GK_MESH", "0")
+    assert TorchDriver(device="cuda").price_host_tiers is False
 
 
 # ---- the adaptive batcher on the port's driver (tests/test_fleet.py) --------
@@ -952,7 +1145,9 @@ def _equilibrium(driver, lam, max_batch=256):
 
 
 class TestAdaptiveBatcher:
-    CAL = {"rtt_ms": 0.2, "device_cells_per_ms": 20.0}  # 0.05 ms a review
+    # the device 0.05 ms a review, the cheapest tier at every batch size
+    CAL = {"rtt_ms": 0.2, "device_cells_per_ms": 20.0,
+           "interp_cells_per_ms": 1.0}
 
     def _batcher(self, cal=CAL, **kw):
         client = Client(driver=_driver_with(cal))
@@ -1151,8 +1346,12 @@ def test_a_device_failure_is_counted_and_reads_degraded(tmp_path):
                           timeout_s=60), "the App never calibrated"
         predict, _set = app.micro_batcher._service_model()
         assert predict(8) == driver.predicted_batch_ms(8) is not None
+        assert set(driver._route_cal) == {
+            "rtt_ms", "device_cells_per_ms", "np_floor_ms",
+            "np_cells_per_ms", "interp_cells_per_ms"}
+        driver.DEVICE_MIN_CELLS = 0  # the review below tries the device
         oracle = oracle_client()
-        before = route_count("interp", "device_failed")
+        before = route_count("np", "device_failed")
         plane = faults.install(seed=5)
         plane.add(faults.TPU_DISPATCH, FaultRule(mode="error"))
         try:
@@ -1162,7 +1361,7 @@ def test_a_device_failure_is_counted_and_reads_degraded(tmp_path):
             faults.uninstall()
         assert result_bytes(got.results()) == result_bytes(
             oracle.review(AugmentedReview(admission_request=req)).results())
-        assert route_count("interp", "device_failed") == before + 1
+        assert route_count("np", "device_failed") == before + 1
         assert driver.breaker.state == OPEN
         assert _get(app, "/healthz") == (200, b"ok (degraded)")
         assert driver.breaker.probe_now()

@@ -88,10 +88,10 @@ def _build(corpus):
         jax.oracle = jsyn.build_referential_oracle(n, r)
         port.client = syn.build_referential_driver(n, r, device="cpu")
         port.oracle = jsyn.build_referential_oracle(n, r)
-    # TpuDriver's reviews on its device path: no host tier, no prior
-    jax.driver.DEVICE_MIN_CELLS = 0
-    jax.driver.np_serve_enabled = False
+    # both drivers' reviews on their device paths: no host tier, no prior
     for side in (jax, port):
+        side.driver.DEVICE_MIN_CELLS = 0
+        side.driver.np_serve_enabled = False
         side.driver.set_mesh(False)
     return jax, port
 
@@ -273,6 +273,17 @@ def op_review_batch(side, corpus):
     return got
 
 
+def op_np_review(side, corpus):
+    """The review batch of op_review_batch served by the numpy host tier:
+    the device's prior raised past the batch, the numpy tier's to 0."""
+    side.driver.DEVICE_MIN_CELLS = 10**9
+    side.driver.NP_MIN_CELLS = 0
+    side.driver.np_serve_enabled = True
+    got = op_review_batch(side, corpus)
+    assert side.driver.route_ledger.last() == ("np", "uncalibrated_prior")
+    return got
+
+
 def op_mesh(side, corpus):
     side.driver.set_mesh(True, width=MESH_WIDTH)
     got = [_sweep(side)]
@@ -318,12 +329,14 @@ OPS = {
     "full_sweep": op_full_sweep,
     "delta_sweep": op_delta_sweep,
     "review_batch": op_review_batch,
+    "np_review": op_np_review,
     "mesh": op_mesh,
     "degrade": op_degrade,
 }
 CASES = [(op, corpus) for op in OPS
          for corpus in ("synthetic", "referential")
-         if not (op == "review_batch" and corpus == "referential")]
+         if not (op in ("review_batch", "np_review")
+                 and corpus == "referential")]
 
 
 def _prepare(op, jax, port):
@@ -363,6 +376,10 @@ def test_the_ports_telemetry_equals_the_jax_packages(op, corpus):
     if op == "review_batch":
         assert {"tpu.pack", "tpu.dispatch", "render",
                 "render.plan"} <= names
+    if op == "np_review":
+        assert {"np.pack", "np.eval", "render"} <= names
+        assert tele_p["metrics"][("tpu_dispatch_seconds",
+                                  ("review", "numpy"))] == 1
     if op == "mesh":
         assert {"audit.shard_pack", "audit.shard_dispatch"} <= names
         assert tele_p["metrics"][("mesh_sweep_width", (),
