@@ -176,7 +176,18 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      full audit cycle holds the driver (each answer equal to phase 3's
      client's results for its pod, none an error, K1 and K9's review mode
      launched once for each review_batch call with a memo miss, no batch
-     diverted, the breaker closed);
+     diverted, the breaker closed).  The App runs with
+     --jax-profile-port: /memory's allocated bytes at least the App's
+     resident pack (65,273,856 at 500 x 100k); capture (a) over 64
+     fresh one-pod admissions and capture (b) over one forced full audit
+     cycle, each GET /capture on its own thread with its traffic sent
+     once the window is open and done before it closes: each trace's K1
+     count equal to the window's match launches and its K9 count to its
+     three launchers' (64 each in (a); K1, K9 and K4 once in (b)), no
+     launch of the run outside the window, (b)'s K1, K9 and K4 median
+     device times within 0.5-2x of phase 4's CUDA-event medians; each
+     capture's busy share, kernels and five longest gaps logged (the
+     traces gzipped into build/captures/).  Then
      churn of d = 1 and 16 pods written through the store, each cycle on
      the delta path, then a full cycle (K6); every cycle's constraint
      totals equal to phase 3's client's sweep of the same inventory.  The
@@ -278,8 +289,17 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      uncapped audit and every violation it lists one that audit reports,
      every batch served by the card (forced, as App A's).  K1, K9 in its
      sweep and review modes, K4 and K10 must have launched; no batch
-     diverted.
-     The child is stopped on every way out
+     diverted.  App A also runs with --decision-log-dir (sealed) and
+     --snapshot-dir (the store's Config syncs Namespaces too, so the
+     snapshot holds the namespace cache its admissions read), writing
+     its snapshot after its cycles; once it stops,
+     tools/replay_decisions_torch.py replays its log against that
+     snapshot on the card in a child process (exit 0, no drift, every
+     allow and deny record replayed, every replayed batch the device's)
+     while another runs its --selftest on the card (zero drift, the
+     seeded GK_BUG_COMPAT drift flagged, the fresh engine's batches the
+     device's).
+     The children are stopped on every way out
  15. the tiers, on phase 3's client with its admissions priced again:
      calibrate_routing's five numbers (the device's floor and rate, the
      numpy tier's floor and rate, the interpreter's rate) and the share
@@ -3495,9 +3515,9 @@ def mesh_phase(args, client, driver, churn, rclient, rdriver, ref_churn):
 # one, and cycles after each churn of d pods written through the store
 PROCESS_BURST = (8, 32)
 PROCESS_DURING_AUDIT = 64
-PROCESS_WARM = 3
+PROCESS_WARM = 1
 PROCESS_CHURN_D = (1, 16)
-PROCESS_CHURN_CYCLES = 2
+PROCESS_CHURN_CYCLES = 1
 # the longest the App may take from construction to /readyz
 PROCESS_READY_S = 600
 # the kernels phase 10's run must launch: reviews (K1, K9 packing), full
@@ -3927,8 +3947,139 @@ def restart_kernels_load() -> dict:
     return got
 
 
+# ---- the device profiler in the App (--jax-profile-port, phase 10) --------
+
+# capture (a): fresh one-pod admissions over HTTPS inside one window; (b)
+# one forced full audit cycle.  Each window outlasts its traffic under
+# the profiler and a full collection of this process (2.0-2.5 s at this
+# size); a capture whose traffic is not done when its window closes
+# fails the phase
+PROFILE_ADMISSIONS = 64
+PROFILE_ADMISSION_MS = 6000
+PROFILE_CYCLE_MS = 6000
+# K9's launchers (its sweep, review and delta modes), one K9 row
+K9_LAUNCHERS = ("program", "program_pack", "program_delta")
+# a full sweep's kernels, whose App medians (Kineto) must lie within
+# PROFILE_RATIO of this run's CUDA-event medians at the same shapes
+PROFILE_SWEEP = {"K1": "match", "K9": "program", "K4": "reduction"}
+PROFILE_RATIO = (0.5, 2.0)
+# ... where the CUDA-event median is at least this (ms): events around a
+# kernel of a few microseconds (a small corpus's K4) time the launch gap
+PROFILE_MIN_MS = 0.02
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ProfileCapture:
+    """One GET /capture?ms=N on an App's device profiler, in a thread;
+    ``open()`` returns once its window runs, ``close()`` checks the
+    window is still open (the traffic fell inside it) and returns the
+    trace."""
+
+    def __init__(self, port: int, ms: int):
+        import threading
+
+        self.port, self.ms, self.result = port, ms, None
+        self.thread = threading.Thread(target=self._run)
+
+    def _run(self):
+        import urllib.error
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.port}/capture?ms={self.ms}"
+        try:
+            with urllib.request.urlopen(url, timeout=600) as r:
+                self.result = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            self.result = (e.code, json.loads(e.read()))
+
+    def open(self) -> float:
+        """Start the capture -> the seconds until its window opened."""
+        t0 = time.perf_counter()
+        self.thread.start()
+        while not http_json(self.port, "/status")["capturing"]:
+            if not self.thread.is_alive() or \
+                    time.perf_counter() - t0 > 300:
+                self._join()
+                raise AssertionError(f"the capture's window never opened: "
+                                     f"{self.result}")
+            time.sleep(0.005)
+        return time.perf_counter() - t0
+
+    def _join(self):
+        # the request's own timeout bounds the thread
+        self.thread.join(timeout=660)
+        if self.thread.is_alive():
+            raise AssertionError("the capture's request did not return")
+
+    def close(self, label: str) -> dict:
+        if not http_json(self.port, "/status")["capturing"]:
+            raise AssertionError(f"capture {label}: its traffic outlasted "
+                                 f"its {self.ms} ms window")
+        self._join()
+        code, trace = self.result
+        if code != 200:
+            raise AssertionError(f"capture {label}: HTTP {code}: {trace}")
+        import gzip
+
+        out = os.path.join(ROOT, "build", "captures")
+        os.makedirs(out, exist_ok=True)
+        with gzip.open(os.path.join(out, f"capture_{label}.json.gz"),
+                       "wt") as f:
+            json.dump(trace, f)
+        return trace["gk_summary"]
+
+
+def profile_record(summary: dict, wall_s: float) -> dict:
+    """A capture's summary as a log record: its busy shares (of the
+    window and of ``wall_s``, its traffic's wall), its kernels and their
+    medians, its five longest gaps with the spans open over each, and the
+    spans' busy shares."""
+    return {
+        "window_ms": summary["window_ms"], "traffic_s": wall_s,
+        "busy_ms": summary["device_busy_ms"],
+        "busy_share_window": summary["busy_share"],
+        "busy_share_traffic": summary["device_busy_ms"] / 1e3 / wall_s,
+        "kernels": {k: v for k, v in summary["kernels"].items()
+                    if v["count"]},
+        "gaps": summary["gaps"],
+        "spans": {r["name"]: {k: r[k] for k in ("count", "ms",
+                                                "device_busy_ms",
+                                                "busy_share")}
+                  for r in summary["spans"]},
+        "launches": summary["launches"],
+        "profiler_start_ms": summary["profiler_start_ms"],
+        "export_ms": summary["export_ms"],
+        "alignment_error_us": summary["alignment_error_us"],
+        "events": summary["events"], "dropped": summary["events_dropped"],
+    }
+
+
+def check_profiled_launches(label: str, summary: dict, moved: dict,
+                            want: dict) -> None:
+    """Kineto's kernel counts against the launch counters: K1's count
+    equal to the window's match launches, K9's to its three launchers',
+    each K in ``want`` exactly that often, and no launch of the run
+    outside the window (``moved``, the counters around the capture)."""
+    launches = summary["launches"]
+    k9 = sum(launches.get(k, 0) for k in K9_LAUNCHERS)
+    got = {k: v["count"] for k, v in summary["kernels"].items()}
+    if got["K1"] != launches.get("match", 0) or got["K9"] != k9 or \
+            any(got[k] != n for k, n in want.items()) or \
+            {k: v for k, v in moved.items() if v} != launches:
+        raise AssertionError(f"capture {label}: kernels {got} against the "
+                             f"window's launches {launches} and the run's "
+                             f"{moved}, want {want}")
+
+
 def process_phase(args, client, driver, churn, pods, batch, review_sigs,
-                  batch_sigs) -> dict:
+                  batch_sigs, event_ms) -> dict:
     """Phase 10's counted run: gatekeeper_tpu_torch.main.App, the process
     users deploy, on the card over the API store of phase 3's corpus at
     full size -> the launches of its run."""
@@ -3950,6 +4101,9 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
     # counted run)
     during_pods = fresh_pods(PROCESS_DURING_AUDIT, SEED + 93, "during")
     during_sigs = results_of(client, during_pods)
+    # and for the admissions of the profiler's capture (a)
+    prof_pods = fresh_pods(PROFILE_ADMISSIONS, SEED + 91, "profiled")
+    prof_sigs = results_of(client, prof_pods)
     t0 = time.perf_counter()
     kube, constraints, n_pods = process_store(churn, args.templates)
     log("process_store", seconds=time.perf_counter() - t0, pods=n_pods,
@@ -3964,7 +4118,8 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
              "--audit-from-cache", "--audit-interval", "86400",
              "--constraint-violations-limit", str(CAP),
              "--log-level", "WARNING", "--cert-dir", cert_dir,
-             "--snapshot-dir", snap_dir, "--snapshot-interval", "86400"]
+             "--snapshot-dir", snap_dir, "--snapshot-interval", "86400",
+             "--jax-profile-port", str(free_port())]
     ref_launches = dict.fromkeys(gdev.launches, 0)
     gdev.reset_launches()
     t_start = time.perf_counter()
@@ -4171,6 +4326,77 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
             reviews_missed=sum(spy.missed), evaluations=len(evals),
             launches_per_evaluation=want_eval)
 
+        # the device profiler (--jax-profile-port): the card's memory,
+        # then capture (a) over fresh one-pod admissions and capture (b)
+        # over one forced full audit cycle, each trace's kernels held
+        # against the launch counters over its window
+        from gatekeeper_tpu_torch.obs.compilestats import tree_nbytes
+
+        prof_port = app.device_profile_server.port
+        mem = http_json(prof_port, "/memory")
+        # the App's resident audit pack on the card (65,273,856 bytes at
+        # 500 x 100k): the allocator holds at least that
+        resident = int(tree_nbytes(adriver._audit_dev[1]))
+        if mem["allocated_bytes"]["current"] < resident:
+            raise AssertionError(f"/memory below the App's resident pack "
+                                 f"of {resident} bytes: {mem}")
+        log("process_profile_memory", resident_pack_bytes=resident, **mem)
+        before, evals0 = dict(gdev.launches), len(spy.per_eval)
+        cap = ProfileCapture(prof_port, PROFILE_ADMISSION_MS)
+        open_s = cap.open()
+        prof_want, prof_answers, lat_a = {}, {}, []
+        t0 = time.perf_counter()
+        for i, pod in enumerate(prof_pods):
+            uid = f"profiled-{i}"
+            prof_want[uid] = prof_sigs[i]
+            prof_answers[uid], ms = admit(conn, uid, pod)
+            lat_a.append(ms)
+        wall_a = time.perf_counter() - t0
+        summary = cap.close("a")
+        moved = {k: n - before[k] for k, n in gdev.launches.items()}
+        check_answers(prof_answers, spy, prof_want)
+        n_evals = len(spy.per_eval) - evals0
+        if n_evals != PROFILE_ADMISSIONS:
+            raise AssertionError(f"capture (a): {n_evals} evaluations for "
+                                 f"{PROFILE_ADMISSIONS} fresh pods")
+        check_profiled_launches("a", summary, moved,
+                                {"K1": n_evals, "K9": n_evals})
+        log("process_profile_admissions", n=len(lat_a),
+            p50_ms=statistics.median(lat_a), p99_ms=percentile(lat_a, 99),
+            window_open_s=open_s, **profile_record(summary, wall_a))
+        force_full(adriver)
+        before = dict(gdev.launches)
+        cap = ProfileCapture(prof_port, PROFILE_CYCLE_MS)
+        open_s = cap.open()
+        t0 = time.perf_counter()
+        rec = cycle(app, "profiled", cycles, ref_totals, constraints)
+        wall_b = time.perf_counter() - t0
+        summary = cap.close("b")
+        moved = {k: n - before[k] for k, n in gdev.launches.items()}
+        if rec["path"] != "full":
+            raise AssertionError(f"capture (b)'s cycle: {rec}")
+        check_profiled_launches("b", summary, moved,
+                                {"K1": 1, "K9": 1, "K4": 1})
+        ratios = {k: summary["kernels"][k]["median_us"] / 1e3
+                  / event_ms[name] for k, name in PROFILE_SWEEP.items()}
+        if not all(PROFILE_RATIO[0] <= r <= PROFILE_RATIO[1]
+                   for k, r in ratios.items()
+                   if event_ms[PROFILE_SWEEP[k]] >= PROFILE_MIN_MS):
+            raise AssertionError(f"capture (b): Kineto's medians over the "
+                                 f"CUDA events' {event_ms}: {ratios}")
+        # the device stage: audit.dispatch and audit.fetch together
+        spans = {r["name"]: r for r in summary["spans"]}
+        stage = [spans[n] for n in ("audit.dispatch", "audit.fetch")
+                 if n in spans]
+        stage_ms = sum(r["ms"] for r in stage)
+        stage_busy = sum(r["device_busy_ms"] for r in stage)
+        log("process_profile_cycle", cycle=rec, window_open_s=open_s,
+            kineto_over_cuda_events=ratios, cuda_event_ms=event_ms,
+            device_stage={"ms": stage_ms, "busy_ms": stage_busy,
+                          "busy_share": stage_busy / stage_ms
+                          if stage_ms else None},
+            **profile_record(summary, wall_b))
+
         # churn written through the store, each d's cycles on the delta
         # path, each equal to phase 3's client's sweep after the same
         # changes
@@ -4264,7 +4490,7 @@ def process_phase(args, client, driver, churn, pods, batch, review_sigs,
 # pods changed in the store while the App is down
 RESTART_D = 16
 # the mesh restores' depth: a synthetic store of (templates, pods)
-RESTART_MESH = (24, 20_000)
+RESTART_MESH = (24, 10_000)
 RESTART_MESH_D = 16
 
 
@@ -4868,7 +5094,7 @@ FLEET_TRACE_WAIT_S = 20
 # (obs/brownout.py); a level steps down after 5 s clear, so the traced
 # request waits this long at most for every live replica to be below 2
 # (one held at level 3 by its SLO burn stays there for minutes)
-FLEET_BROWNOUT_WAIT_S = 10
+FLEET_BROWNOUT_WAIT_S = 30
 
 # a replica's process under replica_watch: chip_smoke is imported from the
 # directory given first, then runs the replica's module
@@ -5955,7 +6181,7 @@ def serving_phase(client, driver, smi: str) -> dict:
 # pods the child API server stores: a cut of phase 10's ~100,000 (App B's
 # streamed audit renders every flagged cell through review_batch, the
 # Apps ingest every pod over HTTP, and the phase shares the run's 1,200 s)
-WIRE_PODS = 5_000
+WIRE_PODS = 2_500
 # App B's audit page (--audit-chunk-size)
 WIRE_CHUNK = 500
 # the longest the child may take to seed its store and listen
@@ -5968,6 +6194,11 @@ WIRE_KERNELS = ("match", "program", "program_pack", "reduction", "packbits")
 WIRE_SPANS = ("audit.pack", "audit.dispatch", "audit.fetch", "audit.render")
 # span and stat durations agree to the spans' rounding (0.0001 ms)
 WIRE_SPAN_TOL_MS = 0.01
+# the replay of App A's decision log (tools/replay_decisions_torch.py, in
+# child processes on the card): its limit, and the tiers a replayed
+# batch may take on the card (the device; price_host_tiers is off there)
+REPLAY_TOOL = os.path.join("tools", "replay_decisions_torch.py")
+REPLAY_TIMEOUT_S = 600
 
 # the child API server: argv root, templates, pods, seed.  It seeds its
 # store in its own process (the CRDs of deploy/gatekeeper.yaml, each
@@ -6001,11 +6232,14 @@ for ns in sorted({p["metadata"]["namespace"] for p in pods}
                  | {"gatekeeper-system"}):
     kube.create({"apiVersion": "v1", "kind": "Namespace",
                  "metadata": {"name": ns}})
+# Namespaces synced too: App A's snapshot then holds the namespace cache
+# its admissions read, which the replay of its decision log restores
 kube.create({
     "apiVersion": "config.gatekeeper.sh/v1alpha1", "kind": "Config",
     "metadata": {"name": "config", "namespace": "gatekeeper-system"},
     "spec": {"sync": {"syncOnly": [
-        {"group": "", "version": "v1", "kind": "Pod"}]}},
+        {"group": "", "version": "v1", "kind": "Pod"},
+        {"group": "", "version": "v1", "kind": "Namespace"}]}},
 })
 for t in templates:
     kube.create(t)
@@ -6160,6 +6394,88 @@ def wire_start(flags: list, n_templates: int, n_constraints: int,
     return app, conn, {**marks, "calibration_waited_s": cal_s}
 
 
+def decision_counts(log_dir: str) -> dict:
+    """The admission records of a decision log by class."""
+    from gatekeeper_tpu_torch.obs import decisionlog as dlog
+
+    out: dict = {}
+    for path in dlog.segment_paths(log_dir):
+        with open(path) as f:
+            for line in f:
+                rec = json.loads(line) if line.strip() else {}
+                if rec.get("kind") == dlog.KIND_ADMISSION:
+                    out[rec.get("class")] = out.get(rec.get("class"), 0) + 1
+    return out
+
+
+def replay_decisions(log_dir: str, snap_dir: str, n_admitted: int) -> dict:
+    """App A's sealed decision log replayed on the card by the port's
+    replay tool in a child process, against the snapshot App A wrote
+    (exit 0, no drift, every allow and deny record the tool does not
+    skip replayed, every replayed batch served by the device), and the
+    tool's selftest on the card in another (zero drift, the seeded
+    GK_BUG_COMPAT drift flagged), the two together; both stopped on
+    every way out -> the record."""
+    counts = decision_counts(log_dir)
+    decided = counts.get("allow", 0) + counts.get("deny", 0)
+    if decided < n_admitted:
+        raise AssertionError(f"App A's log holds {counts} for "
+                             f"{n_admitted} admissions")
+    env = {k: v for k, v in os.environ.items() if k != "GK_BUG_COMPAT"}
+    runs = {
+        "replay": [REPLAY_TOOL, "--log-dir", log_dir, "--snapshot-dir",
+                   snap_dir, "--require-seal", "--json", "--torch-device",
+                   DEVICE],
+        "selftest": [REPLAY_TOOL, "--selftest", "--torch-device", DEVICE],
+    }
+    procs, out = {}, {"records": counts}
+    t0 = time.perf_counter()
+    try:
+        for name, argv in runs.items():
+            procs[name] = (subprocess.Popen(
+                [sys.executable] + argv, cwd=ROOT, env=env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+                time.perf_counter())
+        for name, (proc, started) in procs.items():
+            stdout, stderr = proc.communicate(timeout=REPLAY_TIMEOUT_S)
+            out[name] = {"rc": proc.returncode,
+                         "s": time.perf_counter() - started,
+                         "stdout": stdout, "stderr": stderr[-2000:]}
+    finally:
+        for proc, _t in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    rep, st = out["replay"], out["selftest"]
+    if rep["rc"] != 0:
+        raise AssertionError(f"the replay exited {rep['rc']}: {rep}")
+    report = json.loads(rep.pop("stdout"))
+    skipped = report["skipped_masked"] + report["skipped_transient"]
+    tiers = {k.split("|")[0] for k in report["routes"]}
+    if report["drift_count"] or report["replayed"] < decided - skipped \
+            or report["replayed"] < n_admitted or tiers != {"device"}:
+        raise AssertionError(f"the replay of App A's log: {report}")
+    rep["report"] = report
+    # the baseline replays through the recording engine (its memo
+    # answers); the compat replay's fresh engine evaluates on the card
+    import ast
+    import re
+
+    base = re.search(r"baseline replay: (\d+) replayed, (\d+) drift",
+                     st["stdout"])
+    compat = re.search(r"GK_BUG_COMPAT replay: (\d+) replayed, (\d+) "
+                       r"drift, routes (\{.*\})", st["stdout"])
+    routes = ast.literal_eval(compat.group(3)) if compat else {}
+    if st["rc"] != 0 or "seeded drift flagged" not in st["stdout"] or \
+            not base or base.group(2) != "0" or not compat or \
+            compat.group(2) == "0" or not routes or \
+            {k.split("|")[0] for k in routes} != {"device"}:
+        raise AssertionError(f"the replay's selftest on the card: {st}")
+    st["lines"] = st.pop("stdout").splitlines()
+    return out
+
+
 def wire_phase(args, pods, process) -> dict:
     """Phase 14: the port's App over the wire against a KubeApiServer in
     a child process, --driver torch on the card.  App A (--audit-from-
@@ -6203,6 +6519,12 @@ def wire_phase(args, pods, process) -> dict:
         exact_totals=sum(1 for _n, h in ref_totals.values()
                          if h == "exact"))
     cert_dir = os.path.join(ROOT, "build", "wire_certs")
+    # App A's decision log and the snapshot of the state that decided,
+    # which the replay restores
+    decision_dir = os.path.join(ROOT, "build", "wire_decisions")
+    snap_dir = os.path.join(ROOT, "build", "wire_snapshots")
+    for d in (decision_dir, snap_dir):
+        shutil.rmtree(d, ignore_errors=True)
     record: dict = {"pods": n, "templates": args.templates}
     gdev.reset_launches()
     t_phase = time.perf_counter()
@@ -6215,12 +6537,20 @@ def wire_phase(args, pods, process) -> dict:
                   "--constraint-violations-limit", str(CAP),
                   "--log-level", "WARNING", "--cert-dir", cert_dir]
 
-        # App A: from the cache, admissions and two full cycles
-        app, conn, ready = wire_start(common + ["--audit-from-cache"],
-                                      args.templates, len(constraints), n)
+        # App A: from the cache, admissions and two full cycles, its
+        # decisions sealed into a log, then a snapshot of the state that
+        # decided them (no template, constraint or pod changed between)
+        app, conn, ready = wire_start(
+            common + ["--audit-from-cache", "--decision-log-dir",
+                      decision_dir, "--decision-log-seal",
+                      "--snapshot-dir", snap_dir,
+                      "--snapshot-interval", "86400"],
+            args.templates, len(constraints), n)
         adriver = app.client.driver
         adriver.DEVICE_MIN_CELLS = 0  # its admissions on the card
         try:
+            # the one snapshot is written after the cycles, below
+            app.snapshotter.stop()
             record["app_a_ready"] = ready
             lat = []
             for i, pod in enumerate(pods):
@@ -6290,11 +6620,16 @@ def wire_phase(args, pods, process) -> dict:
             if app.audit_manager.consecutive_failures:
                 raise AssertionError("an App A audit cycle failed")
             check_no_divert("the wire, App A", adriver)
+            if app.snapshotter.write_once() is None:
+                raise AssertionError(f"App A wrote no snapshot: "
+                                     f"{app.snapshotter.last_error}")
         finally:
             app.stop()
         del app, adriver
         if not gc.isenabled():
             raise AssertionError("the collector is off after App.stop()")
+        record["replay"] = replay_decisions(decision_dir, snap_dir,
+                                            len(pods))
 
         # App B: the streamed audit, paged over the wire
         app, conn, ready = wire_start(
@@ -7136,9 +7471,14 @@ def main(argv=None) -> int:
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
+        from gatekeeper_tpu_torch.obs import devprof
+
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the process's one profiler session (an App's device profiler
+        # answers 409 meanwhile)
+        with devprof.exclusive(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             client.audit_capped(CAP)
             torch.cuda.synchronize()
@@ -7401,7 +7741,8 @@ def main(argv=None) -> int:
     # 10. the process: gatekeeper_tpu_torch.main.App on the card
     t0 = time.perf_counter()
     process_launches, process = process_phase(
-        args, client, driver, churn, pods, batch, review_sigs, batch_sigs)
+        args, client, driver, churn, pods, batch, review_sigs, batch_sigs,
+        {name: kernel_rows[name]["ms"] for name in PATH1_KERNELS})
     log("process", seconds=time.perf_counter() - t0)
 
     # 11. the restart: snapshots, warm resume and the kernels' cache

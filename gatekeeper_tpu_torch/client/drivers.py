@@ -321,6 +321,13 @@ class InventoryStore:
             obj = self.tree["cluster"]["v1"]["Namespace"][name]
         except (KeyError, TypeError):
             return None
+        if isinstance(obj, dict):
+            # a leaf a snapshot restore adopted unfrozen (adopt_tree's
+            # leaves_frozen=False) is plain JSON already, which thaw
+            # refuses
+            import copy
+
+            return copy.deepcopy(obj)
         return thaw(obj)
 
     def iter_objects(self):

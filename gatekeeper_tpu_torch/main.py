@@ -76,13 +76,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--disable-cert-rotation", action="store_true")
     p.add_argument("--enable-pprof", action="store_true")
     p.add_argument("--pprof-port", type=int, default=6060)
-    # flags of the JAX package whose machinery the port does not have
-    # yet: kept so a deployment's flag set still parses, refused at
-    # construction when given (refuse_unported_flags)
+    # device-side profiling: a torch.profiler listener (CUDA kernel
+    # timelines beside the port's spans, the card's memory) captured on
+    # demand (obs/devprof.py); the flag keeps the JAX package's name, so
+    # one manifest's flags start either App
     p.add_argument("--jax-profile-port", type=int, default=0,
-                   help="not supported by the port: any value but 0 is "
-                        "refused (ROADMAP A8; PyTorch has no counterpart "
-                        "of jax.profiler.start_server)")
+                   help="serve the device profiler on this port (0 = "
+                        "disabled): GET /capture?ms=N runs torch.profiler "
+                        "for N ms and answers a Chrome trace of the CUDA "
+                        "kernels and the port's spans, /memory the card's "
+                        "memory")
     p.add_argument("--xla-cache-dir", default="",
                    help="the kernels' build cache: the CUDA libraries are "
                         "built into and loaded from DIR/torch_kernels, "
@@ -312,25 +315,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: flags whose machinery the port does not have yet: (flag, whether the
-#: parsed arguments give it, the ROADMAP item that brings it)
-UNPORTED_FLAGS = (
-    ("--jax-profile-port", lambda a: bool(getattr(a, "jax_profile_port", 0)),
-     "A8 (a device profiler hook)"),
-)
-
-
-def refuse_unported_flags(args):
-    """Raise for a flag whose machinery the port does not have yet: a
-    process must never start while silently ignoring one."""
-    for flag, given, item in UNPORTED_FLAGS:
-        if given(args):
-            raise ValueError(
-                f"{flag} is not supported by gatekeeper_tpu_torch yet: "
-                f"ROADMAP {item}"
-            )
-
-
 def make_kube(spec: str = "auto"):
     """Resolve the --api-server flag to a kube client."""
     from .kube.http_client import HttpKube
@@ -502,7 +486,6 @@ class App:
         if args is None or isinstance(args, list):
             args = build_parser().parse_args(args or [])
         self.args = args
-        refuse_unported_flags(args)
         gklog.setup(
             args.log_level,
             level_key=getattr(args, "log_level_key", "level"),
@@ -623,6 +606,7 @@ class App:
         self.metrics_addr_exporter: Optional[MetricsExporter] = None
         self.micro_batcher: Optional[MicroBatcher] = None
         self.profile_server: Optional[ProfileServer] = None
+        self.device_profile_server = None
         self.snapshotter = None
         self.snapshot_restore_outcome = "none"
         self._stopping = False
@@ -876,6 +860,13 @@ class App:
         if args.enable_pprof:
             self.profile_server = ProfileServer(args.pprof_port)
             self.profile_server.start()
+        if args.jax_profile_port:
+            from .obs.devprof import DeviceProfileServer
+
+            self.device_profile_server = DeviceProfileServer(
+                args.jax_profile_port,
+                getattr(self.client.driver, "device", "cpu"))
+            self.device_profile_server.start()
         # brownout ladder (obs/brownout.py, docs/failure-modes.md): the
         # sustained-overload controller samples queue depth (the micro-
         # batcher), the shed rate (fed by every shed site through
@@ -1012,6 +1003,11 @@ class App:
         ):
             if component is not None:
                 component.stop()
+        if self.device_profile_server is not None:
+            # frees its port: a second App.start() in this process binds
+            # it anew
+            self.device_profile_server.stop()
+            self.device_profile_server = None
         # unconditional: the sampler may have been enabled at RUNTIME
         # (the replica 'profiler' pipe command) on a process started
         # with --profiler-hz 0; stop() is idempotent and bounded

@@ -15,9 +15,9 @@ through its delta path); the /metrics family names.  The tolerance is
 zero: every verdict and status is exact.
 
 Also the entry's own contract: the port's App refuses to run on the CPU
-unless asked, refuses each flag whose machinery it lacks, loads the
-kernels when its driver is built on the card, and does not start when
-they fail to load."""
+unless asked, takes every flag of the JAX App (``--jax-profile-port``
+starts the device profiler), loads the kernels when its driver is built
+on the card, and does not start when they fail to load."""
 
 import copy
 import http.client
@@ -35,7 +35,7 @@ from gatekeeper_tpu.main import App as JaxApp
 from gatekeeper_tpu.main import build_parser as jax_parser
 from gatekeeper_tpu_torch.kube.inmem import InMemoryKube as TorchKube
 from gatekeeper_tpu_torch.main import App as TorchApp
-from gatekeeper_tpu_torch.main import UNPORTED_FLAGS
+from gatekeeper_tpu_torch import main as torch_main
 from gatekeeper_tpu_torch.main import build_parser as torch_parser
 from gatekeeper_tpu_torch.util import synthetic as syn
 
@@ -395,9 +395,19 @@ def test_the_driver_is_torch_on_the_card_by_default():
     (["--jax-profile-port", "9999"], "A8"),
 ])
 def test_flags_the_port_lacks_are_refused(flags, item):
-    with pytest.raises(ValueError, match=f"{flags[0]} .*ROADMAP {item}"):
-        TorchApp(_args("--torch-device", "cpu", *flags), kube=TorchKube())
-    assert flags[0] in {f for f, _g, _i in UNPORTED_FLAGS}
+    """The port lacks no flag of the JAX App any more (ROADMAP ``item``
+    ported the last): every flag the JAX parser knows parses, the refusal
+    machinery is gone, and the flag that was refused constructs an App
+    whose start would serve the device profiler on its port."""
+    jax_flags = {s for a in jax_parser()._actions for s in a.option_strings}
+    torch_flags = {s for a in torch_parser()._actions
+                   for s in a.option_strings}
+    assert jax_flags <= torch_flags, sorted(jax_flags - torch_flags)
+    assert not hasattr(torch_main, "UNPORTED_FLAGS")
+    assert not hasattr(torch_main, "refuse_unported_flags")
+    app = TorchApp(_args("--torch-device", "cpu", *flags), kube=TorchKube())
+    assert app.args.jax_profile_port == int(flags[1]), item
+    assert app.device_profile_server is None  # nothing listens before start
 
 
 @pytest.mark.parametrize("flag", ["--xla-cache-dir", "--snapshot-dir"])
@@ -415,7 +425,6 @@ def test_the_cache_and_snapshot_flags_are_accepted(tmp_path, monkeypatch,
         assert device.BUILD_DIR == str(tmp_path / "torch_kernels")
     else:
         assert app.args.snapshot_dir == str(tmp_path)
-    assert flag not in {f for f, _g, _i in UNPORTED_FLAGS}
 
 
 @pytest.mark.parametrize("env", ["GK_XLA_CACHE", "GK_SNAPSHOT_DIR"])

@@ -2,8 +2,8 @@
 package's after the package name is replaced and the JAX package's
 provenance tags (issue, PR and review numbers in comments and docstrings,
 SCRUB) are dropped, except the functions named in CHANGED, which the
-port changed on purpose (the driver wiring, the parser, the refused
-flags and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
+port changed on purpose (the driver wiring, the parser, the device
+profiler and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
 fingerprint over the kernels' sources, where the snapshot writer and
 loader move the resident mask between the host and the device, the
 fleet replica's driver flags, and the numpy evaluation the np side
@@ -63,14 +63,13 @@ COPIED = (
 CHANGED = {
     "main.py": {
         # the parser: prog, --driver interp|torch (default torch),
-        # --torch-device, and the refused flags' defaults and help
+        # --torch-device, and --jax-profile-port's help (torch.profiler)
         "build_parser",
-        # the flags whose machinery the port lacks, refused at construction
-        "UNPORTED_FLAGS", "refuse_unported_flags",
-        # the refusal and TorchDriver in place of TpuDriver
+        # TorchDriver in place of TpuDriver
         "App.__init__",
-        # the kernels loaded (wait_ready) before anything serves; the jax
-        # profiler server left out
+        # the kernels loaded (wait_ready) before anything serves; the
+        # device profiler (obs/devprof.py) in place of jax.profiler's
+        # server, started and stopped where the JAX App does
         "App.start", "App.stop",
         # waits for /readyz before it calibrates (TorchDriver measures the
         # render of the cache's objects), and skips the calibration, as the
@@ -119,6 +118,21 @@ CHANGED = {
         # under a temporary name and renamed into place)
         "main",
     },
+}
+
+# the operator tools the port copied: port tool -> (its JAX twin, the
+# names the port changed; "__doc__" for the module docstring)
+TOOLS = {
+    "tools/replay_decisions_torch.py": ("tools/replay_decisions.py", {
+        # the tool's own name in its usage, the engine and its device
+        "__doc__",
+        # the report counts the live router's tier of each replayed batch
+        "replay_records",
+        # TorchDriver on --torch-device (default cuda) in place of
+        # TpuDriver, and an engine that fails to build exits 2
+        "build_handler_from_snapshot", "_selftest_handler", "run_selftest",
+        "_selftest_body", "main",
+    }),
 }
 
 # file -> ((JAX text, port text), ...): changes of whole statements.  The
@@ -271,3 +285,32 @@ def test_a_changed_function_is_really_changed():
         got = _pieces((PORT_PKG / rel).read_text())
         for name in names:
             assert got[name] != want.get(name), f"{rel}: {name} unchanged"
+
+
+def _without_docstring(text: str) -> tuple:
+    """(the module docstring, the pieces of everything else)."""
+    tree = ast.parse(text)
+    pieces = _pieces(text)
+    doc = ast.get_docstring(tree)
+    if doc is not None:
+        pieces.pop(f"<{ast.get_source_segment(text, tree.body[0], padded=True)}>")
+    return doc, pieces
+
+
+@pytest.mark.parametrize("rel", sorted(TOOLS))
+def test_a_copied_tool_equals_the_jax_tool_but_for_its_named_changes(rel):
+    jax_rel, changed = TOOLS[rel]
+    port_text = (ROOT / rel).read_text()
+    assert not TAGS.search(port_text), f"{rel} keeps a provenance tag"
+    want_doc, want = _without_docstring(_renamed((ROOT / jax_rel)
+                                                 .read_text()))
+    got_doc, got = _without_docstring(port_text)
+    assert (got_doc != want_doc) == ("__doc__" in changed), rel
+    for name in sorted(set(want) | set(got)):
+        assert name in want or name in changed, \
+            f"{rel}: {name!r} added but not named"
+        assert name in got, f"{rel}: {name!r} removed"
+        if name in changed:
+            assert got[name] != want.get(name), f"{rel}: {name} unchanged"
+        else:
+            assert got[name] == want[name], f"{rel}: {name!r} differs"

@@ -10,7 +10,7 @@ all ten libraries and a second loading them with no compiler run (ten
 cache hits), also after an edit to the Python code; a library whose
 bytes or seal fail being rebuilt, never handed to ``CDLL``; a library
 swapped in the directory after its check never loaded; a failed build
-raising; and the flags that stay refused naming their ROADMAP items."""
+raising; and no flag of the JAX App refused any more."""
 
 import ctypes
 import os
@@ -21,7 +21,8 @@ import pytest
 
 from gatekeeper_tpu_torch import device
 from gatekeeper_tpu_torch.kube.inmem import InMemoryKube
-from gatekeeper_tpu_torch.main import UNPORTED_FLAGS, App, build_parser
+from gatekeeper_tpu_torch import main as gmain
+from gatekeeper_tpu_torch.main import App, build_parser
 from gatekeeper_tpu_torch.metrics.views import global_registry
 from gatekeeper_tpu_torch.obs import compilestats
 from gatekeeper_tpu_torch.util import seal as sealmod
@@ -277,10 +278,13 @@ def test_a_failed_build_raises_and_loads_nothing(cache):
 
 
 def test_the_flags_that_stay_refused_name_their_roadmap_items():
-    assert {flag: item for flag, _given, item in UNPORTED_FLAGS} == {
-        "--jax-profile-port": "A8 (a device profiler hook)",
-    }
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        App(build_parser().parse_args(
-            ["--torch-device", "cpu", "--log-level", "WARNING",
-             "--jax-profile-port", "1"]), kube=InMemoryKube())
+    """None stays refused: the last (``--jax-profile-port``, ROADMAP A8)
+    now constructs an App, and ``--xla-cache-dir`` beside it still
+    points the kernels' cache where it did."""
+    assert not hasattr(gmain, "UNPORTED_FLAGS")
+    app = App(build_parser().parse_args(
+        ["--torch-device", "cpu", "--log-level", "WARNING",
+         "--jax-profile-port", "1"]), kube=InMemoryKube())
+    assert app.args.jax_profile_port == 1
+    assert "torch.profiler" in build_parser().format_help().replace(
+        "\n", " ")
