@@ -2,11 +2,17 @@
 # native-test, docker-build, deploy).
 
 IMG ?= gatekeeper-tpu:latest
+IMG_TORCH ?= gatekeeper-tpu-torch:latest
+, := ,
 NAMESPACE ?= gatekeeper-system
 
 .PHONY: manifests
 manifests:  ## regenerate charts/gatekeeper-tpu from deploy/gatekeeper.yaml
 	python tools/helmify.py
+
+.PHONY: manifests-torch
+manifests-torch:  ## regenerate charts/gatekeeper-tpu-torch from deploy/gatekeeper-torch.yaml
+	python tools/helmify_torch.py
 
 .PHONY: test
 test:
@@ -19,6 +25,13 @@ bench:
 .PHONY: docker-build
 docker-build:
 	docker build -t $(IMG) .
+
+# the port's image (Dockerfile.torch, BuildKit); SEAL_KEY_FILE=path seals
+# the baked kernels under the key the pods set as GK_SEAL_KEY
+.PHONY: docker-build-torch
+docker-build-torch:
+	DOCKER_BUILDKIT=1 docker build -f Dockerfile.torch -t $(IMG_TORCH) \
+	  $(if $(SEAL_KEY_FILE),--secret id=gk_seal_key$(,)src=$(SEAL_KEY_FILE)) .
 
 .PHONY: deploy
 deploy:

@@ -217,7 +217,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      whose seal was broken is rebuilt, not loaded
  12. the fleet (fleet/, obs/fleetobs.py): three webhook replicas (python
      -m gatekeeper_tpu_torch.fleet.replica, --driver torch on the card,
-     spawned together by spawn_fleet) restore phase 10's snapshot
+     --brownout-disable, spawned together by spawn_fleet) restore phase
+     10's snapshot
      (--snapshot-no-resync) and load phase 11's sealed kernels (ten hits,
      no miss, in each replica's /metrics).  Each replica runs under
      replica_watch, which counts in its process every review_batch with
@@ -243,7 +244,7 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      it must come back restored and on the card, answer the 256 pods
      byte for byte, no other replica respawned; drain replies drained.
      One request of a pod no replica has seen, with a traceparent,
-     through a door: /debug/fleet-traces
+     through a door (every replica at brownout level 0): /debug/fleet-traces
      joins the door's wire stages with the replica's pack and dispatch,
      the first miss failing.  The live replicas' launches checked again;
      the kernels line counts the replicas' own.  Every replica stopped,
@@ -319,9 +320,28 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      batch served by np, and with the numpy tier off by interp, each
      equal to the card's answers
 
+ 16. the operator's drills, over kernels built as Dockerfile.torch builds
+     them: KERNEL_BAKE (device.use_cache_dir, device.build_kernels(force=
+     True)) in a child process into a fresh directory, without
+     GK_SEAL_KEY: ten sealed libraries, the directory 0700, no library
+     needing libcudart (readelf: nvcc linked it statically).  Then the
+     port's drills on the card, each in a child process with no directory
+     holding nvcc on PATH, no CUDA_HOME, and the baked directory as every
+     process's kernel cache (nvcc refused in each): fleet parity (both
+     edges), self-heal, mesh parity and join parity at once, then
+     overload (both edges) alone.  Each must exit 0; every process of a
+     drill (under drill_watch, its replicas under replica_drill_watch)
+     must have loaded the ten libraries sealed from the baked directory
+     (ten hits, no miss, no build), every replica on cuda:0; the replica
+     drills' review batches must have launched K1 and K9 (packing), the
+     mesh drill K1, K9 and K4 (GK_VIRTUAL_DEVICES=4 slots of the one
+     card, or four cards), the join drill K7 and K8.  Each drill's
+     seconds and launches are logged, with the card's name and power
+     limit
+
 The line before the last holds the card's name and power limit as
 nvidia-smi gives them, and the line before that the kernels' JSON
-(launches summed over phases 3 and 6-15); the last line is {"ok": true,
+(launches summed over phases 3 and 6-16); the last line is {"ok": true,
 "device": {...}}.  Without a CUDA card, or run from a directory that
 lacks the package, it prints no result and exits 1.
 """
@@ -5090,11 +5110,13 @@ FLEET_CONTEXT_MIB = 480
 # and the seconds its replica half may take to join the door's trace
 FLEET_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 FLEET_TRACE_WAIT_S = 20
-# a replica at brownout level 2 or more keeps 5% of its traces
-# (obs/brownout.py); a level steps down after 5 s clear, so the traced
-# request waits this long at most for every live replica to be below 2
-# (one held at level 3 by its SLO burn stays there for minutes)
-FLEET_BROWNOUT_WAIT_S = 30
+# every replica's flags, the respawn's too.  The brownout ladder is off:
+# at level 2 or more a replica keeps 5% of its traces, and one reactor
+# stall over 50 ms in a young replica's few hundred heartbeats fires the
+# edge objective's slow alert (99.9%), which holds level 3 for minutes;
+# two replicas of one run were held so, and the traced request had no
+# replica left that would keep it
+FLEET_FLAGS = ("--brownout-disable",)
 
 # a replica's process under replica_watch: chip_smoke is imported from the
 # directory given first, then runs the replica's module
@@ -5235,11 +5257,12 @@ def replica_watch():
 class WatchedSpawns:
     """While active, every replica the fleet's spawn helpers start runs
     its module (``-m gatekeeper_tpu_torch.fleet.replica``, the same
-    arguments) under replica_watch: the helpers' subprocess module is
-    swapped for one whose Popen rewrites the command and stamps the start
-    (``started``: pid -> wall time)."""
+    arguments) under ``entry`` (replica_watch's by default): the helpers'
+    subprocess module is swapped for one whose Popen rewrites the command
+    and stamps the start (``started``: pid -> wall time)."""
 
-    def __init__(self):
+    def __init__(self, entry: str = REPLICA_ENTRY):
+        self.entry = entry
         self.started = {}
 
     def __enter__(self):
@@ -5249,7 +5272,7 @@ class WatchedSpawns:
             i = cmd.index("-m")
             if cmd[i + 1] != REPLICA_MODULE:
                 raise AssertionError(f"not a replica's command: {cmd}")
-            cmd = cmd[:i] + ["-c", REPLICA_ENTRY, ROOT] + cmd[i + 2:]
+            cmd = cmd[:i] + ["-c", self.entry, ROOT] + cmd[i + 2:]
             t = time.time()
             proc = subprocess.Popen(cmd, **kw)
             self.started[proc.pid] = t
@@ -5587,22 +5610,6 @@ def _joined(door_port: int, trace_id: str, wait_s: float):
     return None, payload
 
 
-def replica_status(port: int) -> dict:
-    """A replica's /statusz: its brownout level and signals, and each
-    SLO objective's burn rates and firing alerts."""
-    import urllib.request
-
-    with urllib.request.urlopen(f"http://127.0.0.1:{port}/statusz",
-                                timeout=60) as r:
-        st = json.loads(r.read())
-    slo = st.get("slo") or {}
-    return {"brownout": st.get("brownout"),
-            "slo": {name: {k: o.get(k) for k in ("burn_rates", "alerts",
-                                                 "events_6h")}
-                    for name, o in (slo.get("objectives") or {}).items()}
-            if isinstance(slo.get("objectives"), dict) else slo}
-
-
 def fleet_trace(door_port: int, collector_targets, live, body: bytes,
                 smi: str) -> dict:
     """One admission through the door with a caller's traceparent, then
@@ -5612,40 +5619,19 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
     another replica shows as a second proxy_connect), the replicas the
     collector could not fetch, whether the replica's tracer kept the
     trace (its watch), the replicas' brownout levels and this process's
-    collector pauses in the wait.  A replica at brownout level 2 or more
-    keeps 5% of its traces: the request waits up to FLEET_BROWNOUT_WAIT_S
-    for every live replica to be below 2, then goes through a door over
-    the live replicas below it (one whose SLO burn holds it at level 3
-    for minutes after the stream takes no part); none below it fails the
-    phase."""
-    from gatekeeper_tpu_torch.fleet import FrontDoor
+    collector pauses in the wait.  Every live replica must report
+    brownout level 0 (FLEET_FLAGS: its ladder is off, so its tracer keeps
+    every trace)."""
     from gatekeeper_tpu_torch.fleet.frontdoor import WIRE_STAGES
     from gatekeeper_tpu_torch.obs import trace as obstrace
     from gatekeeper_tpu_torch.obs.fleetobs import TraceCollector
 
     collector = TraceCollector(collector_targets, timeout_s=10.0).install()
-    t0 = time.perf_counter()
-    while True:
-        levels = {h.replica_id: h.command({"cmd": "ping"}, timeout_s=60)
-                  .get("brownout_level") for h in live}
-        if max(levels.values()) < 2 or \
-                time.perf_counter() - t0 > FLEET_BROWNOUT_WAIT_S:
-            break
-        time.sleep(0.5)
-    brownout_wait_s = time.perf_counter() - t0
-    keep = [h for h in live if levels[h.replica_id] < 2]
-    # what holds a browned-out replica there: its /statusz (the ladder's
-    # signals, the SLO objectives' burn rates and firing alerts)
-    held = {h.replica_id: replica_status(h.port) for h in live
-            if levels[h.replica_id] >= 2}
-    if not keep:
-        raise AssertionError(f"the replicas stay browned out: {levels}, "
-                             f"{held}")
-    own = None
-    if len(keep) < len(live):
-        own = FrontDoor([h.backend() for h in keep],
-                        probe_interval_s=3600.0).start()
-        door_port = own.port
+    levels = {h.replica_id: h.command({"cmd": "ping"}, timeout_s=60)
+              .get("brownout_level") for h in live}
+    if any(levels.values()):
+        raise AssertionError(f"a replica browned out with its ladder "
+                             f"off: {levels}")
     pauses = GcPauses()
     gc.callbacks.append(pauses)
     try:
@@ -5660,8 +5646,6 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
         wait_s = time.perf_counter() - t0
     finally:
         gc.callbacks.remove(pauses)
-        if own is not None:
-            own.stop()
     kept = {h.replica_id: watch_replica(h)["traced"] for h in live}
     if entry is None:
         wire = [t for t in collector.tracer.traces()
@@ -5671,7 +5655,7 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
             f"{rid}) never joined the door's: door spans "
             f"{[(s['name'], s.get('attrs')) for t in wire for s in t['spans']]}"
             f", failed fetches {payload.get('failed_replicas')}, the "
-            f"replicas' tracers {kept}, brownout levels before {levels}, "
+            f"replicas' tracers {kept}, brownout levels {levels}, "
             f"this process's collector pauses {pauses.take()}")
 
     def stages(process):
@@ -5690,9 +5674,7 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
                              f"replica's tracer {kept[rid]}")
     out = {"replica": rid, "door_stages": sorted(door),
            "replica_stages": sorted(replica), "joined_s": wait_s,
-           "brownout_levels": levels, "brownout_wait_s": brownout_wait_s,
-           "door_replicas": [h.replica_id for h in keep],
-           "browned_out": held,
+           "brownout_levels": levels,
            "gc": pauses.take(),
            "dispatch_ms": dispatch[0]["duration_ms"],
            "dispatch_rows": dispatch[0]["attrs"].get("rows"), "card": smi}
@@ -5756,6 +5738,7 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             t0 = time.perf_counter()
             handles = spawn_fleet(FLEET_REPLICAS, snapshot_dir=snap_dir,
                                   cache_dir=cache_dir,
+                                  extra_flags=FLEET_FLAGS,
                                   timeout_s=FLEET_SPAWN_S, sequential=False)
             spawn_wall = time.perf_counter() - t0
             pids = [h.proc.pid for h in handles]
@@ -5847,6 +5830,7 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             # self-heal: SIGKILL one replica under the supervisor
             sup = ReplicaSupervisor(snapshot_dir=snap_dir,
                                     cache_dir=cache_dir,
+                                    extra_flags=FLEET_FLAGS,
                                     spawn_timeout_s=FLEET_SPAWN_S,
                                     probe_timeout_s=2.0, miss_threshold=3)
             for h in handles:
@@ -7240,6 +7224,342 @@ def ref_device_split(client, driver, churn: RefChurn) -> dict:
     return {"rounds": SPLIT_ROUNDS, "device_ms": _medians(rec), "runs": rec}
 
 
+# ---------------------------------------------------------------------------
+# 16. the operator's drills on the card, over kernels baked as the image
+# bakes them
+# ---------------------------------------------------------------------------
+
+# the kernels' build as Dockerfile.torch runs it (tests/test_torch_deploy.py
+# holds the two equal): argv[1] is the directory the sealed libraries go
+# into, <--xla-cache-dir>/torch_kernels
+KERNEL_BAKE = ("import sys; from gatekeeper_tpu_torch import device; "
+               "device.use_cache_dir(sys.argv[1]); "
+               "device.build_kernels(force=True)")
+BAKE_TIMEOUT_S = 600
+# each drill: (name, tool, its flags, the replicas' cache flag, the wave it
+# runs in).  A wave's drills run at once; the overload drill's burst runs
+# in a wave of its own, its timing bounds unshared
+DRILLS = (
+    ("fleet_parity", "check_fleet_parity_torch.py", ["--edge", "both"], 0),
+    ("self_heal", "check_self_heal_torch.py", [], 0),
+    ("mesh_parity", "check_mesh_parity_torch.py", [], 0),
+    ("join_parity", "check_join_parity_torch.py", [], 0),
+    ("overload", "check_overload_torch.py", ["--edge", "both"], 1),
+)
+REPLICA_DRILLS = ("fleet_parity", "self_heal", "overload")
+DRILL_TIMEOUT_S = 400
+# where a drill's process and its replicas write what they launched
+DRILL_OUT_ENV = "GK_SMOKE_DRILL_OUT"
+# the baked kernels' directory (the image's /var/cache/gatekeeper)
+DRILL_CACHE_ENV = "GK_SMOKE_DRILL_CACHE"
+DRILL_ENTRY = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+               "import chip_smoke; chip_smoke.drill_watch()")
+REPLICA_DRILL_ENTRY = ("import sys; sys.path.insert(0, sys.argv.pop(1)); "
+                       "import chip_smoke; chip_smoke.replica_drill_watch()")
+
+
+def _no_nvcc():
+    raise RuntimeError("nvcc is not in this runtime (a drill's process "
+                       "loads the baked kernels only)")
+
+
+def _drill_record(role: str, extra: dict) -> None:
+    """Write this process's record (its launches, its kernels' cache) to
+    DRILL_OUT_ENV's directory, atomically."""
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.metrics.views import global_registry
+
+    rows = global_registry().view_rows("cache_requests_total")
+    rec = {"pid": os.getpid(), "role": role,
+           "launches": {k: v for k, v in gdev.launches.items() if v},
+           "cache_log": dict(gdev.cache_log),
+           "hits": rows.get(("kernels", "hit"), 0),
+           "misses": rows.get(("kernels", "miss"), 0),
+           "build_dir": gdev.BUILD_DIR, **extra}
+    path = os.path.join(os.environ[DRILL_OUT_ENV],
+                        f"{role}-{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(rec, f)
+    os.replace(path + ".tmp", path)
+
+
+def drill_watch():
+    """A drill's process under phase 16 (DRILL_ENTRY; argv: the tool,
+    then its flags): the kernels load from the baked directory with nvcc
+    refused, every replica the tool spawns runs under
+    replica_drill_watch, and at exit the process writes its record (its
+    own launches and the replicas it spawned); then the tool runs as
+    ``python tool`` runs it."""
+    import atexit
+    import runpy
+
+    from gatekeeper_tpu_torch import device as gdev
+
+    gdev.use_cache_dir(os.path.join(os.environ[DRILL_CACHE_ENV],
+                                    "torch_kernels"))
+    gdev._nvcc = _no_nvcc
+    spawns = WatchedSpawns(REPLICA_DRILL_ENTRY).__enter__()
+    atexit.register(lambda: _drill_record(
+        "drill", {"spawned": list(spawns.started)}))
+    tool = sys.argv.pop(1)
+    sys.argv[0] = tool
+    runpy.run_path(tool, run_name="__main__")
+
+
+def replica_drill_watch():
+    """A drill's replica under phase 16 (REPLICA_DRILL_ENTRY), which then
+    runs the replica's module: nvcc refused (the runtime image has none;
+    its --xla-cache-dir is the baked directory), every
+    TorchDriver.review_batch counted with the launches it made, and the
+    process's record written once its kernels are loaded and after each
+    batch and calibration (a replica the drill SIGKILLs keeps what it
+    wrote)."""
+    import runpy
+    import threading
+
+    from gatekeeper_tpu_torch import device as gdev
+    from gatekeeper_tpu_torch.ops.driver import TorchDriver
+
+    gdev._nvcc = _no_nvcc
+    lock = threading.Lock()
+    state = {"batches": 0, "batch_launches": {}, "devices": []}
+
+    def write():
+        _drill_record("replica", state)
+
+    build = gdev._build
+
+    def built(*a, **kw):
+        out = build(*a, **kw)
+        write()
+        return out
+
+    gdev._build = built
+    review_batch = TorchDriver.review_batch
+    calibrate = TorchDriver.calibrate_routing
+
+    def counted(self, reviews, tracing=False):
+        with lock:
+            before = dict(gdev.launches)
+            try:
+                return review_batch(self, reviews, tracing=tracing)
+            finally:
+                state["batches"] += 1
+                for k, v in gdev.launches.items():
+                    if v != before[k]:
+                        state["batch_launches"][k] = \
+                            state["batch_launches"].get(k, 0) + v - before[k]
+                if str(self.device) not in state["devices"]:
+                    state["devices"].append(str(self.device))
+                write()
+
+    def calibrated(self, *a, **kw):
+        with lock:
+            try:
+                return calibrate(self, *a, **kw)
+            finally:
+                write()
+
+    TorchDriver.review_batch = counted
+    TorchDriver.calibrate_routing = calibrated
+    runpy.run_module(REPLICA_MODULE, run_name="__main__", alter_sys=True)
+
+
+def bake_kernels(cache_root: str) -> dict:
+    """KERNEL_BAKE in a child process into ``cache_root``/torch_kernels, as
+    Dockerfile.torch runs it (no GK_SEAL_KEY) -> its record: the seconds,
+    the ten sealed libraries, the directory's mode, and each library's
+    dynamic dependencies (no libcudart: nvcc linked it statically)."""
+    import stat
+
+    from gatekeeper_tpu_torch import device as gdev
+
+    shutil.rmtree(cache_root, ignore_errors=True)
+    lib_dir = os.path.join(cache_root, "torch_kernels")
+    env = dict(os.environ)
+    env.pop("GK_SEAL_KEY", None)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", KERNEL_BAKE, lib_dir],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=BAKE_TIMEOUT_S)
+    bake_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the bake failed: {out.stderr[-2000:]}")
+    libs = sorted(f for f in os.listdir(lib_dir) if f.endswith(".so"))
+    names = sorted(f.split("-")[0][3:] for f in libs)
+    seals = [f for f in os.listdir(lib_dir) if f.endswith(gdev.SEAL_SUFFIX)]
+    if names != sorted(gdev.KERNEL_NAMES) or len(seals) != len(libs):
+        raise AssertionError(f"the bake left {libs} and {seals}")
+    mode = stat.S_IMODE(os.stat(lib_dir).st_mode)
+    if mode != 0o700:
+        raise AssertionError(f"the baked directory's mode is {oct(mode)}")
+    needed = {}
+    for f in libs:
+        dyn = subprocess.run(["readelf", "-d", os.path.join(lib_dir, f)],
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout
+        needed[f.split("-")[0][3:]] = sorted(
+            ln.rsplit("[", 1)[1].rstrip("]") for ln in dyn.splitlines()
+            if "(NEEDED)" in ln)
+    if any("cudart" in d for deps in needed.values() for d in deps):
+        raise AssertionError(f"a baked library needs the CUDA runtime's "
+                             f"shared library: {needed}")
+    return {"seconds": bake_s, "libraries": len(libs), "mode": oct(mode),
+            "needed": sorted({d for deps in needed.values() for d in deps})}
+
+
+def runtime_env(cache_root: str, out_dir: str) -> dict:
+    """The drills' environment as the runtime image has it: no directory
+    holding nvcc on PATH, no CUDA_HOME, no GK_SEAL_KEY, this script's own
+    settings (GK_MESH, GK_VIRTUAL_DEVICES) dropped."""
+    env = dict(os.environ)
+    for k in ("CUDA_HOME", "CUDA_PATH", "GK_SEAL_KEY", "GK_MESH",
+              "GK_VIRTUAL_DEVICES", "GK_JOIN_ASSERT"):
+        env.pop(k, None)
+    env["PATH"] = os.pathsep.join(
+        d for d in env.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+    if shutil.which("nvcc", path=env["PATH"]):
+        raise AssertionError("nvcc is still on the drills' PATH")
+    env[DRILL_CACHE_ENV] = cache_root
+    env[DRILL_OUT_ENV] = out_dir
+    return env
+
+
+def _drill_launches(records: list, key: str = "launches") -> dict:
+    total = {}
+    for rec in records:
+        for k, v in rec.get(key, {}).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_drill(name: str, records: list, cache_root: str) -> dict:
+    """A drill's records: every process loaded the ten baked libraries
+    sealed (ten hits, no miss, no build) from the baked directory, every
+    replica it spawned wrote one and ran on cuda:0, and the kernels ran:
+    K1 and K9 in the replicas' review batches for a replica drill, K1, K9
+    and K4 for the mesh drill, K7 and K8 for the join drill -> the
+    launches (the drill's process, the replicas' batches, the replicas'
+    totals)."""
+    from gatekeeper_tpu_torch import device as gdev
+
+    n = len(gdev.KERNEL_NAMES)
+    drills = [r for r in records if r["role"] == "drill"]
+    replicas = [r for r in records if r["role"] == "replica"]
+    if len(drills) != 1:
+        raise AssertionError(f"{name}: {len(drills)} drill records")
+    spawned = set(drills[0]["spawned"])
+    if {r["pid"] for r in replicas} != spawned or \
+            (name in REPLICA_DRILLS) != bool(spawned):
+        raise AssertionError(
+            f"{name}: replicas spawned {sorted(spawned)}, records of "
+            f"{sorted(r['pid'] for r in replicas)}")
+    for rec in records:
+        if rec["cache_log"] != dict.fromkeys(gdev.KERNEL_NAMES, "sealed") \
+                or rec["hits"] != n or rec["misses"] or \
+                rec["build_dir"] != os.path.join(cache_root,
+                                                 "torch_kernels"):
+            raise AssertionError(f"{name}: a {rec['role']} did not load the "
+                                 f"baked kernels sealed: {rec}")
+    for rec in replicas:
+        if rec["devices"] and rec["devices"] != ["cuda:0"]:
+            raise AssertionError(f"{name}: a replica ran on "
+                                 f"{rec['devices']}")
+    own = _drill_launches(drills)
+    batch = _drill_launches(replicas, "batch_launches")
+    every = _drill_launches(replicas)
+    if name in REPLICA_DRILLS:
+        want, got = ("match", "program_pack"), batch
+    elif name == "mesh_parity":
+        want, got = ("match", "program", "reduction"), own
+    else:
+        want, got = ("joinkeys", "joinlookup"), own
+    if any(not got.get(k) for k in want):
+        raise AssertionError(f"{name} launched {got}: no {want} on the "
+                             f"card")
+    return {"drill": own, "replica_batches": batch, "replicas": every,
+            "batches": sum(r["batches"] for r in replicas),
+            "replica_processes": len(replicas)}
+
+
+def drills_phase(smi: str) -> dict:
+    """Phase 16 -> the launches of every drill's processes."""
+    from gatekeeper_tpu_torch import device as gdev
+
+    cache_root = os.path.join(ROOT, "build", "baked_kernels")
+    out_root = os.path.join(ROOT, "build", "drill_records")
+    shutil.rmtree(out_root, ignore_errors=True)
+    log("bake", **bake_kernels(cache_root))
+    import torch
+
+    cards = torch.cuda.device_count()
+    total = dict.fromkeys(gdev.LAUNCHERS, 0)
+    procs = {}
+    try:
+        for wave in sorted({d[3] for d in DRILLS}):
+            for name, tool, flags, w in DRILLS:
+                if w != wave:
+                    continue
+                out_dir = os.path.join(out_root, name)
+                os.makedirs(out_dir)
+                env = runtime_env(cache_root, out_dir)
+                if name in ("mesh_parity", "join_parity") and cards < 4:
+                    env["GK_VIRTUAL_DEVICES"] = "4"
+                if name in REPLICA_DRILLS:
+                    flags = flags + ["--xla-cache-dir", cache_root]
+                cmd = [sys.executable, "-c", DRILL_ENTRY, ROOT,
+                       os.path.join(ROOT, "tools", tool),
+                       "--torch-device", DEVICE] + flags
+                with open(os.path.join(out_dir, "output.log"), "w") as f:
+                    procs[name] = (time.perf_counter(), subprocess.Popen(
+                        cmd, cwd=ROOT, env=env, stdout=f,
+                        stderr=subprocess.STDOUT))
+            # each drill's seconds from its start to its exit
+            ended, deadline = {}, time.perf_counter() + DRILL_TIMEOUT_S
+            while len(ended) < sum(1 for d in DRILLS if d[3] == wave):
+                for name, _tool, _flags, w in DRILLS:
+                    if w == wave and name not in ended and \
+                            procs[name][1].poll() is not None:
+                        ended[name] = time.perf_counter()
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"drills still running after "
+                                         f"{DRILL_TIMEOUT_S} s: "
+                                         f"{sorted(set(procs) - set(ended))}")
+                time.sleep(0.05)
+            for name, tool, _flags, w in DRILLS:
+                if w != wave:
+                    continue
+                t0, proc = procs[name]
+                rc, seconds = proc.returncode, ended[name] - t0
+                out_dir = os.path.join(out_root, name)
+                with open(os.path.join(out_dir, "output.log")) as f:
+                    out = f.read()
+                if rc != 0:
+                    raise AssertionError(f"{tool} exited {rc}:"
+                                         f"\n{out[-4000:]}")
+                records = []
+                for f in sorted(os.listdir(out_dir)):
+                    if f.endswith(".json"):
+                        with open(os.path.join(out_dir, f)) as fh:
+                            records.append(json.load(fh))
+                got = check_drill(name, records, cache_root)
+                for part in ("drill", "replicas"):
+                    for k, v in got[part].items():
+                        total[k] += v
+                log("drill", name=name, tool=tool, wave=wave, rc=0,
+                    seconds=seconds, nvidia_smi=smi, **got,
+                    said=[ln for ln in out.splitlines()
+                          if "ok" in ln or "clean" in ln][-2:])
+    finally:
+        for _t0, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log("drills_card", nvidia_smi=smi)
+    return total
+
+
 def merge_rows(into: dict, rows: dict):
     """Fold check_kernels rows of another run into ``into``: calls checked
     add up, the largest error stays, a timed row replaces an untimed."""
@@ -7775,13 +8095,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     tiers_launches = tiers_phase(args, client, driver, smi)
     log("tiers", seconds=time.perf_counter() - t0)
+
+    # 16. the operator's drills on the card, over kernels baked as
+    # Dockerfile.torch bakes them
+    t0 = time.perf_counter()
+    drills_launches = drills_phase(smi)
+    log("drills", seconds=time.perf_counter() - t0, nvidia_smi=smi)
     for name, row in kernel_rows.items():
         row["launches"] = (launches[name] + churn_launches[name]
                            + ref_launches[name] + mesh_launches[name]
                            + process_launches[name]
                            + restart_launches[name] + fleet_launches[name]
                            + serving_launches[name] + wire_launches[name]
-                           + tiers_launches[name])
+                           + tiers_launches[name] + drills_launches[name])
     log("checked", calls={k: r["calls_checked"]
                           for k, r in kernel_rows.items()})
 

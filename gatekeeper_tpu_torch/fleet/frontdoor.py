@@ -1141,7 +1141,21 @@ class FrontDoor:
                         if token is not None:
                             _deadline.pop(token)
 
-        self._server = ThreadingHTTPServer(("0.0.0.0", self.port), Handler)
+        # the listen backlog of EventFrontDoor's and the wire listener's
+        # sockets: socketserver's default of 5 overflows under a burst of
+        # new connections, the kernel drops their SYNs, and each client
+        # waits the 1 s SYN retransmission before its request (a 429
+        # shed then took ~1.03 s at the client)
+        server = ThreadingHTTPServer(("0.0.0.0", self.port), Handler,
+                                     bind_and_activate=False)
+        server.request_queue_size = 1024
+        try:
+            server.server_bind()
+            server.server_activate()
+        except BaseException:
+            server.server_close()
+            raise
+        self._server = server
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever, name="frontdoor", daemon=True

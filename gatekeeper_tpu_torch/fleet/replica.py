@@ -93,6 +93,9 @@ def _child_parser() -> argparse.ArgumentParser:
     p.add_argument("--admission-fail-open", action="store_true",
                    help="fail open on deadline/overload refusals "
                         "(passed through to the App)")
+    p.add_argument("--brownout-disable", action="store_true",
+                   help="disable the brownout ladder (passed through to "
+                        "the App)")
     p.add_argument("--no-seed-namespaces", action="store_true",
                    help="do not create Namespace objects for restored "
                         "pack rows in the local in-memory store")
@@ -333,6 +336,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         flags += ["--webhook-max-pending", str(args.webhook_max_pending)]
     if args.admission_fail_open:
         flags += ["--admission-fail-open"]
+    if args.brownout_disable:
+        flags += ["--brownout-disable"]
     dlog_dir = (args.decision_log_dir
                 or os.environ.get("GK_DECISION_LOG_DIR", ""))
     if dlog_dir:

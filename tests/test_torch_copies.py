@@ -6,8 +6,9 @@ port changed on purpose (the driver wiring, the parser, the device
 profiler and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
 fingerprint over the kernels' sources, where the snapshot writer and
 loader move the resident mask between the host and the device, the
-fleet replica's driver flags, and the numpy evaluation the np side
-calls).  A reader of the port reads only those."""
+fleet replica's driver and brownout flags, the threaded front door's listen backlog,
+and the numpy evaluation the np side calls).  A reader of the port reads
+only those."""
 
 import ast
 import pathlib
@@ -76,6 +77,13 @@ CHANGED = {
         # JAX package's does, when DEVICE_MIN_CELLS is 0
         "App._start_routing_calibration",
     },
+    "fleet/frontdoor.py": {
+        # the threaded door listens with a backlog of 1024, as
+        # EventFrontDoor and the wire listener do: socketserver's 5
+        # overflowed under the overload drill's burst of new connections,
+        # and a dropped SYN's 1 s retransmission made a 429 take ~1.03 s
+        "FrontDoor.start",
+    },
     "ops/npside.py": {
         # evaluates through ops/npeval.py, whose match and programs are
         # numpy's alone (no xp argument, numpy arrays out)
@@ -110,9 +118,10 @@ CHANGED = {
         # --driver interp|torch (default torch) and --torch-device
         # (default cuda), as main.build_parser has them: a replica runs
         # the card's kernels unless told otherwise, and without a card
-        # it fails to start (TorchDriver raises; no quiet fallback)
+        # it fails to start (TorchDriver raises; no quiet fallback);
+        # and --brownout-disable, as the App has it
         "_child_parser",
-        # both flags passed on to the App; GK_AOT_READ_MOSTLY dropped,
+        # the three flags passed on to the App; GK_AOT_READ_MOSTLY dropped,
         # since the kernel cache has no entries a replica could prune
         # (a library's name hashes its sources, a broken seal is rebuilt
         # under a temporary name and renamed into place)
@@ -132,6 +141,75 @@ TOOLS = {
         # TpuDriver, and an engine that fails to build exits 2
         "build_handler_from_snapshot", "_selftest_handler", "run_selftest",
         "_selftest_body", "main",
+    }),
+    # the operator's drills.  Every main takes --torch-device (default
+    # cuda) and argv; a card asked for and missing raises (select_device),
+    # never a quiet run on the CPU
+    "tools/check_render_parity_torch.py": ("tools/check_render_parity.py", {
+        "__doc__",
+        # the corpus is the port's copy (util/rendercorpus.py): the
+        # tests' module imports the JAX package
+        "_corpus_modules",
+        "main",
+    }),
+    "tools/check_observability_torch.py": ("tools/check_observability.py", {
+        "__doc__",
+        # the port's files: no ops/xlacache.py, ops/asynccompile.py or
+        # ops/aotcache.py (device.py's sealed build cache takes their
+        # place); obs/devprof.py added
+        "HOT_PATH_MODULES",
+        # the caches only the port records (the kernels' sealed build
+        # cache) documented in README.md's port section, not in the JAX
+        # package's docs
+        "_CACHE_CALL", "PORT_SECTION", "check_port_series_documented",
+        "run_checks",
+        "main",
+    }),
+    "tools/check_mesh_parity_torch.py": ("tools/check_mesh_parity.py", {
+        "__doc__",
+        # TorchDriver on DEVICE (main's --torch-device)
+        "DEVICE", "_driver",
+        # GK_VIRTUAL_DEVICES=4 slots of the one device, where the JAX tool
+        # asks jax.devices() and re-execs onto 8 virtual CPU devices
+        "_reexec_on_virtual_mesh", "main",
+    }),
+    "tools/check_join_parity_torch.py": ("tools/check_join_parity.py", {
+        "__doc__",
+        # TorchDriver on DEVICE, and no TpuDriver.DELTA_MASK_WAIT_S: the
+        # JAX tool waits for a resident mask its prefetch thread may still
+        # be computing; TorchDriver's sweep commits its mask resolved, so
+        # a delta sweep never waits on one
+        "DEVICE", "_driver",
+        "_reexec_on_virtual_mesh", "main",
+    }),
+    # the fleet drills: the client on DEVICE, the replicas the port's
+    # with --driver torch --torch-device DEVICE (no JAX_PLATFORMS env),
+    # their kernel cache CACHE_DIR (--xla-cache-dir) when given
+    "tools/check_fleet_parity_torch.py": ("tools/check_fleet_parity.py", {
+        "__doc__", "DEVICE", "CACHE_DIR", "run_checks", "main",
+    }),
+    "tools/check_self_heal_torch.py": ("tools/check_self_heal.py", {
+        "__doc__", "DEVICE", "CACHE_DIR", "run_checks", "main",
+    }),
+    "tools/check_overload_torch.py": ("tools/check_overload.py", {
+        "__doc__", "DEVICE", "CACHE_DIR", "run_checks", "main",
+    }),
+    # the chart generator over the port's manifest
+    # (deploy/gatekeeper-torch.yaml -> charts/gatekeeper-tpu-torch/)
+    "tools/helmify_torch.py": ("tools/helmify.py", {
+        "__doc__", "MANIFEST", "CHART",
+        # the chart's name and description
+        "CHART_YAML",
+        # the manifest's lines the knobs anchor on: the image, the GPU
+        # nodeSelector, nvidia.com/gpu, --driver=torch; the values
+        # gpuResource / gpuCount in place of tpuResource / tpuCount
+        "REPLACEMENTS", "VALUES_DEFAULTS", "README_PARAMS",
+        # the README's title, install lines and seal-key note
+        "render_readme",
+    }),
+    # the render corpus the render drill reads, a copy of the tests'
+    "gatekeeper_tpu_torch/util/rendercorpus.py": ("tests/render_corpus.py", {
+        "__doc__",
     }),
 }
 

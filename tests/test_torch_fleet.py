@@ -218,6 +218,28 @@ def test_the_replica_defaults_to_the_torch_driver_on_the_card():
         _child_parser().parse_args(["--replica-id", "r", "--driver", "tpu"])
 
 
+@pytest.mark.parametrize("flag", [[], ["--brownout-disable"]])
+def test_the_replica_passes_brownout_disable_to_the_app(monkeypatch, flag):
+    """The replica's App gets --brownout-disable exactly when the replica
+    was given it (the ladder on by default, as in the App)."""
+    import gatekeeper_tpu_torch.main as gkmain
+    from gatekeeper_tpu_torch.fleet import replica
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def app(args, kube=None):
+        seen.append(args)
+        raise Stop
+
+    monkeypatch.setattr(gkmain, "App", app)
+    with pytest.raises(Stop):
+        replica.main(["--replica-id", "r", "--torch-device", "cpu"] + flag)
+    assert seen[0].brownout_disable is bool(flag)
+
+
 def test_every_replica_restores_the_apps_snapshot(fleet):
     for h in fleet["handles"]:
         assert h.ready["restore_outcome"] == "restored", h.ready

@@ -17,8 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "gatekeeper_tpu")
 
 
 def _port_files():
-    files = sorted(PKG.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "replay_decisions_torch.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*_torch.py"))
     assert len(files) > 30
     return files
 
