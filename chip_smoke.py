@@ -217,8 +217,8 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      whose seal was broken is rebuilt, not loaded
  12. the fleet (fleet/, obs/fleetobs.py): three webhook replicas (python
      -m gatekeeper_tpu_torch.fleet.replica, --driver torch on the card,
-     --brownout-disable, spawned together by spawn_fleet) restore phase
-     10's snapshot
+     the default flags with the brownout ladder on, spawned together by
+     spawn_fleet) restore phase 10's snapshot
      (--snapshot-no-resync) and load phase 11's sealed kernels (ten hits,
      no miss, in each replica's /metrics).  Each replica runs under
      replica_watch, which counts in its process every review_batch with
@@ -242,12 +242,19 @@ Phases (one line each; any failure exits non-zero, nothing is caught):
      calibration the known launches, no launch outside them, and no
      batch diverted (route_decisions_total in its /metrics).  Under a ReplicaSupervisor one replica is SIGKILLed:
      it must come back restored and on the card, answer the 256 pods
-     byte for byte, no other replica respawned; drain replies drained.
-     One request of a pod no replica has seen, with a traceparent,
-     through a door (every replica at brownout level 0): /debug/fleet-traces
+     byte for byte, no other replica respawned, and read brownout level
+     0 with no edge alert from its ready line to 20 s past it (/statusz);
+     drain replies drained.  One request of a pod no replica has seen,
+     with a traceparent, through a door (every live replica at brownout
+     level 0 with no edge alert firing): /debug/fleet-traces
      joins the door's wire stages with the replica's pack and dispatch,
-     the first miss failing.  The live replicas' launches checked again;
-     the kernels line counts the replicas' own.  Every replica stopped,
+     the first miss failing.  Each replica's reactor heartbeats over 50
+     ms from its ready line on, each with the collections that overlapped
+     it and whether a calibration was in flight, are logged after the
+     calibration, the stream, the respawn and at the trace
+     (fleet_stalls), and each replica's count on a line of its own at
+     the end (fleet_stall_count).  The live replicas' launches checked
+     again; the kernels line counts the replicas' own.  Every replica stopped,
      the card's memory back; then phase 3's client reviews one chunk of
      2,048 stored pods, K1, K9 and K10 once each, held exactly against
      the plain versions
@@ -5110,13 +5117,12 @@ FLEET_CONTEXT_MIB = 480
 # and the seconds its replica half may take to join the door's trace
 FLEET_TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 FLEET_TRACE_WAIT_S = 20
-# every replica's flags, the respawn's too.  The brownout ladder is off:
-# at level 2 or more a replica keeps 5% of its traces, and one reactor
-# stall over 50 ms in a young replica's few hundred heartbeats fires the
-# edge objective's slow alert (99.9%), which holds level 3 for minutes;
-# two replicas of one run were held so, and the traced request had no
-# replica left that would keep it
-FLEET_FLAGS = ("--brownout-disable",)
+# every replica's flags, the respawn's too: the defaults, the brownout
+# ladder on
+FLEET_FLAGS = ()
+# the longest a respawned replica may take from its ready line to
+# brownout level 0 with no edge alert firing
+FLEET_CALM_S = 20
 
 # a replica's process under replica_watch: chip_smoke is imported from the
 # directory given first, then runs the replica's module
@@ -5138,19 +5144,54 @@ def replica_watch():
     {"cmd": "watch"} on stdin is answered here with all of that, the
     launch counts, the driver's device, its breaker's state and the card
     memory the process's allocator holds; every other line goes on to the
-    replica's command loop."""
+    replica's command loop.  The answer also holds every reactor
+    heartbeat over the edge objective's threshold (wall time, skew, and
+    whether a calibration was in flight), the count of heartbeats, the
+    reactor telemetry's snapshot, the edge objective's burn rates, the
+    alerts the ladder reads, and the ladder's level."""
     import runpy
     import threading
 
     import torch
 
     from gatekeeper_tpu_torch import device as gdev
-    from gatekeeper_tpu_torch.obs import brownout
+    from gatekeeper_tpu_torch.obs import brownout, reactorobs, slo
     from gatekeeper_tpu_torch.obs import trace as obstrace
     from gatekeeper_tpu_torch.ops.driver import TorchDriver
 
     pauses = GcPauses(keep=True)
     gc.callbacks.append(pauses)
+    # each heartbeat's skew, as the reactor feeds it to the edge objective
+    beats = {"n": 0, "slow": []}
+    calibrating = [0]
+    observe_edge = slo.observe_edge_latency
+
+    def observed(lag_s):
+        beats["n"] += 1
+        if lag_s > slo.get_engine().edge_threshold_s:
+            beats["slow"].append((time.time(), lag_s, calibrating[0] > 0))
+        observe_edge(lag_s)
+
+    slo.observe_edge_latency = observed
+    # each step of the brownout ladder, with the signals it read, the
+    # alerts it saw and every objective's burn rates
+    engine, ladder = slo.get_engine(), brownout.get_controller()
+    steps = []
+    tick = brownout.BrownoutController.tick
+
+    def ticked(self, now=None):
+        level = self.level
+        tick(self, now)
+        if self.level != level:
+            with engine._lock:
+                latched = sorted(map(list, engine._alerts_active))
+            steps.append({"wall": time.time(), "levels": [level, self.level],
+                          "signals": dict(self.last_signals),
+                          "alerts": latched,
+                          "burn": {name: engine.burn_rates(name)
+                                   for name in engine.objectives()}})
+
+    brownout.BrownoutController.tick = ticked
     calls, devices, traced, cals, drivers = {}, set(), [], [], []
     # the driver evaluates one batch at a time under its own lock; this
     # one makes each call's launches, and the calibration's, its own
@@ -5184,6 +5225,8 @@ def replica_watch():
         with lock:
             before = dict(gdev.launches)
             model = None
+            calibrating[0] += 1
+            t0 = time.time()
             try:
                 model = calibrate(self, *a, **kw)
                 if model is not None:
@@ -5193,9 +5236,10 @@ def replica_watch():
                     self.DEVICE_MIN_CELLS = 0
                 return model
             finally:
+                calibrating[0] -= 1
                 cals.append({"model": model, "launches": {
                     k: v - before[k] for k, v in gdev.launches.items()
-                    if v != before[k]}})
+                    if v != before[k]}, "wall": [t0, time.time()]})
                 if not any(d is self for d in drivers):
                     drivers.append(self)
 
@@ -5220,6 +5264,8 @@ def replica_watch():
         with lock:
             got = [json.loads(k) + [n] for k, n in sorted(calls.items())]
         cuda = torch.cuda.is_initialized()
+        with engine._lock:
+            latched = sorted(map(list, engine._alerts_active))
         print(json.dumps({
             "event": "watch", "pid": os.getpid(), "calls": got,
             "launches": {k: v for k, v in gdev.launches.items() if v},
@@ -5231,6 +5277,14 @@ def replica_watch():
             "pauses": pauses.stamps, "traced": traced,
             "calibrations": list(cals),
             "breakers": [d.breaker.state for d in drivers],
+            "heartbeats": {"n": beats["n"], "slow": list(beats["slow"])},
+            "reactor": reactorobs.snapshot()["loops"],
+            "edge_burn": engine.burn_rates(slo.EDGE_LATENCY),
+            "alerts_latched": latched,
+            "brownout": {"level": ladder.level,
+                         "transitions": ladder.transitions,
+                         "signals": dict(ladder.last_signals),
+                         "steps": list(steps)},
             "reply_to": cmd.get("id")}), flush=True)
 
     class Commands:
@@ -5290,12 +5344,22 @@ class WatchedSpawns:
         replica.subprocess = self._saved
         return False
 
+    def ready_wall(self, handle) -> float:
+        """The wall time of a replica's ready line."""
+        return self.started[handle.proc.pid] + handle.spawn_s
+
     def pauses(self, handle, watched: dict) -> dict:
         """A replica's collector pauses before its ready line, from its
         watch."""
-        return GcPauses.before(watched["pauses"],
-                               self.started[handle.proc.pid]
-                               + handle.spawn_s)
+        return GcPauses.before(watched["pauses"], self.ready_wall(handle))
+
+    def stalls(self, at: str, pairs, smi: str) -> dict:
+        """Log each (handle, watch)'s stalls from its ready line on ->
+        "replica id:pid" -> its report."""
+        out = {f"{h.replica_id}:{h.proc.pid}":
+               replica_stalls(h, w, self.ready_wall(h)) for h, w in pairs}
+        log("fleet_stalls", at=at, replicas=out, card=smi)
+        return out
 
 
 def watch_replica(h) -> dict:
@@ -5304,6 +5368,88 @@ def watch_replica(h) -> dict:
     if got.get("pid") != h.proc.pid:
         raise AssertionError(f"replica {h.replica_id}'s watch: {got}")
     return got
+
+
+def replica_status(h) -> dict:
+    """A replica's /statusz: the SLO engine's evaluation and the brownout
+    ladder's status, as a probe reads them."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{h.port}/statusz",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def calm_of(status: dict) -> dict:
+    """A /statusz payload -> the ladder's level and transitions and the
+    edge objective's alerts that fire."""
+    from gatekeeper_tpu_torch.obs.slo import EDGE_LATENCY
+
+    edge = status["slo"]["objectives"][EDGE_LATENCY]
+    return {"level": status["brownout"]["level"],
+            "transitions": status["brownout"]["transitions"],
+            "edge_alerts": sorted(p for p, on in edge["alerts"].items()
+                                  if on),
+            "edge_burn": edge["burn_rates"],
+            "degraded": status["slo"]["degraded"]}
+
+
+def await_calm(h, ready_wall: float) -> dict:
+    """Read a replica's /statusz each half second until FLEET_CALM_S past
+    its ready line (once, where that is past): every reading at brownout
+    level 0 with no ladder step and no edge alert firing -> the last
+    reading and their count."""
+    n = 0
+    while True:
+        got = calm_of(replica_status(h))
+        n += 1
+        if got["level"] or got["transitions"] or got["edge_alerts"]:
+            raise AssertionError(
+                f"replica {h.replica_id}, {time.time() - ready_wall:.1f} s "
+                f"after its ready line, browned out or alerts: {got}")
+        if time.time() >= ready_wall + FLEET_CALM_S:
+            return {**got, "readings": n,
+                    "after_ready_s": time.time() - ready_wall}
+        time.sleep(0.5)
+
+
+def replica_stalls(h, watched: dict, ready_wall: float) -> dict:
+    """A replica's watch -> its heartbeats over the edge objective's
+    threshold from its ready line on, each with its skew, the collector
+    pauses that overlapped it and whether a calibration was in flight;
+    its collections after ready; the reactor telemetry's stalls and
+    culprits, the edge objective's burn rates, the alerts the ladder
+    reads, and the ladder's level.  A heartbeat is put down to the
+    collector where a pause overlapped it, else to a calibration in
+    flight, else to neither."""
+    pauses = watched["pauses"]
+    slow, causes = [], {"collector": 0, "calibration": 0, "neither": 0}
+    for wall, skew, cal in watched["heartbeats"]["slow"]:
+        if wall < ready_wall:
+            continue
+        gcs = [(ms, g) for t, ms, g in pauses
+               if t >= wall - skew and t - ms / 1e3 <= wall]
+        cause = "collector" if gcs else "calibration" if cal else "neither"
+        causes[cause] += 1
+        slow.append({"after_ready_s": round(wall - ready_wall, 3),
+                     "skew_ms": round(skew * 1e3, 3), "calibrating": cal,
+                     "gc": [[round(ms, 3), g] for ms, g in gcs]})
+    after = [(ms, g) for t, ms, g in pauses if t >= ready_wall]
+    out = {"replica": h.replica_id, "pid": h.proc.pid,
+           "heartbeats": watched["heartbeats"]["n"],
+           "over_50ms": len(slow), "causes": causes, "slow": slow[:24],
+           "gc_after_ready": {
+               "n": len(after), "gen2": sum(1 for _ms, g in after if g == 2),
+               "ms": sum(ms for ms, _g in after),
+               "max_ms": max((ms for ms, _g in after), default=0.0)},
+           "calibrations": [c["wall"] for c in watched["calibrations"]],
+           "reactor": [{k: loop[k] for k in ("loop", "stalls",
+                                              "slow_callbacks", "culprits")}
+                       for loop in watched["reactor"]],
+           "edge_burn": watched["edge_burn"],
+           "alerts_latched": watched["alerts_latched"],
+           "brownout": watched["brownout"]}
+    return out
 
 
 def check_on_card(h, watched: dict) -> dict:
@@ -5611,7 +5757,7 @@ def _joined(door_port: int, trace_id: str, wait_s: float):
 
 
 def fleet_trace(door_port: int, collector_targets, live, body: bytes,
-                smi: str) -> dict:
+                watch, smi: str) -> dict:
     """One admission through the door with a caller's traceparent, then
     the door's /debug/fleet-traces -> the joined trace's stages.  The
     first trace that does not join within FLEET_TRACE_WAIT_S fails the
@@ -5620,18 +5766,19 @@ def fleet_trace(door_port: int, collector_targets, live, body: bytes,
     collector could not fetch, whether the replica's tracer kept the
     trace (its watch), the replicas' brownout levels and this process's
     collector pauses in the wait.  Every live replica must report
-    brownout level 0 (FLEET_FLAGS: its ladder is off, so its tracer keeps
-    every trace)."""
+    brownout level 0 with no edge alert firing (its ladder is on; at
+    level 2 its tracer would keep 5% of traces)."""
     from gatekeeper_tpu_torch.fleet.frontdoor import WIRE_STAGES
     from gatekeeper_tpu_torch.obs import trace as obstrace
     from gatekeeper_tpu_torch.obs.fleetobs import TraceCollector
 
     collector = TraceCollector(collector_targets, timeout_s=10.0).install()
-    levels = {h.replica_id: h.command({"cmd": "ping"}, timeout_s=60)
-              .get("brownout_level") for h in live}
-    if any(levels.values()):
-        raise AssertionError(f"a replica browned out with its ladder "
-                             f"off: {levels}")
+    watch.stalls("the trace", [(h, watch_replica(h)) for h in live], smi)
+    calm = {h.replica_id: calm_of(replica_status(h)) for h in live}
+    levels = {rid: c["level"] for rid, c in calm.items()}
+    if any(c["level"] or c["edge_alerts"] for c in calm.values()):
+        raise AssertionError(f"a replica browned out or its edge "
+                             f"objective alerts: {calm}")
     pauses = GcPauses()
     gc.callbacks.append(pauses)
     try:
@@ -5764,7 +5911,8 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                                          f"card: {apps}")
                 # its background calibration, before any counted traffic
                 t_cal = time.perf_counter()
-                card = check_on_card(h, await_replica_calibration(h))
+                watched[h.proc.pid] = await_replica_calibration(h)
+                card = check_on_card(h, watched[h.proc.pid])
                 card["calibration_wait_s"] = time.perf_counter() - t_cal
                 ready.append({"replica": h.replica_id, "pid": h.proc.pid,
                               "spawn_s": h.spawn_s, "ready_s": h.ready_s,
@@ -5779,6 +5927,8 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             if taken < need:
                 raise AssertionError(f"the replicas took {taken} MiB of the "
                                      f"card, less than {need}")
+            watch.stalls("calibrated", [(h, watched[h.proc.pid])
+                                        for h in handles], smi)
             log("fleet_ready", replicas=ready, spawn_wall_s=spawn_wall,
                 sequential=False, pids_visible=visible,
                 compute_apps_before=apps0, compute_apps_after=apps,
@@ -5819,9 +5969,12 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
             # then each replica's launches, counted in its process (the
             # one killed below included)
             fleet_stream(handles, smi)
+            for h in handles:
+                watched[h.proc.pid] = watch_replica(h)
+            watch.stalls("after the stream", [(h, watched[h.proc.pid])
+                                              for h in handles], smi)
             counted = {}
             for i, h in enumerate(handles):
-                watched[h.proc.pid] = watch_replica(h)
                 counted[h.replica_id] = check_replica_launches(
                     h, watched[h.proc.pid], streams=2 if i == 0 else 1)
             log("fleet_launches", at="after the stream", replicas=counted,
@@ -5865,8 +6018,11 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                     cache != {"hit": n_sealed, "miss": 0}:
                 raise AssertionError(f"the respawn: {respawn.ready}, "
                                      f"{cache}")
-            fresh_card = check_on_card(respawn,
-                                       await_replica_calibration(respawn))
+            watched[respawn.proc.pid] = await_replica_calibration(respawn)
+            fresh_card = check_on_card(respawn, watched[respawn.proc.pid])
+            calm = await_calm(respawn, watch.ready_wall(respawn))
+            watch.stalls("respawned", [(respawn,
+                                        watch_replica(respawn))], smi)
             got, _ = fleet_pass(respawn.port, "respawned", bodies,
                                 review_sigs, smi)
             if got != want:
@@ -5878,8 +6034,8 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                 killed_to_running_s=back_s, device_mib_freed=freed_mib,
                 last_restart_s=status[victim.replica_id]["last_restart_s"],
                 ready_s=respawn.ready_s, spawn_s=respawn.spawn_s,
-                respawned=fresh_card, restarts=status, drain=drained,
-                card=smi)
+                respawned=fresh_card, calm=calm, restarts=status,
+                drain=drained, card=smi)
 
             # one trace across the hop, through a door over the live
             # replicas (the drained one answers no admission)
@@ -5889,18 +6045,29 @@ def fleet_phase(args, client, pods, review_sigs, batch, batch_sigs,
                              probe_interval_s=3600.0).start()
             doors.append(door)
             fleet_trace(door.port, sup.trace_targets, live, trace_body,
-                        smi)
+                        watch, smi)
             if {rid: s["restarts"] for rid, s in sup.status().items()
                     if rid != victim.replica_id} != others:
                 raise AssertionError(f"a respawn the phase did not cause: "
                                      f"{sup.status()}")
 
             # every live replica's launches at the end, and no divert
+            for h in sup.handles():
+                watched[h.proc.pid] = watch_replica(h)
+            # each replica's heartbeats over 50 ms since its ready line
+            # (the killed one's to its last watch), a line each
+            ends = watch.stalls("the end", [
+                (h, watched[h.proc.pid]) for h in [victim] + sup.handles()],
+                smi)
+            for end in ends.values():
+                log("fleet_stall_count", replica=end["replica"],
+                    pid=end["pid"], over_50ms=end["over_50ms"],
+                    heartbeats=end["heartbeats"], causes=end["causes"],
+                    card=smi)
             counted = {}
             for h in sup.handles():
                 streams = 0 if h is respawn else 2 if h is handles[0] \
                     else 1
-                watched[h.proc.pid] = watch_replica(h)
                 counted[h.replica_id] = check_replica_launches(
                     h, watched[h.proc.pid], streams)
                 if replica_diverts(h.metrics_port):

@@ -85,6 +85,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import marshal
 import os
 import threading
 import time
@@ -194,6 +195,15 @@ def _evaluated_part(constraint):
         out["metadata"] = {k: v for k, v in md.items()
                            if k != "resourceVersion"}
     return out
+
+
+def _memo_entry(r) -> tuple:
+    """One result as the request memo keeps it: (msg, details, action).
+    The memos keep their values as marshal's bytes, one object the
+    collector never tracks: an entry of tuples and lists kept three
+    tracked objects a result, each scanned by every collection after."""
+    return (r.msg, (r.metadata or {}).get("details", {}),
+            r.enforcement_action)
 
 
 def _constraint_name(constraint: dict) -> str:
@@ -352,12 +362,14 @@ class TorchDriver(InterpDriver):
         }
         # the review-path render memo, keyed by content (kind, constraint
         # name, frozen review without its uid), valid for one
-        # constraint-side epoch; and the whole-request memo: content ->
-        # (epoch, {(kind, name): [(msg, details, action), ...]}, flat
-        # replay list), whose entries of older epochs are repaired through
-        # the constraint-side change log (only the constraints that
-        # changed re-evaluate)
-        self._review_memo: Dict[Tuple, list] = {}
+        # constraint-side epoch, its values a cell's violations; and the
+        # whole-request memo: content -> (epoch, the flat replay list of
+        # (kind, name, (msg, details, action)) sorted by (kind, name)),
+        # whose entries of older epochs are repaired through the
+        # constraint-side change log (only the constraints that changed
+        # re-evaluate).  Both keep their values as marshal's bytes
+        # (_memo_entry)
+        self._review_memo: Dict[Tuple, bytes] = {}
         self._review_memo_epoch = -1
         self._request_memo: Dict[object, tuple] = {}
         # (kind, name) of constraints whose cells are not content-
@@ -1578,13 +1590,14 @@ class TorchDriver(InterpDriver):
                 frozen_review = rowview.frozen()
             memo_review = strip_request_meta(frozen_review)
         mkey = (kind, _constraint_name(constraint), memo_review)
-        violations = self._review_memo.get(mkey)
-        if violations is None:
-            violations = self._eval_cell(constraint, kind, review,
-                                         frozen_review, inventory, rowview)
-            if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
-                self._review_memo.clear()
-            self._review_memo[mkey] = violations
+        kept = self._review_memo.get(mkey)
+        if kept is not None:
+            return marshal.loads(kept)
+        violations = self._eval_cell(constraint, kind, review,
+                                     frozen_review, inventory, rowview)
+        if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
+            self._review_memo.clear()
+        self._review_memo[mkey] = marshal.dumps(violations)
         return violations
 
     def _walk_one(self, results: List[Result], kind: str,
@@ -1729,8 +1742,11 @@ class TorchDriver(InterpDriver):
             if hit is None:
                 return None, memo_key
             if hit[0] != self._cs_epoch:
+                per_key: Dict[Tuple[str, str], list] = {}
+                for kind, name, entry in marshal.loads(hit[1]):
+                    per_key.setdefault((kind, name), []).append(entry)
                 per_key = self._repair_memo_entry(
-                    hit[0], hit[1], review, frozen_review, memo_review,
+                    hit[0], per_key, review, frozen_review, memo_review,
                     self._inventory_for_render(),
                     self.store.cached_namespace,
                 )
@@ -1738,25 +1754,27 @@ class TorchDriver(InterpDriver):
                     return None, memo_key  # the log overran: evaluate
                 # flattened once per repair, so each replay at this epoch
                 # is O(violations)
-                flat = [
+                flat = marshal.dumps([
                     (kind, name, entry)
                     for kind in sorted(self.constraints)
                     for name in sorted(self.constraints[kind])
                     for entry in per_key.get((kind, name), ())
-                ]
-                hit = (self._cs_epoch, per_key, flat)
+                ])
+                hit = (self._cs_epoch, flat)
                 self._request_memo[memo_review] = hit
-            # rebuilt per hit down to the details: a consumer's mutation
-            # of a replayed result must never reach a later replay
+            # rebuilt per hit down to the details (marshal's load makes
+            # new objects): a consumer's mutation of a replayed result
+            # must never reach a later replay
             out = [
                 Result(
                     msg=msg,
-                    metadata={"details": copy.deepcopy(details)},
+                    metadata={"details": details},
                     constraint=self.constraints[kind][name],
                     review=review,
                     enforcement_action=action,
                 )
-                for kind, name, (msg, details, action) in hit[2]
+                for kind, name, (msg, details, action)
+                in marshal.loads(hit[1])
             ]
             return out, memo_key
 
@@ -1771,11 +1789,7 @@ class TorchDriver(InterpDriver):
         out: List[Result] = []
         self._walk_one(out, kind, constraint, review, frozen_review,
                        memo_review, inventory, cached_ns, rowview)
-        return [
-            (r.msg, copy.deepcopy((r.metadata or {}).get("details", {})),
-             r.enforcement_action)
-            for r in out
-        ]
+        return [_memo_entry(r) for r in out]
 
     def _repair_memo_entry(self, entry_epoch, per_key, review,
                            frozen_review, memo_review, inventory,
@@ -1839,16 +1853,13 @@ class TorchDriver(InterpDriver):
         for r in results:
             key = (r.constraint.get("kind", ""),
                    (r.constraint.get("metadata") or {}).get("name", ""))
-            entry = (r.msg,
-                     copy.deepcopy((r.metadata or {}).get("details", {})),
-                     r.enforcement_action)
-            per_key.setdefault(key, []).append(entry)
-        flat = [
+            per_key.setdefault(key, []).append(_memo_entry(r))
+        flat = marshal.dumps([
             (kind, name, entry)
             for kind, name in sorted(per_key)
             for entry in per_key[(kind, name)]
-        ]
-        self._request_memo[memo_review] = (self._cs_epoch, per_key, flat)
+        ])
+        self._request_memo[memo_review] = (self._cs_epoch, flat)
 
     # ---- the device's service model ----------------------------------------
 
@@ -2206,7 +2217,7 @@ class TorchDriver(InterpDriver):
                 mkey = (kind, name, row.memo_frozen())
                 hit = self._review_memo.get(mkey)
                 if hit is not None:
-                    resolved[idx] = hit
+                    hit = resolved[idx] = marshal.loads(hit)
                     memo_hits += 1
                     if cost_on:
                         attm[i] = attm.get(i, 0) + 1
@@ -2265,7 +2276,7 @@ class TorchDriver(InterpDriver):
         for mkey, idx in stores:
             if len(self._review_memo) >= self.REVIEW_MEMO_MAX:
                 self._review_memo.clear()
-            self._review_memo[mkey] = resolved[idx]
+            self._review_memo[mkey] = marshal.dumps(resolved[idx])
         for idx, (ri, i) in enumerate(cells):
             kind, _name, constraint = ordered[i]
             review = reviews[ri]

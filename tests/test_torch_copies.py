@@ -6,8 +6,9 @@ port changed on purpose (the driver wiring, the parser, the device
 profiler and the routing calibration of main.py, compilestats' pytree walk without JAX, the code
 fingerprint over the kernels' sources, where the snapshot writer and
 loader move the resident mask between the host and the device, the
-fleet replica's driver and brownout flags, the threaded front door's listen backlog,
-and the numpy evaluation the np side calls).  A reader of the port reads
+fleet replica's driver and brownout flags and its warm ready probe, the threaded
+front door's listen backlog, the webhook's generational collector sweeper, and the
+numpy evaluation the np side calls).  A reader of the port reads
 only those."""
 
 import ast
@@ -114,6 +115,17 @@ CHANGED = {
         # the mesh's shards, without jax.device_put
         "SnapshotLoader._restore_delta",
     },
+    "webhook/server.py": {
+        # the collector's sweeper is generational (gc_sweep): each sweep
+        # collects the young generations, and the old one only once it
+        # has grown by a quarter since its last collection.  The JAX
+        # package's full collection every 5 s scanned all the serving
+        # state a replica keeps (its request memo's entries), 62-567 ms
+        # with the GIL held on an H100's host: each a reactor stall over
+        # the edge objective's 50 ms, which held young replicas at
+        # brownout 3
+        "gc_sweep", "WebhookServer.start",
+    },
     "fleet/replica.py": {
         # --driver interp|torch (default torch) and --torch-device
         # (default cuda), as main.build_parser has them: a replica runs
@@ -124,8 +136,16 @@ CHANGED = {
         # the three flags passed on to the App; GK_AOT_READ_MOSTLY dropped,
         # since the kernel cache has no entries a replica could prune
         # (a library's name hashes its sources, a broken seal is rebuilt
-        # under a temporary name and renamed into place)
+        # under a temporary name and renamed into place); and the first
+        # evaluation paid through the client before the ready probe
         "main",
+        # the ready probe's request built by _probe_request, which main's
+        # first evaluation reviews too: the admission objective counts the
+        # probe, and a probe that paid the first evaluation (slower than
+        # its 100 ms) fired its alerts once a young replica had served ten
+        # requests, stepping its brownout ladder up (a respawn in
+        # chip_smoke's phase 12 at level 1)
+        "_probe_request", "_probe_ready",
     },
 }
 
@@ -191,6 +211,9 @@ TOOLS = {
     "tools/check_self_heal_torch.py": ("tools/check_self_heal.py", {
         "__doc__", "DEVICE", "CACHE_DIR", "run_checks", "main",
     }),
+    # the overload drill's run_checks also freezes what its process held
+    # before the drill while it drives the doors: a full collection over
+    # a test worker's heap inside a burst was charged to the door
     "tools/check_overload_torch.py": ("tools/check_overload.py", {
         "__doc__", "DEVICE", "CACHE_DIR", "run_checks", "main",
     }),

@@ -34,6 +34,55 @@ def test_fleet_sheds_fast_and_keeps_verdicts_under_saturation():
     assert chk.run_checks(edge="both") == []
 
 
+def test_the_doors_are_driven_with_the_prior_heap_frozen(monkeypatch):
+    """What the drill's process held before the drill is out of the
+    collector's generations while each door is driven, and back in them
+    after: a full collection over a test worker's heap inside a burst
+    stalls the door and its clients alike, and the door-shed p99 then
+    charges the collector to the door."""
+    import gc
+
+    from gatekeeper_tpu_torch import fleet
+
+    class Handle:
+        wire_port = 1
+
+        def __init__(self, i):
+            self.replica_id = f"r{i}"
+
+        def backend(self):
+            return None
+
+        wire_backend = backend
+
+        def stop(self):
+            pass
+
+    class Door:
+        def __init__(self, backends, **kw):
+            pass
+
+        def start(self):
+            return self
+
+    held = [[i] for i in range(1000)]
+    seen = []
+
+    def drive(door, edge, reqs, bodies, verdicts):
+        seen.append((edge, any(o is held for o in gc.get_objects()),
+                     gc.get_freeze_count() > len(held)))
+        return []
+
+    monkeypatch.setattr(fleet, "spawn_fleet",
+                        lambda n, **kw: [Handle(i) for i in range(n)])
+    monkeypatch.setattr(fleet, "FrontDoor", Door)
+    monkeypatch.setattr(fleet, "EventFrontDoor", Door)
+    monkeypatch.setattr(chk, "_drive_door", drive)
+    assert chk.run_checks(edge="both") == []
+    assert seen == [("threaded", False, True), ("evloop", False, True)]
+    assert any(o is held for o in gc.get_objects())
+
+
 def test_the_bounds_are_the_jax_tools():
     import check_overload as jax_chk
 

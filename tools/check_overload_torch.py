@@ -218,6 +218,7 @@ def run_checks(edge: str = "evloop") -> list:
     the fleet spawn dominates the tool's runtime, and the contract
     being asserted is a property of the doors, not of the replicas.
     """
+    import gc
     import shutil
 
     from gatekeeper_tpu_torch.fleet import EventFrontDoor, FrontDoor, spawn_fleet
@@ -231,6 +232,7 @@ def run_checks(edge: str = "evloop") -> list:
     os.makedirs(snap_dir)
     os.makedirs(cache_dir, exist_ok=True)
     handles: list = []
+    frozen = False
     try:
         client = build_driver(N_TEMPLATES, N_RESOURCES, device=DEVICE)
         client.audit_capped(50)
@@ -246,6 +248,19 @@ def run_checks(edge: str = "evloop") -> list:
                          "--webhook-max-pending", str(MAX_PENDING)],
         )
         edges = ("threaded", "evloop") if edge == "both" else (edge,)
+        # the doors and the burst's clients share this process with
+        # whatever it held before the drill (a test worker's earlier
+        # files), and a full collection over that heap during a burst
+        # stalls the door and its clients alike; frozen, it is out of
+        # the collector's generations while the drill measures the door
+        t0 = time.perf_counter()
+        gc.collect()
+        gc.freeze()
+        frozen = True
+        print(f"overload: the process held {gc.get_freeze_count()} "
+              f"objects; one full collection over them took "
+              f"{(time.perf_counter() - t0) * 1e3:.1f}ms; frozen while "
+              "the doors are driven", file=sys.stderr)
         for e in edges:
             if e == "evloop":
                 missing = [h.replica_id for h in handles if not h.wire_port]
@@ -269,6 +284,8 @@ def run_checks(edge: str = "evloop") -> list:
                 for p in _drive_door(door, e, reqs, bodies, oracle_verdicts))
         return problems
     finally:
+        if frozen:
+            gc.unfreeze()
         for h in handles:
             h.stop()
         shutil.rmtree(root, ignore_errors=True)
